@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the port's CUDA
-kernels, holds each against its plain PyTorch version at the main path's
-shapes, and drives the CapFilt main path at full BLIP-base/384 width.
+kernels, holds each against its plain PyTorch version at the main paths'
+shapes, and drives the two main paths at full BLIP-base width: CapFilt
+(384 px) and the caption fine-tuning step (224 px).
 
     python3 chip_smoke.py
 
@@ -22,7 +23,22 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   6. in-situ check: the captioner encode once through the kernel and once
      through the twin, with the embeddings' max abs diff (bf16, one block
      and twelve; fp32) and the caption token agreement (reported, not a
-     pass bar: bf16 beam search turns ulps into different tokens).
+     pass bar: bf16 beam search turns ulps into different tokens);
+  7. training kernels: the forward kernel with its logsumexp rows against
+     its twin (o and lse) at the ViT shapes and the 224-px trainer's
+     (48, 12, 197, 64), timed against the inference launch; the backward
+     kernel against its twin, given the same (o, lse), at (48, 12, 197, 64)
+     and (32, 12, 577, 64), bf16 and fp32, on the strided views the step
+     passes, with the backward of F.scaled_dot_product_attention timed as a
+     yardstick only;
+  8. training main path: make_caption_train_step at full width (ViT-B/16
+     224 px, MED from configs/med_config.json), synthetic weights, one
+     fixed batch of 12 videos x 4 frames with 40-token captions, bf16, MED
+     remat on, 8 steps: finite losses, the last below the first, non-zero
+     ViT qkv gradients, and exactly 12 forward-with-lse and 12 backward
+     launches per step; steady step ms (CUDA events), samples/s, peak memory;
+  9. in-situ check of the backward: one ViT block's input gradient and qkv
+     weight gradient through the kernels and through the twins (reported).
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -75,12 +91,13 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(q, k, dtype):
-    """Least time for the call: q, k, v read once and o written once over
-    HBM, or its 4*B*H*Lq*Lk*D operations at the dtype's peak rate."""
+def attention_bound_ms(q, k, dtype, with_lse=False):
+    """Least time for the call: q, k, v read once and o (and the fp32 lse
+    rows) written once over HBM, or its 4*B*H*Lq*Lk*D operations at the
+    dtype's peak rate."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    nbytes = (2 * B * H * Lq * D + 2 * B * H * Lk * D) * q.element_size()
+    nbytes = (2 * B * H * Lq * D + 2 * B * H * Lk * D) * q.element_size() + with_lse * B * H * Lq * 4
     flops = 4 * B * H * Lq * Lk * D
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -301,6 +318,275 @@ def in_situ_check(engine, fa, frames, vit_cfg, med_cfg):
             "caption_token_agreement_bf16": agree, "frames": int(x.shape[0])}
 
 
+# ---------------------------------------------------------------------------
+# training: the forward with logsumexp rows, the backward, the train step
+# ---------------------------------------------------------------------------
+
+# kernel vs twin, lse rows: fp32 summation order; in bf16 one flipped
+# rounding of a p term moves lse by <= 2**-8 (l >= 1)
+LSE_ATOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+# backward kernel vs twin, max abs error over the largest twin gradient:
+# fp32 summation order, which can move a bf16 rounding of ds or of the
+# outputs by one ulp (2**-8 relative)
+BWD_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+TRAIN_VIDEOS, TRAIN_FRAMES, TRAIN_TOKENS, TRAIN_STEPS = 12, 4, 40, 8
+
+
+def attention_bwd_bound_ms(q, k, dtype):
+    """Least time for the backward: q, k, v, o, g and lse read once, dq, dk
+    and dv written once, or its five products (q kᵀ, g vᵀ, pᵀ g, dsᵀ q,
+    ds k; 10·B·H·Lq·Lk·D operations) at the dtype's peak rate."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    nbytes = (4 * B * H * Lq * D + 4 * B * H * Lk * D) * q.element_size() + B * H * Lq * 4
+    flops = 10 * B * H * Lq * Lk * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _train_views(B, L, gen, device, dtype):
+    """q, k, v as head-split views of one QKV projection and g as the head
+    split of a merge_heads gradient, as the train step hands them over."""
+    from vidil_tpu_torch.models.layers import split_heads
+
+    qkv = torch.randn((B, L, 3 * 768), generator=gen, device=device).to(dtype)
+    q, k, v = (split_heads(t, 12) for t in qkv.chunk(3, dim=-1))
+    g = split_heads(torch.randn((B, L, 768), generator=gen, device=device).to(dtype), 12)
+    return q, k, v, g
+
+
+def check_fwd_lse(fa, device):
+    """Phase 7a: the forward with lse rows vs its twin, and its time
+    against the inference launch on the same inputs."""
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, L in (("vit_self_attention", 32, 577), ("train_224", 48, 197)):
+            for layout in ("contiguous", "views"):
+                q, k, v, _ = _train_views(B, L, gen, device, dtype)
+                if layout == "contiguous":
+                    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+                o, lse = fa._launch(q, k, v, with_lse=True)
+                torch.cuda.synchronize()
+                want_o, want_lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K,
+                                                          return_lse=True)
+                err = (o.float() - want_o.float()).abs().max().item()
+                lse_err = (lse - want_lse).abs().max().item()
+                ok = (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+                      and err <= ATOL[dtype] and lse_err <= LSE_ATOL[dtype])
+                bound, bound_by = attention_bound_ms(q, k, dtype, with_lse=True)
+                row = dict(shape=label, layout=layout, dtype=str(dtype).replace("torch.", ""),
+                           q=[B, 12, L, 64], max_abs_err=err, lse_max_abs_err=lse_err,
+                           atol=ATOL[dtype], lse_atol=LSE_ATOL[dtype],
+                           ms=time_ms(lambda: fa._launch(q, k, v, with_lse=True)),
+                           inference_ms=time_ms(lambda: fa._launch(q, k, v)),
+                           plain_ms=time_ms(lambda: fa.flash_attention_ref(
+                               q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=True)),
+                           library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                           bound_ms=bound, bound_by=bound_by)
+                log("kernel check (fwd with lse):", json.dumps(row))
+                rows.append(row)
+                if not ok:
+                    raise SystemExit(f"flash_attention_fwd_lse disagrees with its twin: {row}")
+    return rows
+
+
+def check_bwd(fa, device):
+    """Phase 7b: the backward kernel vs its twin on the same (o, lse),
+    bf16 and fp32, on the step's strided views."""
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, L in (("train_224", 48, 197), ("train_384", 32, 577)):
+            q, k, v, g = _train_views(B, L, gen, device, dtype)
+            o, lse = fa._launch(q, k, v, with_lse=True)
+            got = fa._launch_bwd(q, k, v, o, lse, g)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_ref(q, k, v, o, lse, g)
+            scale = max(w.float().abs().max().item() for w in want)
+            errs = {n: (a.float() - b.float()).abs().max().item()
+                    for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+            again = fa._launch_bwd(q, k, v, o, lse, g)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = (all(bool(torch.isfinite(a).all()) for a in got) and bitwise
+                  and max(errs.values()) <= BWD_RTOL[dtype] * scale)
+            qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs)
+            bound, bound_by = attention_bwd_bound_ms(q, k, dtype)
+            row = dict(shape=label, layout="views", dtype=str(dtype).replace("torch.", ""),
+                       q=[B, 12, L, 64], max_abs_err=max(errs.values()), errs=errs,
+                       max_abs_grad=scale, rtol=BWD_RTOL[dtype], run_to_run_bitwise=bitwise,
+                       ms=time_ms(lambda: fa._launch_bwd(q, k, v, o, lse, g)),
+                       plain_ms=time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, g)),
+                       library_ms=time_ms(lambda: torch.autograd.grad(
+                           out, (qs, ks, vs), g, retain_graph=True)),
+                       bound_ms=bound, bound_by=bound_by)
+            log("kernel check (bwd):", json.dumps(row))
+            rows.append(row)
+            if not ok:
+                raise SystemExit(f"flash_attention_bwd disagrees with its twin: {row}")
+    return rows
+
+
+def make_train_batch(device):
+    """One fixed batch: 12 videos x 4 frames at 224 px (normalized noise),
+    40-token captions: [DEC], the "a video of " prompt, random words, [SEP],
+    pads after captions of 20-40 tokens."""
+    import os
+
+    from vidil_tpu_torch.tokenizer import BlipTokenizer, write_bench_vocab
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "vocab.txt")
+        write_bench_vocab(vocab)
+        tok = BlipTokenizer(vocab)
+    prompt = tok.encode("a video of ")[:-1]
+    prompt[0] = tok.bos_token_id
+    rng = np.random.default_rng(0)
+    ids = np.zeros((TRAIN_VIDEOS, TRAIN_TOKENS), np.int64)
+    mask = np.zeros_like(ids)
+    for b in range(TRAIN_VIDEOS):
+        n = int(rng.integers(20, TRAIN_TOKENS + 1))
+        row = prompt + list(rng.integers(1000, 30000, n - len(prompt) - 1)) + [tok.sep_token_id]
+        ids[b, :n], mask[b, :n] = row, 1
+    gen = torch.Generator(device=device).manual_seed(3)
+    video = torch.randn((TRAIN_VIDEOS, TRAIN_FRAMES, 224, 224, 3), generator=gen, device=device)
+    return ({"video": video, "input_ids": torch.from_numpy(ids).to(device),
+             "attention_mask": torch.from_numpy(mask).to(device)}, len(prompt))
+
+
+def run_training(fa, device):
+    """Phase 8: the caption train step at full width for TRAIN_STEPS steps."""
+    import os
+
+    from vidil_tpu_torch.config import MedConfig, ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.train.caption import create_caption_train_state, make_caption_train_step
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=False)  # the yamls' vit_grad_ckpt: False
+    repo = os.path.dirname(os.path.abspath(__file__))
+    med_cfg = MedConfig.from_json(os.path.join(repo, "configs", "med_config.json"),
+                                  encoder_width=vit_cfg.hidden_size)
+    params = convert.from_jax_params(synth_tree(blip.blip_decoder_shapes(vit_cfg, med_cfg),
+                                                device, salt=1.0))
+    state = create_caption_train_state(params, 1e-4, 0.05, device=device)
+    del params
+    batch, prompt_length = make_train_batch(device)
+    step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, enqueue_ms, per_step = [], [], [], []
+    fa.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        before = dict(fa.launch_counts)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        enqueue_ms.append((time.time() - t0) * 1e3)  # host time to enqueue the step
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        per_step.append({k: fa.launch_counts[k] - before[k] for k in fa.launch_counts})
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    qkv_grad_max = [b["attn"]["qkv"]["kernel"].grad.abs().max().item()
+                    for b in state.params["visual_encoder"]["blocks"]]
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": vit_cfg.num_layers,
+            "flash_attention_bwd": vit_cfg.num_layers}
+    log("training: losses", json.dumps(losses))
+    log("training: launches per step", json.dumps(per_step[-1]), "in all", json.dumps(launches))
+    log("training: ViT qkv kernel grad max |g| per block", json.dumps(qkv_grad_max))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"training: losses not finite and falling: {losses}")
+    if any(s != want for s in per_step):
+        raise SystemExit(f"training: launches per step {per_step}, want {want} each")
+    if not all(g > 0 for g in qkv_grad_max):
+        raise SystemExit(f"training: a ViT qkv gradient is zero: {qkv_grad_max}")
+    steady = statistics.median(step_ms[1:])
+    prof = profile_train_step(step, state, batch)
+    prof["device_busy_share"] = prof["device_ms"] / steady
+    return dict(profile=prof,losses=losses, step_ms=step_ms, enqueue_ms=enqueue_ms, steady_step_ms=steady,
+                steady_enqueue_ms=statistics.median(enqueue_ms[1:]),
+                samples_per_s=TRAIN_VIDEOS / (steady / 1e3),
+                frames_per_s=TRAIN_VIDEOS * TRAIN_FRAMES / (steady / 1e3),
+                peak_memory_gib=peak / 2**30, launches=launches,
+                launches_per_step=per_step[-1], videos=TRAIN_VIDEOS, frames=TRAIN_FRAMES,
+                tokens=TRAIN_TOKENS, steps=TRAIN_STEPS, lr=1e-4)
+
+
+def profile_train_step(step, state, batch):
+    """One more step (after the counted ones) under torch.profiler: the CUDA
+    kernels' device time, summed (one stream, so it is the busy time), the
+    kernel launches, the top kernels by device time and the flash kernels'
+    share. The profiled step's wall time is inflated by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    events = prof.key_averages()
+    # a record_function range (e.g. the optimizer step) also shows as a
+    # device-side row spanning its kernels; it shares its name with a host row
+    host = {e.key for e in events if e.device_type != DeviceType.CUDA}
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host]
+    rows.sort(key=lambda r: -r[1])
+    return {"profiled_wall_ms": wall_ms, "device_ms": sum(ms for _, ms, _ in rows),
+            "flash_kernels_ms": sum(ms for k, ms, _ in rows if "flash_" in k),
+            "kernel_launches": sum(n for _, _, n in rows),
+            "top": [[k[:70], ms, n] for k, ms, n in rows[:8]]}
+
+
+def in_situ_backward(fa, device):
+    """Phase 9: one full-width ViT block at the trainer's shape, bf16:
+    the input gradient and the qkv weight gradient through the kernels and
+    through the twins (at the kernels' tiling)."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert, vit
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    cfg = ViTConfig.from_name("base", 224)
+    blk = convert.from_jax_params(synth_tree({"blocks": blip.vit_shapes(cfg)["blocks"]},
+                                             device, salt=1.0))["blocks"][0]
+    gen = torch.Generator(device=device).manual_seed(4)
+    shape = (TRAIN_VIDEOS * TRAIN_FRAMES, cfg.seq_len, cfg.hidden_size)
+    x0 = torch.randn(shape, generator=gen, device=device)
+    r = torch.randn(shape, generator=gen, device=device)
+
+    def grads():
+        x = x0.clone().requires_grad_(True)
+        w = blk["attn"]["qkv"]["kernel"].clone().requires_grad_(True)
+        p = dict(blk, attn=dict(blk["attn"], qkv=dict(blk["attn"]["qkv"], kernel=w)))
+        out = vit.block_forward(p, x, cfg.num_heads, cfg.layer_norm_eps, dtype=torch.bfloat16)
+        return torch.autograd.grad((out.float() * r).sum(), (x, w))
+
+    got = grads()
+    fwd, bwd = fa._forward, fa._backward
+    fa._forward = lambda q, k, v, with_lse: fa.flash_attention_ref(
+        q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=with_lse)
+    fa._backward = lambda q, k, v, o, lse, g: fa.flash_attention_bwd_ref(
+        q, k, v, o, lse, g.to(q.dtype))
+    try:
+        want = grads()
+    finally:
+        fa._forward, fa._backward = fwd, bwd
+    out = {}
+    for name, a, b in zip(("dx", "d_qkv_kernel"), got, want):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise SystemExit(f"in-situ backward: non-finite {name}")
+        out[f"{name}_max_abs_diff"] = (a - b).abs().max().item()
+        out[f"{name}_max_abs"] = b.abs().max().item()
+    return out
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -354,20 +640,49 @@ def main():
                          vit_cfg, med_cfg)
     log("in-situ (kernel vs twin in the captioner encode):", json.dumps(situ))
 
-    vit_bf16 = next(r for r in rows if r["dtype"] == "bfloat16" and r["layout"] == "views"
-                    and r["shape"] == "vit_self_attention")
-    record = {"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "vidil_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "vidil_tpu/ops/flash_attention.py:290",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
-        "ms": vit_bf16["ms"], "plain_ms": vit_bf16["plain_ms"],
-        "bound_ms": vit_bf16["bound_ms"], "bound_by": vit_bf16["bound_by"],
-        "library_ms": vit_bf16["library_ms"],
-        "shape": "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection",
-        "per_shape": rows,
-    }]}
+    del engine
+    torch.cuda.empty_cache()
+    lse_rows = check_fwd_lse(fa, device)
+    bwd_rows = check_bwd(fa, device)
+    train = run_training(fa, device)
+    log(f"training: steady step {train['steady_step_ms']:.2f} ms (CUDA events, step 1 "
+        f"excluded; host enqueue {train['steady_enqueue_ms']:.2f} ms), "
+        f"{train['samples_per_s']:.2f} samples/s ({TRAIN_VIDEOS} videos x "
+        f"{TRAIN_FRAMES} frames), peak memory {train['peak_memory_gib']:.2f} GiB, card {card}")
+    log("training:", json.dumps(train))
+    prof = train["profile"]
+    log(f"training profile (one step, torch.profiler): kernels {prof['device_ms']:.2f} ms on "
+        f"the device, {prof['device_busy_share']:.3f} of the steady step; flash kernels "
+        f"{prof['flash_kernels_ms']:.2f} ms; {prof['kernel_launches']} kernel launches")
+    situ_bwd = in_situ_backward(fa, device)
+    log("in-situ (kernels vs twins, one ViT block's gradients, bf16):", json.dumps(situ_bwd))
+
+    def pick(rs, shape):
+        return next(r for r in rs if r["dtype"] == "bfloat16" and r["layout"] == "views"
+                    and r["shape"] == shape)
+
+    def entry(name, source, replaces, n, rs, shape, desc, err_key="max_abs_err"):
+        r = pick(rs, shape)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n,
+                "max_abs_err": max(x[err_key] for x in rs if x["dtype"] == "bfloat16"),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": desc,
+                "per_shape": rs}
+
+    fwd_src = "vidil_tpu_torch/csrc/flash_attention_fwd.cu"
+    record = {"kernels": [
+        entry("flash_attention_fwd", fwd_src, "vidil_tpu/ops/flash_attention.py:290", launches,
+              rows, "vit_self_attention",
+              "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path"),
+        entry("flash_attention_fwd_lse", fwd_src, "vidil_tpu/ops/flash_attention.py:290",
+              train["launches"]["flash_attention_fwd_lse"], lse_rows, "train_224",
+              "q,k,v (48, 12, 197, 64) bf16 views, with fp32 lse rows; training path"),
+        entry("flash_attention_bwd", "vidil_tpu_torch/csrc/flash_attention_bwd.cu",
+              "vidil_tpu/ops/flash_attention.py:242",
+              train["launches"]["flash_attention_bwd"], bwd_rows, "train_224",
+              "q,k,v,o,g (48, 12, 197, 64) bf16 views; training path"),
+    ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -64,3 +64,112 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     h = q.half()
     with pytest.raises(TypeError, match="bf16 or fp32"):
         fa.flash_attention(h, h, h)
+
+
+def _rel_err(got, want, scale=None):
+    """max |got - want| over `scale` (default max |want|), in fp32."""
+    want = want.float()
+    scale = want.abs().max() if scale is None else scale
+    return ((got.float() - want).abs().max() / max(float(scale), 1e-30)).item()
+
+
+# (tolerance) lse of the kernel vs the twin at the kernel's tiling. fp32:
+# summation order of the scores and of the row sum. bf16: an fp32 order
+# difference in a score can flip the bf16 rounding of one p term of the
+# row sum by one ulp (<= 2**-8, p <= 1), and l >= 1, so lse moves <= 2**-8
+LSE_ATOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+# (tolerance) backward kernel vs twin, relative to the largest twin
+# gradient of the call: the fp32 sums run in another order, which can move
+# the bf16 rounding of ds and of the outputs by one ulp (2**-8 relative);
+# fp32 differs in order alone. (Per gradient, a dq that is zero up to
+# rounding, as with one key, would make any relative bar meaningless.)
+BWD_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+BWD_SHAPES = [(2, 3, 197, 197, 64), (1, 2, 577, 577, 64), (1, 2, 65, 130, 64), (1, 1, 1, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", [(1, 2, 96, 200, 64), (4, 3, 197, 197, 64),
+                                         (1, 2, 65, 64, 64)])
+def test_flash_kernel_lse_matches_twin(cuda_device, dtype, atol, B, H, Lq, Lk, D):
+    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype) for x in _qkv(B, H, Lq, Lk, D, 7))
+    before = dict(fa.launch_counts)
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention_fwd_lse"] == before["flash_attention_fwd_lse"] + 1
+    assert fa.launch_counts["flash_attention_fwd"] == before["flash_attention_fwd"]
+    want_o, want_lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL[dtype], rtol=0)
+    # the inference launch gives the same o, bit for bit
+    torch.testing.assert_close(fa._launch(q, k, v), o, atol=0, rtol=0)
+
+
+def _bwd_inputs(B, H, Lq, Lk, D, dtype, device, seed):
+    q, k, v = (torch.from_numpy(x).to(device, dtype) for x in _qkv(B, H, Lq, Lk, D, seed))
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, H, Lq, D), dtype=np.float32)).to(device, dtype)
+    o, lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=True)
+    return q, k, v, o, lse, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_twin(cuda_device, dtype, B, H, Lq, Lk, D):
+    q, k, v, o, lse, g = _bwd_inputs(B, H, Lq, Lk, D, dtype, cuda_device, 8)
+    before = fa.launch_counts["flash_attention_bwd"]
+    got = fa._launch_bwd(q, k, v, o, lse, g)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention_bwd"] == before + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, g)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b, scale) <= BWD_RTOL[dtype], (name, _rel_err(a, b, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_kernel_is_deterministic_and_takes_views(cuda_device, dtype):
+    """No atomics: two runs give the same bits. q, k, v as head-split views
+    of one QKV projection and g as a view of a merge_heads gradient give
+    the same bits as contiguous copies."""
+    B, L, H = 3, 197, 2
+    x = torch.randn((B, L, 3 * H * 64), device=cuda_device).to(dtype)
+    q, k, v = (split_heads(t, H) for t in x.chunk(3, dim=-1))
+    o, lse = fa._launch(q, k, v, with_lse=True)
+    g = split_heads(torch.randn((B, L, H * 64), device=cuda_device).to(dtype), H)
+    first = fa._launch_bwd(q, k, v, o, lse, g)
+    second = fa._launch_bwd(q, k, v, o, lse, g)
+    contiguous = fa._launch_bwd(*(t.contiguous() for t in (q, k, v, o, lse, g)))
+    for a, b, c in zip(first, second, contiguous):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+        torch.testing.assert_close(a, c, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)])
+def test_function_grads_match_dot_product_attention(cuda_device, dtype, rtol):
+    """The autograd Function on the card: the kernels' gradients against
+    autograd through dot_product_attention (tolerance relative to max
+    |grad|: fp32 summation order; bf16 as the JAX package's bar for its
+    Pallas backward, tests/test_flash_attention.py)."""
+    from vidil_tpu_torch.models.layers import dot_product_attention
+
+    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype).requires_grad_(True)
+               for x in _qkv(2, 3, 197, 197, 64, 9))
+    before = dict(fa.launch_counts)
+    out = fa.flash_attention(q, k, v)
+    got = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    assert fa.launch_counts["flash_attention_fwd_lse"] == before["flash_attention_fwd_lse"] + 1
+    assert fa.launch_counts["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    ref = dot_product_attention(q, k, v)
+    want = torch.autograd.grad(ref.float().square().sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert a is not None
+        assert _rel_err(a, b) < rtol
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    assert fa.launch_counts["flash_attention_fwd"] == before["flash_attention_fwd"] + 1

@@ -102,3 +102,132 @@ def test_rejects_mismatched_operands():
         fa.flash_attention(q, k[:, :1], v[:, :1])
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.double(), v)
+
+
+# ---------------------------------------------------------------------------
+# training: the forward's lse rows, the backward, the autograd Function
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from vidil_tpu.ops import flash_attention as jfa  # noqa: E402
+
+# the trainer's 197 tokens, the 384-px 577, and a ragged Lq != Lk case
+TRAIN_SHAPES = [(1, 2, 197, 197, 64), (1, 2, 577, 577, 64), (1, 2, 130, 150, 64)]
+
+
+def _g(B, H, Lq, D, seed):
+    return np.random.default_rng(seed).standard_normal((B, H, Lq, D), dtype=np.float32)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", TRAIN_SHAPES)
+def test_twin_lse_matches_jax_forward_with_stats(B, H, Lq, Lk, D):
+    """(o, lse) of the twin against _flash_forward(with_stats=True) in
+    interpret mode: fp32 at atol 2e-5 (tests/test_flash_attention.py pins
+    the same for lse); bf16 o at one bf16 ulp at |o| <= 2 (7.8e-3), bf16 lse
+    at 2**-8 (an fp32-order flip of one bf16 p term of the row sum, l >= 1)."""
+    q, k, v = _qkv(B, H, Lq, Lk, D, seed=11)
+    for jdt, tdt, o_tol, lse_tol in ((jnp.float32, torch.float32, 2e-5, 2e-5),
+                                     (jnp.bfloat16, torch.bfloat16, 7.8e-3, 2.0 ** -8)):
+        wo, wl = jfa._flash_forward(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                                    interpret=True, with_stats=True)
+        go, gl = fa.flash_attention_ref(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                                        return_lse=True)
+        np.testing.assert_allclose(go.float().numpy(), np.asarray(wo.astype(jnp.float32)),
+                                   atol=o_tol, rtol=0)
+        assert gl.dtype == torch.float32
+        np.testing.assert_allclose(gl.numpy(), np.asarray(wl), atol=lse_tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", TRAIN_SHAPES)
+def test_bwd_twin_matches_jax_backward(B, H, Lq, Lk, D):
+    """flash_attention_bwd_ref against _flash_backward in interpret mode,
+    given the same (o, lse) from the JAX forward. fp32 at atol 2e-5; bf16
+    at the bar of tests/test_flash_attention.py (max abs diff / max |ref|
+    < 0.02), here held at 1e-2."""
+    q, k, v = _qkv(B, H, Lq, Lk, D, seed=12)
+    g = _g(B, H, Lq, D, 13)
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+        o, lse = jfa._flash_forward(jq, jk, jv, interpret=True, with_stats=True)
+        want = jfa._flash_backward(jq, jk, jv, o, lse, jg, interpret=True)
+        to_t = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
+        got = fa.flash_attention_bwd_ref(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                                         to_t(o), torch.from_numpy(np.asarray(lse)),
+                                         torch.from_numpy(g).to(tdt))
+        for a, b in zip(got, want):
+            assert a.dtype == tdt
+            a, b = a.float().numpy(), np.asarray(b.astype(jnp.float32))
+            if tdt == torch.float32:
+                np.testing.assert_allclose(a, b, atol=2e-5, rtol=0)
+            else:
+                assert np.abs(a - b).max() / np.abs(b).max() < 1e-2
+
+
+def _interpret_jax_kernels(monkeypatch):
+    """The JAX custom VJP with both Pallas kernels in interpret mode, as
+    tests/test_flash_attention.py runs it (patched in this test only)."""
+    fwd, bwd = jfa._flash_forward, jfa._flash_backward
+    monkeypatch.setattr(jfa, "_flash_forward",
+                        lambda q, k, v, interpret=False, with_stats=False:
+                            fwd(q, k, v, interpret=True, with_stats=with_stats))
+    monkeypatch.setattr(jfa, "_flash_backward", lambda *a, interpret=False: bwd(*a, interpret=True))
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", [(1, 2, 197, 197, 64), (1, 2, 130, 150, 64)])
+def test_function_grads_match_jax_custom_vjp(monkeypatch, B, H, Lq, Lk, D):
+    """FlashAttentionFunction's gradients against jax.vjp of the JAX
+    package's flash custom VJP, fp32, atol 5e-4 / rtol 1e-4 (the JAX
+    test's bar)."""
+    _interpret_jax_kernels(monkeypatch)
+    q, k, v = _qkv(B, H, Lq, Lk, D, seed=14)
+    g = _g(B, H, Lq, D, 15)
+    _, vjp = jax.vjp(jfa.flash_attention, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4, rtol=1e-4)
+
+
+def test_flash_attention_is_differentiable_through_the_function():
+    """The gradient goes through FlashAttentionFunction (the kernels on
+    CUDA, the twins here), not through plain-op autograd: its fp64 gradcheck
+    holds, and its q/k/v gradients match dot_product_attention's (atol
+    1e-6: that function's logits are fp32)."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_(True)
+               for s in ((1, 2, 9, 8), (1, 2, 11, 8), (1, 2, 11, 8)))
+    out = fa.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    assert torch.autograd.gradcheck(fa.flash_attention, (q, k, v))
+    g = torch.from_numpy(rng.standard_normal(out.shape))
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(dot_product_attention(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert a is not None
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def test_no_grad_forward_skips_the_lse():
+    """Without a gradient to take, the forward is the inference one (no
+    lse rows saved, no graph)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 9, 11, 16, seed=17))
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        out = fa.flash_attention(q.requires_grad_(True), k, v)
+    assert out.grad_fn is None
+
+
+def test_double_backward_raises():
+    """The backward kernel records no graph, so a second derivative through
+    the Function raises on every device, the CPU twins included, instead
+    of coming out silently wrong on CUDA."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv(1, 2, 9, 11, 16, seed=18))
+    out = fa.flash_attention(q, k, v)
+    (dq,) = torch.autograd.grad(out.square().sum(), (q,), create_graph=True)
+    assert dq.requires_grad
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()

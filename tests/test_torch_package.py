@@ -30,7 +30,11 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_vidil_tpu():
     mods = _port_modules()
-    assert "vidil_tpu_torch.run_video_CapFilt" in mods and len(mods) > 20
+    assert "vidil_tpu_torch.run_video_CapFilt" in mods and len(mods) > 30
+    for name in ("train_caption_video", "train.caption", "train.common", "utils.checkpoint",
+                 "utils.logging", "utils.schedules", "data.datasets", "data.transforms",
+                 "data.text_utils", "evals.caption", "evals.caption_metrics"):
+        assert f"vidil_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -122,3 +126,37 @@ def test_synth_tree_is_deterministic_and_well_conditioned():
                                torch.ones((8, 5), dtype=torch.int32),
                                torch.ones((8, 5), dtype=torch.int32), medc, group_size=4)
     assert itm.shape == (8, 2) and torch.isfinite(itm).all()
+
+
+def test_trainer_host_module_copies_match_jax_package():
+    """The port's copies of the caption trainer's host modules: caption
+    cleanup, result merge, LR schedules, caption metrics."""
+    from vidil_tpu.data.text_utils import pre_caption as jpre
+    from vidil_tpu.evals.caption_metrics import compute_caption_scores as jscores
+    from vidil_tpu.utils.schedules import cosine_lr_schedule as jcos, warmup_lr_schedule as jwarm
+    from vidil_tpu_torch.data.text_utils import pre_caption
+    from vidil_tpu_torch.evals.caption_metrics import compute_caption_scores
+    from vidil_tpu_torch.utils.schedules import cosine_lr_schedule, warmup_lr_schedule
+
+    for text in ("A man (in red) is #1: singing!!  ", "x " * 60, "Dogs; run~ fast."):
+        assert pre_caption(text, 30) == jpre(text, 30)
+    for epoch in range(4):
+        assert cosine_lr_schedule(epoch, 4, 5e-6, 0) == jcos(epoch, 4, 5e-6, 0)
+        assert warmup_lr_schedule(epoch, 3, 1e-6, 1e-4) == jwarm(epoch, 3, 1e-6, 1e-4)
+    gts = {"v0": ["a man is singing", "someone sings a song"], "v1": ["a dog runs on grass"]}
+    res = {"v0": ["a man sings"], "v1": ["a dog is running"]}
+    assert compute_caption_scores(gts, res) == jscores(gts, res)
+
+
+def test_metric_logger_and_save_result(tmp_path, capsys):
+    from vidil_tpu_torch.data.text_utils import save_result
+    from vidil_tpu_torch.utils.logging import MetricLogger
+
+    logger = MetricLogger(delimiter="  ")
+    for x in logger.log_every(range(3), 1, "h"):
+        logger.update(loss=float(x), lr=torch.tensor(0.5))
+    assert logger.loss.global_avg == 1.0 and logger.lr.value == 0.5
+    assert "Total time" in capsys.readouterr().out
+    path = save_result([{"video_id": "a", "caption": "x"}, {"video_id": "a", "caption": "y"}],
+                       str(tmp_path), "r", remove_duplicate="video_id")
+    assert json.load(open(path)) == [{"video_id": "a", "caption": "x"}]

@@ -1,18 +1,22 @@
 """Model architecture configs and the pipeline-yaml helpers.
 
 The port's own copy of the JAX package's ``ViTConfig`` / ``MedConfig``
-architecture fields (same defaults, same ``from_json`` mapping of a
-BERT/MED json). The JAX package's TPU and training switches (remat, the
-fused-kernel flags) are not fields here: a config that sets one fails at
-construction instead of running another path.
+fields (same defaults, same ``from_json`` mapping of a BERT/MED json),
+with the training fields the trainers read (remat, label smoothing). The
+JAX package's TPU kernel switches (the fused ViT block, the fused MLP) and
+``remat_policy="dots"`` are fields too, but a config that turns one on
+fails at construction with NotImplementedError instead of running another
+path.
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
+
+from vidil_tpu_torch.models.layers import remat_policy
 
 
 def compute_dtype_from_config(config: dict, override=None) -> torch.dtype:
@@ -30,6 +34,22 @@ def compute_dtype_from_config(config: dict, override=None) -> torch.dtype:
     return table[name]
 
 
+def _refuse_unported(cfg, switches) -> None:
+    """Raise for every TPU-only field of `switches` that `cfg` sets away from
+    its default, and for a remat policy other than None (full recompute)."""
+    on = [f.name for f in fields(cfg) if f.name in switches and getattr(cfg, f.name) != f.default]
+    if on:
+        raise NotImplementedError(
+            f"vidil_tpu_torch: {', '.join(on)} (TPU kernels of the JAX package) "
+            "are not ported yet")
+    remat_policy(cfg.remat_policy)
+
+
+_VIT_TPU_SWITCHES = ("use_fused_mlp", "use_fused_block", "fused_block_frames",
+                     "use_fused_block_bwd", "fused_block_bwd_frames", "fused_block_interpret")
+_MED_TPU_SWITCHES = ("use_fused_mlp",)
+
+
 @dataclass(frozen=True)
 class ViTConfig:
     """BLIP vision transformer. base: 768d/12L/12H, large: 1024d/24L/16H;
@@ -43,6 +63,19 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     layer_norm_eps: float = 1e-6
     in_channels: int = 3
+    remat: bool = False  # torch.utils.checkpoint on blocks >= remat_from_layer
+    remat_from_layer: int = 0
+    remat_policy: str | None = None  # None = recompute the whole block
+    # TPU kernel switches of the JAX package: accepted only at their defaults
+    use_fused_mlp: bool = False
+    use_fused_block: bool = False
+    fused_block_frames: int = 8
+    use_fused_block_bwd: bool = False
+    fused_block_bwd_frames: int = 1
+    fused_block_interpret: bool = False
+
+    def __post_init__(self):
+        _refuse_unported(self, _VIT_TPU_SWITCHES)
 
     @property
     def num_patches(self) -> int:
@@ -77,6 +110,13 @@ class MedConfig:
     add_cross_attention: bool = True
     pad_token_id: int = 0
     hidden_act: str = "gelu"
+    label_smoothing: float = 0.1
+    remat: bool = False  # torch.utils.checkpoint on every layer
+    remat_policy: str | None = None  # None = recompute the whole layer
+    use_fused_mlp: bool = False  # TPU kernel switch: accepted only when off
+
+    def __post_init__(self):
+        _refuse_unported(self, _MED_TPU_SWITCHES)
 
     @classmethod
     def from_json(cls, path: str, **overrides) -> "MedConfig":

@@ -20,6 +20,32 @@ def encode_images(params, images, vit_cfg: ViTConfig, dtype=None):
     return vit_forward(params["visual_encoder"], images, vit_cfg, dtype=dtype)
 
 
+def encode_video_frames(params, video, vit_cfg: ViTConfig, dtype=None):
+    """Concat-frame late fusion: video (B, N, H, W, C) -> (B, N*(P+1), D),
+    all frames through the ViT in one batch, then flattened along the
+    token axis."""
+    B, N = video.shape[:2]
+    embeds = vit_forward(params["visual_encoder"], video.reshape((B * N,) + video.shape[2:]),
+                         vit_cfg, dtype=dtype)
+    return embeds.reshape(B, N * embeds.shape[1], embeds.shape[2])
+
+
+def blip_caption_loss(params, image_embeds, input_ids, attention_mask, med_cfg: MedConfig,
+                      prompt_length: int, dtype=None):
+    """LM loss with prompt and pad masking: input_ids start with the [DEC]
+    bos token; the first prompt_length positions and the pads are -100."""
+    labels = torch.where(attention_mask == 1, input_ids, torch.full_like(input_ids, -100))
+    pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+    labels = torch.where(pos[None, :] < prompt_length, torch.full_like(labels, -100), labels)
+    hidden = M.med_forward(
+        params["text_decoder"], input_ids, attention_mask,
+        encoder_hidden_states=image_embeds, cfg=med_cfg,
+        mode="multimodal", is_decoder=True, dtype=dtype,
+    )
+    logits = M.med_lm_logits(params["text_decoder"], hidden, med_cfg, dtype=dtype)
+    return M.med_lm_loss(logits, labels, label_smoothing=med_cfg.label_smoothing)
+
+
 def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConfig,
                           dtype=None, beam_size: int = 1):
     dec = params["text_decoder"]

@@ -9,6 +9,8 @@ kernels ``(in, out)``, the ViT patch kernel ``(P*P*C, D)`` in patchify's
   dict (reference key names) -> port params.
 * `from_jax_params`: the JAX package's parameter pytree, as numpy arrays
   (or tensors) with stacked layers -> port params.
+* `to_jax_params`: its inverse, port params -> the JAX layout as numpy
+  arrays (checkpoints in the JAX package's format).
 """
 
 from __future__ import annotations
@@ -45,6 +47,35 @@ def from_jax_params(tree):
         return [_index(stacked, i) for i in range(n)]
 
     return conv(tree)
+
+
+def to_jax_params(tree):
+    """Port params -> JAX-layout params: every leaf becomes a numpy array
+    (detached, on the host), and each per-layer list (``blocks``,
+    ``layers``) becomes one subtree stacked along a leading layer axis."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: (_stack([conv(x) for x in v]) if k in STACKED_KEYS else conv(v))
+                    for k, v in node.items()}
+        return node.detach().cpu().numpy()
+
+    return conv(tree)
+
+
+def _stack(nodes):
+    if isinstance(nodes[0], dict):
+        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
+    return np.stack(nodes)
+
+
+def named_leaves(tree, prefix: str = ""):
+    """[(path, tensor)] of a port tree in a fixed order: dict keys as
+    inserted, list items by index, '/'-joined."""
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items() for item in named_leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [item for i, v in enumerate(tree) for item in named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
 
 
 def _first_leaf(node):

@@ -16,6 +16,27 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def remat_policy(name):
+    """Resolve a config ``remat_policy``: None recomputes the whole layer in
+    the backward (the JAX package's classic remat). The JAX package's
+    "dots" policy (save the plain GEMM outputs) is not ported yet."""
+    if name is None:
+        return None
+    if name == "dots":
+        raise NotImplementedError("vidil_tpu_torch: remat_policy='dots' is not ported yet")
+    raise ValueError(f"unknown remat_policy: {name!r}")
+
+
+def remat(fn, enabled: bool):
+    """`fn` with its activations recomputed in the backward when `enabled`
+    (torch.utils.checkpoint, non-reentrant: the same numbers, less memory;
+    the configs admit only the full-recompute policy, see `remat_policy`)."""
+    if not enabled:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def linear(params, x, dtype=None):
@@ -93,6 +114,12 @@ def dot_product_attention(q, k, v, bias=None, scale=None):
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def mask_to_bias(mask, dtype=torch.float32, neg: float = -10000.0):
+    """{0,1} attention mask -> additive bias, the reference's
+    ``(1 - mask) * -10000``."""
+    return ((1.0 - mask.float()) * neg).to(dtype)
 
 
 def mlp(params, x, act=gelu, dtype=None):

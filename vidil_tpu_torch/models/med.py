@@ -27,9 +27,11 @@ from vidil_tpu_torch.models.layers import (
     embedding_lookup,
     layer_norm,
     linear,
+    mask_to_bias,
     matmul_f32,
     merge_heads,
     mlp,
+    remat,
     split_heads,
 )
 from vidil_tpu_torch.ops.flash_attention import attention_auto
@@ -52,13 +54,12 @@ def extended_attention_mask(attention_mask, is_decoder: bool):
         mask = mask[:, None, :, :]
     else:
         mask = attention_mask[:, None, None, :].float()
-    return (1.0 - mask) * NEG_INF
+    return mask_to_bias(mask, neg=NEG_INF)
 
 
 def invert_attention_mask(encoder_attention_mask):
     """(B, Lk) {0,1} -> (B, 1, 1, Lk) additive bias for cross-attention."""
-    m = encoder_attention_mask[:, None, None, :].float()
-    return (1.0 - m) * NEG_INF
+    return mask_to_bias(encoder_attention_mask[:, None, None, :], neg=NEG_INF)
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +224,39 @@ def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=No
     else:
         cross_bias = None
         enc = None
+
+    def run(layer, x):
+        return med_layer_forward(layer, x, self_bias, cfg, encoder_hidden_states=enc,
+                                 cross_bias=cross_bias, dtype=dtype, group_size=group_size)
+
+    # remat: recompute each layer in the backward instead of keeping its
+    # activations (the trainers turn it on)
+    run = remat(run, cfg.remat)
     for layer in params["layers"]:
-        x = med_layer_forward(layer, x, self_bias, cfg, encoder_hidden_states=enc,
-                              cross_bias=cross_bias, dtype=dtype, group_size=group_size)
+        x = run(layer, x)
     return x
+
+
+def med_lm_loss(logits, labels, label_smoothing: float = 0.1, reduction: str = "mean"):
+    """Shifted next-token cross entropy with label smoothing, -100 = ignore
+    (torch CrossEntropyLoss(label_smoothing=eps)):
+    loss = (1 - eps) * nll + eps * mean_j(-log p_j).
+
+    reduction "mean": over the valid tokens; "none": per-sample sums."""
+    logits = logits[:, :-1, :].float()
+    labels = labels[:, 1:]
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    smooth = -logp.mean(dim=-1)
+    per_tok = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    per_tok = torch.where(valid, per_tok, torch.zeros_like(per_tok))
+    if reduction == "mean":
+        return per_tok.sum() / valid.sum().clamp_min(1)
+    if reduction == "none":
+        return per_tok.sum(dim=-1)
+    raise ValueError(reduction)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,15 @@ import numpy as np
 import torch
 
 from vidil_tpu_torch.config import ViTConfig
-from vidil_tpu_torch.models.layers import gelu, layer_norm, linear, merge_heads, mlp, split_heads
+from vidil_tpu_torch.models.layers import (
+    gelu,
+    layer_norm,
+    linear,
+    merge_heads,
+    mlp,
+    remat,
+    split_heads,
+)
 from vidil_tpu_torch.ops.flash_attention import attention_auto
 
 
@@ -47,14 +55,20 @@ def block_forward(params, x, num_heads: int, eps: float, dtype=None):
 
 def vit_forward(params, images, cfg: ViTConfig, dtype=None):
     """images: (B, H, W, C) NHWC, already resized/normalized.
-    Returns (B, num_patches + 1, hidden) embeddings (token 0 = [CLS])."""
+    Returns (B, num_patches + 1, hidden) embeddings (token 0 = [CLS]).
+
+    The classic schedule: blocks one after another, each recomputed in the
+    backward when ``cfg.remat`` (blocks from ``cfg.remat_from_layer`` on).
+    The JAX package's fused-block schedule (its K4/K5 kernels) is not
+    ported; ViTConfig refuses it."""
     B = images.shape[0]
     x = linear(params["patch_embed"], patchify(images, cfg.patch_size), dtype=dtype)
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"][:, : x.shape[1], :].to(x.dtype)
-    for blk in params["blocks"]:
-        x = block_forward(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype=dtype)
+    for i, blk in enumerate(params["blocks"]):
+        fn = remat(block_forward, cfg.remat and i >= cfg.remat_from_layer)
+        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype)
     return layer_norm(params["norm"], x, cfg.layer_norm_eps)
 
 

@@ -30,6 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # kernel library name -> its source under csrc/
 SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = [
