@@ -1,16 +1,17 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the port's CUDA
 kernels, holds each against its plain PyTorch version at the main paths'
-shapes, and drives the two main paths at full BLIP-base width: CapFilt
-(384 px) and the caption fine-tuning step (224 px).
+shapes, and drives the main paths at full BLIP-base width: CapFilt
+(384 px), the caption fine-tuning step (224 px) on both ViT schedules, and
+the video-QA fine-tuning step with its two answer decoders.
 
     python3 chip_smoke.py
 
 Needs a CUDA card and nvcc (CUDA_HOME or /usr/local/cuda); imports only
 vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   1. card: name and power limit (nvidia-smi);
-  2. build: nvcc of every kernel source, with the build seconds;
-  3. kernel check: the flash-attention kernel against its twin at the ViT
-     self-attention shape (32, 12, 577, 64) and the grouped-ITM fold
+  2. build: nvcc of every kernel source (in parallel), with the build seconds;
+  3. kernel check: the flash-attention kernel (K1) against its twin at the
+     ViT self-attention shape (32, 12, 577, 64) and the grouped-ITM fold
      (q (32, 12, 96, 64) over k/v (32, 12, 577, 64)), bf16 and fp32, on
      contiguous tensors and on the main path's strided views, with
      CUDA-event times of the kernel, the twin and
@@ -20,26 +21,40 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      bf16, beam_group_kv and the fused filter; the kernel's launch count
      must show it ran in both encodes and in the ITM;
   5. stage breakdown of one RGB and one YUV420 chunk (host clock, synced);
-  6. in-situ check: the captioner encode once through the kernel and once
-     through the twin, with the embeddings' max abs diff (bf16, one block
-     and twelve; fp32) and the caption token agreement (reported, not a
-     pass bar: bf16 beam search turns ulps into different tokens);
-  7. training kernels: the forward kernel with its logsumexp rows against
-     its twin (o and lse) at the ViT shapes and the 224-px trainer's
-     (48, 12, 197, 64), timed against the inference launch; the backward
-     kernel against its twin, given the same (o, lse), at (48, 12, 197, 64)
-     and (32, 12, 577, 64), bf16 and fp32, on the strided views the step
-     passes, with the backward of F.scaled_dot_product_attention timed as a
-     yardstick only;
-  8. training main path: make_caption_train_step at full width (ViT-B/16
-     224 px, MED from configs/med_config.json), synthetic weights, one
-     fixed batch of 12 videos x 4 frames with 40-token captions, bf16, MED
-     remat on, 8 steps: finite losses, the last below the first, non-zero
-     ViT qkv gradients, and exactly 12 forward-with-lse and 12 backward
-     launches per step; steady step ms (CUDA events), samples/s, peak memory;
-  9. in-situ check of the backward: one ViT block's input gradient and qkv
-     weight gradient through the kernels and through the twins (reported).
-The last two lines are the kernels' JSON record and {"ok": true, ...}.
+  6. in-situ checks (reported, not pass bars): the captioner encode through
+     K1 and through its twin (one block and twelve, bf16 and fp32, and the
+     caption token agreement); the same encode with use_fused_block (K4 per
+     block) against the classic one;
+  7. training attention kernels: K1 with logsumexp rows against its twin at
+     the ViT shapes and the 224-px trainer's (48, 12, 197, 64); the
+     backward kernel (K2) against its twin at (48, 12, 197, 64) and
+     (32, 12, 577, 64), bf16 and fp32, run to run bitwise;
+  8. fused ViT block: K4 against fused_block_ref at the trainers' block
+     (48, 256, 768), 197 true tokens, and the CapFilt encode's (32, 640,
+     768), 577 true tokens; K5 against fused_block_bwd_ref (dx and the 12
+     gradients) at the trainers' block, run to run bitwise; bf16 and fp32;
+     with the times of the kernel, the twin and a library block
+     (F.layer_norm, F.linear, SDPA, F.gelu; a yardstick only);
+  9. caption training at full width (ViT-B/16 224 px, MED from
+     configs/med_config.json), synthetic weights, one fixed batch of 12
+     videos x 4 frames with 40-token captions, bf16, MED remat on: 4 steps
+     of the classic schedule (VIDIL_TPU_TRAIN_FUSED_BLOCK=0: exactly 12 K1
+     with lse and 12 K2 launches per step) and 8 of the default fused one
+     (exactly 12 K4 and 12 K5 launches per step, no K1/K2): finite losses,
+     the last below the first, non-zero ViT qkv gradients in every block;
+     steady step ms (CUDA events), host enqueue ms, samples/s, peak memory
+     and one profiled step each;
+ 10. VQA training: make_vqa_train_step at full width (ViT-B/16 224 px with
+     vit_grad_ckpt, MED-base encoder and decoder), 8 questions x 4 frames,
+     35-token questions, 1-3 answers of 12 tokens each, 8 steps, with the
+     checks of phase 9 (12 K4 + 12 K5 per step); then vqa_generate_ids and
+     rank_answer (k = 128 over 256 answers) must give well-formed answers;
+ 11. in-situ backward checks (reported): one ViT block's input and qkv
+     weight gradients through K1/K2 and through their twins, and through
+     K4/K5 and through theirs.
+The last two lines are the kernels' JSON record (each kernel at its main
+path's shape, bf16; every shape and dtype is on its own "kernel check"
+line above) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -330,6 +345,7 @@ LSE_ATOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
 # outputs by one ulp (2**-8 relative)
 BWD_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 TRAIN_VIDEOS, TRAIN_FRAMES, TRAIN_TOKENS, TRAIN_STEPS = 12, 4, 40, 8
+CLASSIC_STEPS = 4  # the opted-out schedule: fewer steps, to keep the run short
 
 
 def attention_bwd_bound_ms(q, k, dtype):
@@ -455,31 +471,22 @@ def make_train_batch(device):
              "attention_mask": torch.from_numpy(mask).to(device)}, len(prompt))
 
 
-def run_training(fa, device):
-    """Phase 8: the caption train step at full width for TRAIN_STEPS steps."""
-    import os
+def _counts(fa, fvb):
+    return {**fa.launch_counts, **fvb.launch_counts}
 
-    from vidil_tpu_torch.config import MedConfig, ViTConfig
-    from vidil_tpu_torch.models import blip, convert
-    from vidil_tpu_torch.train.caption import create_caption_train_state, make_caption_train_step
-    from vidil_tpu_torch.utils.synth import synth_tree
 
-    vit_cfg = ViTConfig.from_name("base", 224, remat=False)  # the yamls' vit_grad_ckpt: False
-    repo = os.path.dirname(os.path.abspath(__file__))
-    med_cfg = MedConfig.from_json(os.path.join(repo, "configs", "med_config.json"),
-                                  encoder_width=vit_cfg.hidden_size)
-    params = convert.from_jax_params(synth_tree(blip.blip_decoder_shapes(vit_cfg, med_cfg),
-                                                device, salt=1.0))
-    state = create_caption_train_state(params, 1e-4, 0.05, device=device)
-    del params
-    batch, prompt_length = make_train_batch(device)
-    step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=torch.bfloat16)
+def train_loop(label, step, state, batch, steps, fa, fvb, want, samples):
+    """`steps` train steps on one fixed batch: finite losses, the last below
+    the first, non-zero ViT qkv gradients in every block, and exactly the
+    launches `want` in every step; then the step's times and one profiled
+    step."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, enqueue_ms, per_step = [], [], [], []
     fa.reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
-        before = dict(fa.launch_counts)
+    fvb.reset_launch_counts()
+    for _ in range(steps):
+        before = _counts(fa, fvb)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.time()
         start.record()
@@ -489,39 +496,85 @@ def run_training(fa, device):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(float(m["loss"]))
-        per_step.append({k: fa.launch_counts[k] - before[k] for k in fa.launch_counts})
-    launches = dict(fa.launch_counts)
+        per_step.append({k: v - before[k] for k, v in _counts(fa, fvb).items()})
+    launches = _counts(fa, fvb)
     peak = torch.cuda.max_memory_allocated()
     qkv_grad_max = [b["attn"]["qkv"]["kernel"].grad.abs().max().item()
                     for b in state.params["visual_encoder"]["blocks"]]
-    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": vit_cfg.num_layers,
-            "flash_attention_bwd": vit_cfg.num_layers}
-    log("training: losses", json.dumps(losses))
-    log("training: launches per step", json.dumps(per_step[-1]), "in all", json.dumps(launches))
-    log("training: ViT qkv kernel grad max |g| per block", json.dumps(qkv_grad_max))
+    log(f"{label}: losses", json.dumps(losses))
+    log(f"{label}: launches per step", json.dumps(per_step[-1]), "in all", json.dumps(launches))
+    log(f"{label}: ViT qkv kernel grad max |g| per block", json.dumps(qkv_grad_max))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit(f"training: losses not finite and falling: {losses}")
+        raise SystemExit(f"{label}: losses not finite and falling: {losses}")
     if any(s != want for s in per_step):
-        raise SystemExit(f"training: launches per step {per_step}, want {want} each")
+        raise SystemExit(f"{label}: launches per step {per_step}, want {want} each")
     if not all(g > 0 for g in qkv_grad_max):
-        raise SystemExit(f"training: a ViT qkv gradient is zero: {qkv_grad_max}")
+        raise SystemExit(f"{label}: a ViT qkv gradient is zero: {qkv_grad_max}")
     steady = statistics.median(step_ms[1:])
     prof = profile_train_step(step, state, batch)
     prof["device_busy_share"] = prof["device_ms"] / steady
-    return dict(profile=prof,losses=losses, step_ms=step_ms, enqueue_ms=enqueue_ms, steady_step_ms=steady,
-                steady_enqueue_ms=statistics.median(enqueue_ms[1:]),
-                samples_per_s=TRAIN_VIDEOS / (steady / 1e3),
-                frames_per_s=TRAIN_VIDEOS * TRAIN_FRAMES / (steady / 1e3),
-                peak_memory_gib=peak / 2**30, launches=launches,
-                launches_per_step=per_step[-1], videos=TRAIN_VIDEOS, frames=TRAIN_FRAMES,
-                tokens=TRAIN_TOKENS, steps=TRAIN_STEPS, lr=1e-4)
+    return dict(profile=prof, losses=losses, step_ms=step_ms, enqueue_ms=enqueue_ms,
+                steady_step_ms=steady, steady_enqueue_ms=statistics.median(enqueue_ms[1:]),
+                samples_per_s=samples / (steady / 1e3), peak_memory_gib=peak / 2**30,
+                launches=launches, launches_per_step=per_step[-1], steps=steps, lr=1e-4)
+
+
+def _med_cfg(vit_cfg):
+    import os
+
+    from vidil_tpu_torch.config import MedConfig
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return MedConfig.from_json(os.path.join(repo, "configs", "med_config.json"),
+                               encoder_width=vit_cfg.hidden_size)
+
+
+def run_caption_training(fa, fvb, device, schedule, steps):
+    """Phase 9: the caption train step at full width. `schedule` "fused" is
+    the trainers' default on the card (training_cfgs: K4 forward, K5
+    backward per block); "classic" sets VIDIL_TPU_TRAIN_FUSED_BLOCK=0
+    (blocks one by one, the attention through K1 with lse rows and K2)."""
+    import os
+
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.train.caption import create_caption_train_state, make_caption_train_step
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=False)  # the yamls' vit_grad_ckpt: False
+    med_cfg = _med_cfg(vit_cfg)
+    params = convert.from_jax_params(synth_tree(blip.blip_decoder_shapes(vit_cfg, med_cfg),
+                                                device, salt=1.0))
+    state = create_caption_train_state(params, 1e-4, 0.05, device=device)
+    del params
+    batch, prompt_length = make_train_batch(device)
+    env = os.environ.pop("VIDIL_TPU_TRAIN_FUSED_BLOCK", None)
+    if schedule == "classic":
+        os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = "0"
+    try:  # training_cfgs reads the variable when the step is made
+        step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=torch.bfloat16)
+    finally:
+        os.environ.pop("VIDIL_TPU_TRAIN_FUSED_BLOCK", None)
+        if env is not None:
+            os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = env
+    n = vit_cfg.num_layers
+    fused = schedule == "fused"
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0 if fused else n,
+            "flash_attention_bwd": 0 if fused else n,
+            "fused_vit_block_fwd": n if fused else 0, "fused_vit_block_bwd": n if fused else 0}
+    out = train_loop(f"training ({schedule})", step, state, batch, steps, fa, fvb, want,
+                     TRAIN_VIDEOS)
+    out.update(schedule=schedule, videos=TRAIN_VIDEOS, frames=TRAIN_FRAMES, tokens=TRAIN_TOKENS,
+               frames_per_s=out["samples_per_s"] * TRAIN_FRAMES)
+    return out
 
 
 def profile_train_step(step, state, batch):
     """One more step (after the counted ones) under torch.profiler: the CUDA
     kernels' device time, summed (one stream, so it is the busy time), the
-    kernel launches, the top kernels by device time and the flash kernels'
-    share. The profiled step's wall time is inflated by the profiler."""
+    kernel launches, the top kernels by device time and the shares of the
+    flash kernels (K1, K2) and of the fused block's (K4, K5). The profiled
+    step's wall time is inflated by the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -540,12 +593,349 @@ def profile_train_step(step, state, batch):
     rows.sort(key=lambda r: -r[1])
     return {"profiled_wall_ms": wall_ms, "device_ms": sum(ms for _, ms, _ in rows),
             "flash_kernels_ms": sum(ms for k, ms, _ in rows if "flash_" in k),
+            "fused_block_kernels_ms": sum(ms for k, ms, _ in rows
+                                          if any(m in k for m in FUSED_BLOCK_KERNELS)),
             "kernel_launches": sum(n for _, _, n in rows),
             "top": [[k[:70], ms, n] for k, ms, n in rows[:8]]}
 
 
+# the device kernels that K4 and K5 launch (csrc/fused_vit_block*.cu)
+FUSED_BLOCK_KERNELS = ("vit_block::", "colsum_partial", "colsum_final", "sum_splits",
+                       "ln_bwd_rows", "attn_bwd_dq", "attn_bwd_dkdv")
+
+
+# ---------------------------------------------------------------------------
+# the fused ViT block: K4 (forward) and K5 (backward)
+# ---------------------------------------------------------------------------
+
+# K4 vs its twin, max abs error over max |twin|: the fp32 sums run in another
+# order and erff/expf differ from torch's by an ulp or two, which can flip a
+# bf16 rounding of an intermediate (qkv, p, a head's output, fc1, GELU) by
+# one ulp; the flipped values reach the output through the next product
+BLOCK_FWD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+# K5 vs its twin, per gradient, max abs error over that gradient's max
+# |twin|: as for K4, plus the roundings of dhh, dy, do, dsb and dqkv that
+# feed the weight-gradient sums over all rows
+BLOCK_BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BLOCK_GRADS = ("dx", "dln1s", "dln1b", "dwqkv", "dbqkv", "dwproj", "dbproj", "dln2s", "dln2b",
+               "dw1", "db1", "dw2", "db2")
+# (frames, padded tokens, true tokens): the 224-px trainers' ViT-B/16 and
+# the 384-px CapFilt encode's
+BLOCK_SHAPES = {"train_224": (48, 256, 197), "capfilt_384": (32, 640, 577)}
+BLOCK_D, BLOCK_H, BLOCK_EPS = 768, 12, 1e-6
+
+
+def block_args(B, Lp, dtype, gen, device, D=BLOCK_D):
+    """x and one block's 12 parameters, as fused_vit_block passes them:
+    the linears in `dtype`, the LayerNorm parameters fp32."""
+    Dm = 4 * D
+
+    def t(shape, scale, shift=0.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=device) * scale + shift).to(dt)
+
+    return (t((B, Lp, D), 1.0),
+            t((D,), 0.1, 1.0, torch.float32), t((D,), 0.05, 0.0, torch.float32),
+            t((D, 3 * D), D ** -0.5), t((3 * D,), 0.02),
+            t((D, D), D ** -0.5), t((D,), 0.02),
+            t((D,), 0.1, 1.0, torch.float32), t((D,), 0.05, 0.0, torch.float32),
+            t((D, Dm), D ** -0.5), t((Dm,), 0.02),
+            t((Dm, D), Dm ** -0.5), t((D,), 0.02))
+
+
+def library_block(args, true_len):
+    """The same block through PyTorch's library calls (F.layer_norm,
+    F.linear, scaled_dot_product_attention, F.gelu): a yardstick only."""
+    x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2 = args
+    B, Lp, D = x.shape
+    H = BLOCK_H
+    mask = None
+    if true_len != Lp:
+        mask = (torch.arange(Lp, device=x.device) < true_len)[None, None, None, :]
+    h = F.layer_norm(x, (D,), ln1s.to(x.dtype), ln1b.to(x.dtype), BLOCK_EPS)
+    q, k, v = (t.reshape(B, Lp, H, D // H).transpose(1, 2)
+               for t in F.linear(h, wqkv.t(), bqkv).split(D, dim=-1))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask).transpose(1, 2).reshape(B, Lp, D)
+    y = x + F.linear(o, wproj.t(), bproj)
+    h = F.layer_norm(y, (D,), ln2s.to(x.dtype), ln2b.to(x.dtype), BLOCK_EPS)
+    return y + F.linear(F.gelu(F.linear(h, w1.t(), b1)), w2.t(), b2)
+
+
+def block_bound_ms(B, Lp, dtype, backward=False, D=BLOCK_D):
+    """Least time for one block call, from the TPU kernels' own cost
+    estimates (vidil_tpu/ops/fused_vit_block.py:173-178, :401-407): the
+    forward's 2*B*Lp*D*(4D + 2Dm + 2Lp) operations (the backward three
+    times that: the recompute and two products per forward product) at the
+    dtype's peak rate, or its bytes over HBM: x and out (the backward: x, g
+    and dx) and the weights read once (the backward also writes their fp32
+    gradients)."""
+    Dm = 4 * D
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    weights = 4 * D * D + 2 * D * Dm
+    flops = 2 * B * Lp * D * (4 * D + 2 * Dm + 2 * Lp) * (3 if backward else 1)
+    nbytes = (3 * B * Lp * D * itemsize + weights * (itemsize + 4) if backward
+              else (2 * B * Lp * D + weights) * itemsize)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rel_err(a, b):
+    return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+
+
+def check_fused_block(fvb, device):
+    """Phase 8: K4 against fused_block_ref at both block shapes, K5 against
+    fused_block_bwd_ref (dx and the 12 gradients) at the trainers' shape,
+    bf16 and fp32, K5 twice on the same inputs (bitwise equal), with the
+    CUDA-event times of the kernel, the twin and the library block."""
+    fwd_rows, bwd_rows = [], []
+    gen = torch.Generator(device=device).manual_seed(5)
+    H, eps = BLOCK_H, BLOCK_EPS
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for label, (B, Lp, true_len) in BLOCK_SHAPES.items():
+            args = block_args(B, Lp, dtype, gen, device)
+            got = fvb._launch_fwd(args, true_len, H, eps)
+            torch.cuda.synchronize()
+            want = fvb.fused_block_ref(*args, true_len=true_len, num_heads=H, eps=eps)
+            rel = _rel_err(got, want)
+            bound, bound_by = block_bound_ms(B, Lp, dtype)
+            row = dict(shape=label, dtype=dname, x=[B, Lp, BLOCK_D], true_len=true_len,
+                       max_abs_err=(got.float() - want.float()).abs().max().item(),
+                       rel_err=rel, rtol=BLOCK_FWD_RTOL[dtype],
+                       ms=time_ms(lambda: fvb._launch_fwd(args, true_len, H, eps)),
+                       plain_ms=time_ms(lambda: fvb.fused_block_ref(
+                           *args, true_len=true_len, num_heads=H, eps=eps)),
+                       library_ms=time_ms(lambda: library_block(args, true_len)),
+                       bound_ms=bound, bound_by=bound_by)
+            log("kernel check (fused block fwd):", json.dumps(row))
+            fwd_rows.append(row)
+            if not (bool(torch.isfinite(got).all()) and rel <= BLOCK_FWD_RTOL[dtype]):
+                raise SystemExit(f"fused_vit_block_fwd disagrees with its twin: {row}")
+            if label != "train_224":
+                continue
+            g = torch.randn((B, Lp, BLOCK_D), generator=gen, device=device).to(dtype)
+            g[:, true_len:] = 0  # the sliced-off pad rows get no gradient
+            got = fvb._launch_bwd(args, g, true_len, H, eps)
+            again = fvb._launch_bwd(args, g, true_len, H, eps)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = fvb.fused_block_bwd_ref(*args, g, true_len=true_len, num_heads=H, eps=eps)
+            errs = {n: _rel_err(a, b) for n, a, b in zip(BLOCK_GRADS, got, want)}
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            bound, bound_by = block_bound_ms(B, Lp, dtype, backward=True)
+            row = dict(shape=label, dtype=dname, x=[B, Lp, BLOCK_D], true_len=true_len,
+                       max_abs_err=max((a.float() - b.float()).abs().max().item()
+                                       for a, b in zip(got, want)),
+                       rel_err=max(errs.values()), rel_errs=errs, rtol=BLOCK_BWD_RTOL[dtype],
+                       run_to_run_bitwise=bitwise,
+                       ms=time_ms(lambda: fvb._launch_bwd(args, g, true_len, H, eps)),
+                       plain_ms=time_ms(lambda: fvb.fused_block_bwd_ref(
+                           *args, g, true_len=true_len, num_heads=H, eps=eps)),
+                       library_ms=time_ms(lambda: torch.autograd.grad(
+                           library_block(leaves, true_len), leaves, g)),
+                       bound_ms=bound, bound_by=bound_by)
+            log("kernel check (fused block bwd):", json.dumps(row))
+            bwd_rows.append(row)
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            if not (finite and bitwise and max(errs.values()) <= BLOCK_BWD_RTOL[dtype]):
+                raise SystemExit(f"fused_vit_block_bwd disagrees with its twin: {row}")
+    return fwd_rows, bwd_rows
+
+
+# ---------------------------------------------------------------------------
+# the VQA fine-tune
+# ---------------------------------------------------------------------------
+
+# train_blip_video_vqa_msrvtt.yaml's shapes at its reference batch
+VQA_QUESTIONS, VQA_FRAMES, VQA_Q_TOKENS, VQA_A_TOKENS, VQA_STEPS = 8, 4, 35, 12, 8
+VQA_ANSWER_LIST, VQA_K = 256, 128
+
+
+def make_vqa_batch(tok, device):
+    """One fixed batch: 8 questions x 4 frames at 224 px (normalized noise),
+    [ENC] questions of 8-35 tokens padded to 35, 1-3 answers per question
+    ([DEC] + words + [SEP], 3-12 tokens padded to 12) with weight 0.2."""
+    rng = np.random.default_rng(1)
+
+    def rows(n_rows, width, first, lo):
+        ids = np.zeros((n_rows, width), np.int64)
+        mask = np.zeros_like(ids)
+        for b in range(n_rows):
+            n = int(rng.integers(lo, width + 1))
+            ids[b, :n] = [first] + list(rng.integers(1000, 30000, n - 2)) + [tok.sep_token_id]
+            mask[b, :n] = 1
+        return torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+
+    q_ids, q_mask = rows(VQA_QUESTIONS, VQA_Q_TOKENS, tok.enc_token_id, 8)
+    per_question = rng.integers(1, 4, VQA_QUESTIONS)
+    a_ids, a_mask = rows(int(per_question.sum()), VQA_A_TOKENS, tok.bos_token_id, 3)
+    gen = torch.Generator(device=device).manual_seed(6)
+    video = torch.randn((VQA_QUESTIONS, VQA_FRAMES, 224, 224, 3), generator=gen, device=device)
+    index = torch.from_numpy(np.repeat(np.arange(VQA_QUESTIONS), per_question)).to(device)
+    return {"video": video, "question_ids": q_ids, "question_mask": q_mask,
+            "answer_ids": a_ids, "answer_mask": a_mask, "answer_question_index": index,
+            "weights": torch.full((a_ids.shape[0],), 0.2, device=device)}
+
+
+def run_vqa(fa, fvb, device):
+    """Phase 10: make_vqa_train_step at full width (ViT-B/16 224 px with the
+    yaml's vit_grad_ckpt, MED-base encoder and decoder), synthetic weights,
+    bf16, the default schedule (K4 + K5); then vqa_generate_ids (3 beams,
+    10 tokens, beam_group_kv) and rank_answer (k = 128 over 256 synthetic
+    answers) on the batch's questions."""
+    import os
+
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.models.blip_vqa import blip_vqa_shapes, rank_answer, vqa_generate_ids
+    from vidil_tpu_torch.tokenizer import BlipTokenizer, write_bench_vocab
+    from vidil_tpu_torch.train.vqa import create_vqa_train_state, make_vqa_train_step
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=True)  # the yaml's vit_grad_ckpt: true
+    med_cfg = _med_cfg(vit_cfg)
+    params = convert.from_jax_params(synth_tree(blip_vqa_shapes(vit_cfg, med_cfg), device,
+                                                salt=3.0))
+    state = create_vqa_train_state(params, 1e-4, 0.05, device=device)
+    del params
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "vocab.txt")
+        write_bench_vocab(vocab)
+        tok = BlipTokenizer(vocab)
+    batch = make_vqa_batch(tok, device)
+    step = make_vqa_train_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
+    n = vit_cfg.num_layers
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
+            "fused_vit_block_fwd": n, "fused_vit_block_bwd": n}
+    out = train_loop("vqa training", step, state, batch, VQA_STEPS, fa, fvb, want, VQA_QUESTIONS)
+    out.update(questions=VQA_QUESTIONS, frames=VQA_FRAMES, answers=int(batch["weights"].shape[0]),
+               question_tokens=VQA_Q_TOKENS, answer_tokens=VQA_A_TOKENS)
+
+    rng = np.random.default_rng(2)
+    a_ids = np.zeros((VQA_ANSWER_LIST, 6), np.int64)
+    a_mask = np.zeros_like(a_ids)
+    for i in range(VQA_ANSWER_LIST):
+        n_words = int(rng.integers(1, 5))
+        a_ids[i, :n_words + 2] = [tok.bos_token_id, *rng.integers(1000, 30000, n_words),
+                                  tok.sep_token_id]
+        a_mask[i, :n_words + 2] = 1
+    a_ids, a_mask = torch.from_numpy(a_ids).to(device), torch.from_numpy(a_mask).to(device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        embeds = blip.encode_video_frames(state.params, batch["video"], vit_cfg,
+                                          dtype=torch.bfloat16)
+        seqs = vqa_generate_ids(state.params, embeds, batch["question_ids"],
+                                batch["question_mask"], med_cfg, tok, max_length=10,
+                                num_beams=3, dtype=torch.bfloat16, beam_group_kv=True)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ranked = rank_answer(state.params, embeds, batch["question_ids"], batch["question_mask"],
+                             a_ids, a_mask, k=VQA_K, med_cfg=med_cfg, tokenizer=tok,
+                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t2 = time.time()
+    seqs, ranked = seqs.cpu(), ranked.cpu()
+    answers = tok.batch_decode(seqs.numpy())
+    log("vqa: generated ids", json.dumps(seqs[:3].tolist()), "answers", json.dumps(answers[:3]),
+        "ranked", json.dumps(ranked.tolist()))
+    if not (tuple(seqs.shape) == (VQA_QUESTIONS, 10) and all(_well_formed(r, tok) for r in seqs)
+            and bool(((seqs >= 0) & (seqs < med_cfg.vocab_size)).all())
+            and all(isinstance(a, str) for a in answers)):
+        raise SystemExit(f"vqa: malformed generated answers {seqs.tolist()}")
+    if not (tuple(ranked.shape) == (VQA_QUESTIONS,)
+            and bool(((ranked >= 0) & (ranked < VQA_ANSWER_LIST)).all())):
+        raise SystemExit(f"vqa: malformed ranked answers {ranked.tolist()}")
+    out.update(generate_s=t1 - t0, rank_s=t2 - t1, rank_k=VQA_K, answer_list=VQA_ANSWER_LIST)
+    return out
+
+
+def _well_formed(row, tok) -> bool:
+    """[DEC] first, then tokens up to an optional [SEP], then only [PAD]."""
+    row = row.tolist()
+    if row[0] != tok.bos_token_id:
+        return False
+    end = row.index(tok.sep_token_id) if tok.sep_token_id in row else len(row)
+    return all(t == tok.pad_token_id for t in row[end + 1:])
+
+
+def in_situ_fused_block(fvb, device):
+    """Phase 11: one full-width ViT block at the trainers' shape through
+    fused_vit_block (K4 forward, K5 backward), bf16 compute over fp32
+    parameters, and through the twins: the input gradient and the qkv
+    weight gradient (reported)."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    cfg = ViTConfig.from_name("base", 224)
+    blk = convert.from_jax_params(synth_tree({"blocks": blip.vit_shapes(cfg)["blocks"]},
+                                             device, salt=1.0))["blocks"][0]
+    gen = torch.Generator(device=device).manual_seed(7)
+    B, Lp, true_len = BLOCK_SHAPES["train_224"]
+    x0 = torch.zeros((B, Lp, cfg.hidden_size), device=device)
+    x0[:, :true_len] = torch.randn((B, true_len, cfg.hidden_size), generator=gen, device=device)
+    r = torch.randn((B, true_len, cfg.hidden_size), generator=gen, device=device)
+
+    def grads():
+        x = x0.to(torch.bfloat16).requires_grad_(True)
+        w = blk["attn"]["qkv"]["kernel"].clone().requires_grad_(True)
+        p = dict(blk, attn=dict(blk["attn"], qkv=dict(blk["attn"]["qkv"], kernel=w)))
+        out = fvb.fused_vit_block(p, x, cfg.num_heads, cfg.layer_norm_eps, true_len,
+                                  pallas_bwd=True)
+        return torch.autograd.grad((out[:, :true_len].float() * r).sum(), (x, w))
+
+    before = dict(fvb.launch_counts)
+    got = grads()
+    if {k: fvb.launch_counts[k] - before[k] for k in before} != {
+            "fused_vit_block_fwd": 1, "fused_vit_block_bwd": 1}:
+        raise SystemExit("in-situ fused block: the kernels did not run")
+    launch_fwd, launch_bwd = fvb._launch_fwd, fvb._launch_bwd
+    fvb._launch_fwd = lambda args, tl, nh, eps: fvb.fused_block_ref(
+        *args, true_len=tl, num_heads=nh, eps=eps)
+    fvb._launch_bwd = lambda args, g, tl, nh, eps: fvb.fused_block_bwd_ref(
+        *args, g.to(args[0].dtype), true_len=tl, num_heads=nh, eps=eps)
+    try:
+        want = grads()
+    finally:
+        fvb._launch_fwd, fvb._launch_bwd = launch_fwd, launch_bwd
+    out = {}
+    for name, a, b in zip(("dx", "d_qkv_kernel"), got, want):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise SystemExit(f"in-situ fused block: non-finite {name}")
+        out[f"{name}_max_abs_diff"] = (a.float() - b.float()).abs().max().item()
+        out[f"{name}_max_abs"] = b.float().abs().max().item()
+    return out
+
+
+def in_situ_fused_encode(engine, fvb, frames, vit_cfg):
+    """Phase 6: the 384-px captioner encode of one CapFilt chunk with
+    use_fused_block (K4 per block, inference) against the classic encode
+    (K1), after one block and after twelve (reported)."""
+    import dataclasses
+
+    from vidil_tpu_torch.models import vit
+    from vidil_tpu_torch.ops.image import preprocess_any
+
+    x = preprocess_any(engine._put(frames), vit_cfg.image_size)
+    ve = engine.captioner_params["visual_encoder"]
+    fused_cfg = dataclasses.replace(vit_cfg, use_fused_block=True)
+    out = {"frames": int(x.shape[0])}
+    with torch.no_grad():
+        for label, params in (("one_block", dict(ve, blocks=ve["blocks"][:1])), ("twelve", ve)):
+            before = fvb.launch_counts["fused_vit_block_fwd"]
+            a = vit.vit_forward(params, x, fused_cfg, dtype=torch.bfloat16)
+            launched = fvb.launch_counts["fused_vit_block_fwd"] - before
+            b = vit.vit_forward(params, x, vit_cfg, dtype=torch.bfloat16)
+            if launched != len(params["blocks"]) or not torch.isfinite(a).all():
+                raise SystemExit(f"in-situ fused encode: {launched} K4 launches or non-finite")
+            out[f"bf16_{label}_max_abs_diff"] = (a.float() - b.float()).abs().max().item()
+            out[f"bf16_{label}_max_abs"] = b.float().abs().max().item()
+    return out
+
+
 def in_situ_backward(fa, device):
-    """Phase 9: one full-width ViT block at the trainer's shape, bf16:
+    """Phase 11: one full-width ViT block at the trainer's shape, bf16:
     the input gradient and the qkv weight gradient through the kernels and
     through the twins (at the kernels' tiling)."""
     from vidil_tpu_torch.config import ViTConfig
@@ -599,13 +989,14 @@ def main():
 
     from vidil_tpu_torch.ops import _build
     from vidil_tpu_torch.ops import flash_attention as fa
+    from vidil_tpu_torch.ops import fused_vit_block as fvb
 
     t0 = time.time()
     libs = _build.build_all()
     log(f"build: {time.time() - t0:.1f} s for {len(libs)} libraries, nvcc in parallel")
     for name, path in libs.items():
-        log(f"ptxas ({name}):", " | ".join(
-            line.strip() for line in open(f"{path}.log") if "registers" in line or "spill" in line))
+        log(f"ptxas ({name}):", " | ".join(sorted(set(
+            line.strip() for line in open(f"{path}.log") if "registers" in line or "spill" in line))))
 
     rows = check_flash_kernel(fa, device)
 
@@ -636,52 +1027,77 @@ def main():
 
     from vidil_tpu_torch.pipeline.capfilt import _concat_frames
 
-    situ = in_situ_check(engine, fa, _concat_frames([c["frames"] for c in chunks[0]]),
-                         vit_cfg, med_cfg)
+    frames0 = _concat_frames([c["frames"] for c in chunks[0]])
+    situ = in_situ_check(engine, fa, frames0, vit_cfg, med_cfg)
     log("in-situ (kernel vs twin in the captioner encode):", json.dumps(situ))
+    situ_enc = in_situ_fused_encode(engine, fvb, frames0, vit_cfg)
+    log("in-situ (fused-block K4 vs classic captioner encode, 384 px):", json.dumps(situ_enc))
 
     del engine
     torch.cuda.empty_cache()
     lse_rows = check_fwd_lse(fa, device)
     bwd_rows = check_bwd(fa, device)
-    train = run_training(fa, device)
-    log(f"training: steady step {train['steady_step_ms']:.2f} ms (CUDA events, step 1 "
-        f"excluded; host enqueue {train['steady_enqueue_ms']:.2f} ms), "
-        f"{train['samples_per_s']:.2f} samples/s ({TRAIN_VIDEOS} videos x "
-        f"{TRAIN_FRAMES} frames), peak memory {train['peak_memory_gib']:.2f} GiB, card {card}")
-    log("training:", json.dumps(train))
-    prof = train["profile"]
-    log(f"training profile (one step, torch.profiler): kernels {prof['device_ms']:.2f} ms on "
-        f"the device, {prof['device_busy_share']:.3f} of the steady step; flash kernels "
-        f"{prof['flash_kernels_ms']:.2f} ms; {prof['kernel_launches']} kernel launches")
+    block_fwd_rows, block_bwd_rows = check_fused_block(fvb, device)
+
+    trains = {}
+    for schedule, steps in (("classic", CLASSIC_STEPS), ("fused", TRAIN_STEPS)):
+        t = trains[schedule] = run_caption_training(fa, fvb, device, schedule, steps)
+        log(f"training ({schedule}): steady step {t['steady_step_ms']:.2f} ms (CUDA events, "
+            f"step 1 excluded; host enqueue {t['steady_enqueue_ms']:.2f} ms), "
+            f"{t['samples_per_s']:.2f} samples/s ({TRAIN_VIDEOS} videos x {TRAIN_FRAMES} "
+            f"frames), peak memory {t['peak_memory_gib']:.2f} GiB, card {card}")
+        log(f"training ({schedule}):", json.dumps(t))
+        prof = t["profile"]
+        log(f"training profile ({schedule}, one step, torch.profiler): kernels "
+            f"{prof['device_ms']:.2f} ms on the device, {prof['device_busy_share']:.3f} of the "
+            f"steady step; flash kernels {prof['flash_kernels_ms']:.2f} ms; fused-block kernels "
+            f"{prof['fused_block_kernels_ms']:.2f} ms; {prof['kernel_launches']} kernel launches")
+    vqa = run_vqa(fa, fvb, device)
+    log(f"vqa training: steady step {vqa['steady_step_ms']:.2f} ms (host enqueue "
+        f"{vqa['steady_enqueue_ms']:.2f} ms), {vqa['samples_per_s']:.2f} questions/s, peak "
+        f"memory {vqa['peak_memory_gib']:.2f} GiB; generate {vqa['generate_s']:.3f} s, rank "
+        f"{vqa['rank_s']:.3f} s; card {card}")
+    log("vqa:", json.dumps(vqa))
     situ_bwd = in_situ_backward(fa, device)
     log("in-situ (kernels vs twins, one ViT block's gradients, bf16):", json.dumps(situ_bwd))
+    situ_block = in_situ_fused_block(fvb, device)
+    log("in-situ (K4/K5 vs twins, one fused ViT block's gradients, bf16):",
+        json.dumps(situ_block))
 
-    def pick(rs, shape):
-        return next(r for r in rs if r["dtype"] == "bfloat16" and r["layout"] == "views"
-                    and r["shape"] == shape)
-
-    def entry(name, source, replaces, n, rs, shape, desc, err_key="max_abs_err"):
-        r = pick(rs, shape)
+    def entry(name, source, replaces, n, rs, shape, desc, **extra):
+        r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"
+                 and x["shape"] == shape)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n,
-                "max_abs_err": max(x[err_key] for x in rs if x["dtype"] == "bfloat16"),
+                "max_abs_err": max(x["max_abs_err"] for x in rs if x["dtype"] == "bfloat16"),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": desc,
-                "per_shape": rs}
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": desc, **extra}
 
     fwd_src = "vidil_tpu_torch/csrc/flash_attention_fwd.cu"
+    classic, fused = trains["classic"]["launches"], trains["fused"]["launches"]
     record = {"kernels": [
         entry("flash_attention_fwd", fwd_src, "vidil_tpu/ops/flash_attention.py:290", launches,
               rows, "vit_self_attention",
               "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path"),
         entry("flash_attention_fwd_lse", fwd_src, "vidil_tpu/ops/flash_attention.py:290",
-              train["launches"]["flash_attention_fwd_lse"], lse_rows, "train_224",
-              "q,k,v (48, 12, 197, 64) bf16 views, with fp32 lse rows; training path"),
+              classic["flash_attention_fwd_lse"], lse_rows, "train_224",
+              "q,k,v (48, 12, 197, 64) bf16 views, with fp32 lse rows; classic training path "
+              "(VIDIL_TPU_TRAIN_FUSED_BLOCK=0)"),
         entry("flash_attention_bwd", "vidil_tpu_torch/csrc/flash_attention_bwd.cu",
-              "vidil_tpu/ops/flash_attention.py:242",
-              train["launches"]["flash_attention_bwd"], bwd_rows, "train_224",
-              "q,k,v,o,g (48, 12, 197, 64) bf16 views; training path"),
+              "vidil_tpu/ops/flash_attention.py:242", classic["flash_attention_bwd"], bwd_rows,
+              "train_224", "q,k,v,o,g (48, 12, 197, 64) bf16 views; classic training path"),
+        entry("fused_vit_block_fwd", "vidil_tpu_torch/csrc/fused_vit_block_fwd.cu",
+              "vidil_tpu/ops/fused_vit_block.py:139", fused["fused_vit_block_fwd"],
+              block_fwd_rows, "train_224",
+              "x (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
+              "path (the trainers' default)",
+              launches_vqa=vqa["launches"]["fused_vit_block_fwd"]),
+        entry("fused_vit_block_bwd", "vidil_tpu_torch/csrc/fused_vit_block_bwd.cu",
+              "vidil_tpu/ops/fused_vit_block.py:345", fused["fused_vit_block_bwd"],
+              block_bwd_rows, "train_224",
+              "x, g (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
+              "path (the trainers' default)",
+              launches_vqa=vqa["launches"]["fused_vit_block_bwd"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

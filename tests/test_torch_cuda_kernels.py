@@ -173,3 +173,118 @@ def test_function_grads_match_dot_product_attention(cuda_device, dtype, rtol):
     with torch.no_grad():
         fa.flash_attention(q, k, v)
     assert fa.launch_counts["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+
+
+# ---------------------------------------------------------------------------
+# the fused ViT block: K4 (forward) and K5 (backward) against their twins
+# ---------------------------------------------------------------------------
+
+from vidil_tpu_torch.ops import fused_vit_block as fvb  # noqa: E402
+
+# (tolerance) K4 vs its twin, max abs error over max |out|: the fp32 sums
+# (GEMM depth, LayerNorm, softmax) run in another order and erff/expf/rsqrtf
+# differ from torch's by an ulp or two, which can flip the bf16 rounding of
+# an intermediate (qkv, p, a head's output, fc1, GELU) by one ulp; the
+# flipped values reach the output through the next product, a few ulps of
+# max |out| (2**-8 each). fp32 differs in order and last bits alone.
+FWD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+# (tolerance) K5 vs its twin, per gradient, max abs error over that
+# gradient's max |twin|: as for K4, plus the roundings of dhh, dy, do, dsb
+# and dqkv that feed the weight-gradient sums over all rows.
+BLOCK_BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# (B, Lp, D, H, true_len): a padded 197-token axis, an unpadded one, 577 -> 640
+BLOCK_SHAPES = [(2, 256, 128, 2, 197), (3, 128, 256, 4, 128), (1, 640, 128, 2, 577)]
+
+
+def _block_args(B, Lp, D, H, dtype, device, seed):
+    """x and the block's 12 parameters (linears in `dtype`, LayerNorm fp32),
+    and an output gradient that is zero on the pad rows."""
+    rng = np.random.default_rng(seed)
+    Dm = 4 * D
+
+    def t(shape, scale, shift=0.0, dt=dtype):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+        return torch.from_numpy(a).to(device, dt)
+
+    args = (t((B, Lp, D), 1.0),
+            t((D,), 0.1, 1.0, torch.float32), t((D,), 0.05, 0.0, torch.float32),
+            t((D, 3 * D), D ** -0.5), t((3 * D,), 0.02),
+            t((D, D), D ** -0.5), t((D,), 0.02),
+            t((D,), 0.1, 1.0, torch.float32), t((D,), 0.05, 0.0, torch.float32),
+            t((D, Dm), D ** -0.5), t((Dm,), 0.02),
+            t((Dm, D), Dm ** -0.5), t((D,), 0.02))
+    return args, t((B, Lp, D), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Lp,D,H,true_len", BLOCK_SHAPES)
+def test_fused_block_fwd_kernel_matches_twin(cuda_device, dtype, B, Lp, D, H, true_len):
+    args, _ = _block_args(B, Lp, D, H, dtype, cuda_device, 11)
+    before = fvb.launch_counts["fused_vit_block_fwd"]
+    got = fvb._launch_fwd(args, true_len, H, 1e-6)
+    torch.cuda.synchronize()
+    assert fvb.launch_counts["fused_vit_block_fwd"] == before + 1
+    want = fvb.fused_block_ref(*args, true_len=true_len, num_heads=H, eps=1e-6)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())  # pad rows included
+    assert _rel_err(got, want) <= FWD_RTOL[dtype], _rel_err(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Lp,D,H,true_len", BLOCK_SHAPES)
+def test_fused_block_bwd_kernel_matches_twin(cuda_device, dtype, B, Lp, D, H, true_len):
+    args, g = _block_args(B, Lp, D, H, dtype, cuda_device, 12)
+    g[:, true_len:] = 0  # the sliced-off pad rows get no gradient
+    before = fvb.launch_counts["fused_vit_block_bwd"]
+    got = fvb._launch_bwd(args, g, true_len, H, 1e-6)
+    torch.cuda.synchronize()
+    assert fvb.launch_counts["fused_vit_block_bwd"] == before + 1
+    want = fvb.fused_block_bwd_ref(*args, g, true_len=true_len, num_heads=H, eps=1e-6)
+    names = ("dx", "dln1s", "dln1b", "dwqkv", "dbqkv", "dwproj", "dbproj", "dln2s", "dln2b",
+             "dw1", "db1", "dw2", "db2")
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        errs[name] = _rel_err(a, b)
+    assert max(errs.values()) <= BLOCK_BWD_RTOL[dtype], errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_block_bwd_kernel_is_deterministic(cuda_device, dtype):
+    """Fixed-order reductions, no atomics: two runs give the same bits."""
+    args, g = _block_args(2, 256, 256, 4, dtype, cuda_device, 13)
+    first = fvb._launch_bwd(args, g, 197, 4, 1e-6)
+    second = fvb._launch_bwd(args, g, 197, 4, 1e-6)
+    for a, b in zip(first, second):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_vit_block_function_on_the_card(cuda_device):
+    """fused_vit_block on CUDA: one K4 launch forward, one K5 launch
+    backward with pallas_bwd, none with the autograd recompute; the two
+    backward strategies agree within the JAX package's bar for its two bf16
+    backward strategies (0.06 of max |dx|, tests/test_fused_vit_block.py)."""
+    args, g = _block_args(2, 256, 128, 2, torch.bfloat16, cuda_device, 14)
+    g[:, 197:] = 0
+    params = {"norm1": {"scale": args[1], "bias": args[2]},
+              "attn": {"qkv": {"kernel": args[3], "bias": args[4]},
+                       "proj": {"kernel": args[5], "bias": args[6]}},
+              "norm2": {"scale": args[7], "bias": args[8]},
+              "mlp": {"fc1": {"kernel": args[9], "bias": args[10]},
+                      "fc2": {"kernel": args[11], "bias": args[12]}}}
+    grads = []
+    for pallas_bwd in (True, False):
+        x = args[0].clone().requires_grad_(True)
+        before = dict(fvb.launch_counts)
+        out = fvb.fused_vit_block(params, x, 2, 1e-6, 197, pallas_bwd=pallas_bwd)
+        (dx,) = torch.autograd.grad(out, x, g)
+        assert fvb.launch_counts["fused_vit_block_fwd"] == before["fused_vit_block_fwd"] + 1
+        assert (fvb.launch_counts["fused_vit_block_bwd"]
+                == before["fused_vit_block_bwd"] + int(pallas_bwd))
+        grads.append(dx)
+    assert _rel_err(grads[0], grads[1]) <= 0.06

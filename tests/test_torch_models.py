@@ -228,8 +228,8 @@ def test_unported_switches_raise(itm):
     ids, mask = _text(2, 5, 21)
     with pytest.raises(NotImplementedError):
         med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text", self_fold=2)
-    with pytest.raises(NotImplementedError, match="use_fused_block"):  # TPU kernel switches
-        ViTConfig(**VIT_KW, use_fused_block=True)
+    with pytest.raises(NotImplementedError, match="use_fused_mlp"):  # K3, not ported yet
+        ViTConfig(**VIT_KW, use_fused_mlp=True)
 
 
 # ---------------------------------------------------------------------------

@@ -160,3 +160,23 @@ def test_metric_logger_and_save_result(tmp_path, capsys):
     path = save_result([{"video_id": "a", "caption": "x"}, {"video_id": "a", "caption": "y"}],
                        str(tmp_path), "r", remove_duplicate="video_id")
     assert json.load(open(path)) == [{"video_id": "a", "caption": "x"}]
+
+
+def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source and of every
+    csrc/ header the source includes, directly or through another header:
+    editing only a shared header must give a new library, not a stale one."""
+    from vidil_tpu_torch.ops import _build
+
+    assert [p.name for p in _build.source_files("fused_vit_block_bwd")] == [
+        "fused_vit_block_bwd.cu", "fused_vit_block.cuh"]
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "SOURCES", {"k": "k.cu"})
+    assert [p.name for p in _build.source_files("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != before

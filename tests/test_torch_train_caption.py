@@ -202,11 +202,8 @@ def test_to_jax_params_inverts_from_jax_params():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(vit=dict(use_fused_block=True)), dict(vit=dict(use_fused_block_bwd=True)),
-    dict(vit=dict(use_fused_mlp=True)), dict(vit=dict(fused_block_interpret=True)),
-    dict(vit=dict(fused_block_frames=4)), dict(vit=dict(fused_block_bwd_frames=2)),
-    dict(vit=dict(remat=True, remat_policy="dots")), dict(med=dict(use_fused_mlp=True)),
-    dict(med=dict(remat_policy="dots"))])
+    dict(vit=dict(use_fused_mlp=True)), dict(vit=dict(remat=True, remat_policy="dots")),
+    dict(med=dict(use_fused_mlp=True)), dict(med=dict(remat_policy="dots"))])
 def test_unported_switches_raise(cfg):
     with pytest.raises(NotImplementedError):
         ViTConfig(**VIT_KW, **cfg.get("vit", {}))
@@ -214,13 +211,21 @@ def test_unported_switches_raise(cfg):
 
 
 def test_fused_schedule_request_raises(monkeypatch):
+    """Asking for the fused schedule raised until the fused block (K4/K5)
+    was ported; now VIDIL_TPU_TRAIN_FUSED_BLOCK=1 keeps a forward-only
+    request, unset gives the pair, and what still raises is the fused MLP
+    (K3) that a fused request cannot bring along."""
     from vidil_tpu_torch.train.common import training_cfgs
 
+    monkeypatch.delenv("VIDIL_TPU_TRAIN_FUSED_BLOCK", raising=False)
     vit, med = training_cfgs(ViTConfig(**VIT_KW), MedConfig(**MED_KW))
     assert med.remat and not vit.remat
+    assert vit.use_fused_block and vit.use_fused_block_bwd
     monkeypatch.setenv("VIDIL_TPU_TRAIN_FUSED_BLOCK", "1")
-    with pytest.raises(NotImplementedError):
-        training_cfgs(ViTConfig(**VIT_KW), MedConfig(**MED_KW))
+    vit, _ = training_cfgs(ViTConfig(**VIT_KW, use_fused_block=True), MedConfig(**MED_KW))
+    assert vit.use_fused_block and not vit.use_fused_block_bwd
+    with pytest.raises(NotImplementedError, match="use_fused_mlp"):
+        dataclasses.replace(vit, use_fused_mlp=True)
 
 
 def test_resolve_train_batch_reads_the_reference_key(capsys):

@@ -2,11 +2,11 @@
 
 The port's own copy of the JAX package's ``ViTConfig`` / ``MedConfig``
 fields (same defaults, same ``from_json`` mapping of a BERT/MED json),
-with the training fields the trainers read (remat, label smoothing). The
-JAX package's TPU kernel switches (the fused ViT block, the fused MLP) and
-``remat_policy="dots"`` are fields too, but a config that turns one on
-fails at construction with NotImplementedError instead of running another
-path.
+with the training fields the trainers read (remat, label smoothing) and
+the fused ViT block's switches (kernels K4/K5, `models/vit.py`). The fused
+MLP switch (kernel K3, not ported yet) and ``remat_policy="dots"`` are
+fields too, but a config that turns one on fails at construction with
+NotImplementedError instead of running another path.
 """
 
 from __future__ import annotations
@@ -45,8 +45,7 @@ def _refuse_unported(cfg, switches) -> None:
     remat_policy(cfg.remat_policy)
 
 
-_VIT_TPU_SWITCHES = ("use_fused_mlp", "use_fused_block", "fused_block_frames",
-                     "use_fused_block_bwd", "fused_block_bwd_frames", "fused_block_interpret")
+_VIT_TPU_SWITCHES = ("use_fused_mlp",)
 _MED_TPU_SWITCHES = ("use_fused_mlp",)
 
 
@@ -66,9 +65,16 @@ class ViTConfig:
     remat: bool = False  # torch.utils.checkpoint on blocks >= remat_from_layer
     remat_from_layer: int = 0
     remat_policy: str | None = None  # None = recompute the whole block
-    # TPU kernel switches of the JAX package: accepted only at their defaults
-    use_fused_mlp: bool = False
+    use_fused_mlp: bool = False  # kernel K3 of the JAX package: accepted only when off
+    # The fused-block schedule: each block as kernel K4 (`use_fused_block`),
+    # its gradient as kernel K5 (`use_fused_block_bwd`, which is its own
+    # remat; otherwise autograd through a recompute of the plain block). It
+    # runs on CUDA tensors at a width that is a multiple of 128, or on the
+    # CPU through the kernels' plain twins with `fused_block_interpret`.
+    # The trainers turn the pair on (train/common.py:training_cfgs).
     use_fused_block: bool = False
+    # frames per program of the TPU kernels' grid; the Hopper kernels choose
+    # their own tiling, and results do not depend on these two
     fused_block_frames: int = 8
     use_fused_block_bwd: bool = False
     fused_block_bwd_frames: int = 1

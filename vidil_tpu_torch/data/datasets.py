@@ -1,7 +1,8 @@
-"""Caption training/eval datasets and a threaded prefetch loader: the
-port's own copy of the parts of ``vidil_tpu/data/datasets.py`` the caption
-trainer uses (`RetrievalTrainDataset` as the base, `CaptionTrainDataset`,
-`CaptionEvalDataset`, `PrefetchLoader`). Items are numpy arrays, batching
+"""Caption and VQA training/eval datasets and a threaded prefetch loader:
+the port's own copy of the parts of ``vidil_tpu/data/datasets.py`` the
+caption and VQA trainers use (`RetrievalTrainDataset` as the base,
+`CaptionTrainDataset`, `CaptionEvalDataset`, `VQADataset`, `vqa_collate`,
+`PrefetchLoader`). Items are numpy arrays, batching
 is plain stacking, and a thread pool decodes video ahead of the device.
 
 Corrupt-video tolerance matches the reference: 3 decode retries, then a
@@ -20,7 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from vidil_tpu_torch.data.sampling import load_video_frames
-from vidil_tpu_torch.data.text_utils import pre_caption
+from vidil_tpu_torch.data.text_utils import pre_caption, pre_question
 from vidil_tpu_torch.data.transforms import TestTransform, TrainTransform
 
 
@@ -138,6 +139,62 @@ class CaptionEvalDataset:
         if frames is None:
             raise IOError(f"cannot decode eval video {vid}")
         return np.stack([self.transform(f) for f in frames]), vid
+
+
+class VQADataset:
+    """MSRVTT/MSVD-QA (reference: data/vqa_dataset.py:88-211).
+
+    train: (frames, question, [answer], [0.2]); test: (frames, question,
+    question_id).
+    """
+
+    def __init__(self, config: dict, split: str = "train"):
+        self.split = split
+        self.config = config
+        ann_key = f"{split}_ann_jsonl" if f"{split}_ann_jsonl" in config else "train_ann_jsonl"
+        self.annotation = load_jsonl(config[ann_key])
+        for i, a in enumerate(self.annotation):
+            a.setdefault("question_id", i)
+        self.video_root = config["video_root"]
+        self.video_fmt = config.get("video_fmt", ".mp4")
+        if split == "train":
+            self.transform = TrainTransform(config["image_size"])
+            self.num_frm_key = "num_frm_train"
+        else:
+            self.transform = TestTransform(config["image_size"])
+            self.num_frm_key = "num_frm_test"
+
+    def __len__(self):
+        return len(self.annotation)
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        path = os.path.join(self.video_root, ann["video_id"] + self.video_fmt)
+        frames = _decode(path, self.config, num_frm_key=self.num_frm_key)
+        if frames is None:
+            if self.split == "train":
+                return self[random.randint(0, len(self.annotation) - 1)]
+            raise IOError(f"cannot decode eval video {path}")
+        video = np.stack([self.transform(f) for f in frames])
+        question = pre_question(ann["question"])
+        if self.split == "train":
+            answers = [ann["answer"]]
+            weights = [0.2]  # reference: data/vqa_dataset.py:147-152
+            return video, question, answers, weights
+        return video, question, ann["question_id"]
+
+
+def vqa_collate(batch):
+    """Flatten ragged answers with per-question counts
+    (reference: data/vqa_dataset.py:214)."""
+    videos, questions, answer_lists, weight_lists, n = [], [], [], [], []
+    for video, question, answers, weights in batch:
+        videos.append(video)
+        questions.append(question)
+        answer_lists += answers
+        weight_lists += weights
+        n.append(len(answers))
+    return np.stack(videos), questions, answer_lists, np.asarray(weight_lists, np.float32), n
 
 
 class PrefetchLoader:

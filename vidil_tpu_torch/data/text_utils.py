@@ -1,6 +1,7 @@
-"""Caption preprocessing and the per-rank result merge: the port's own
-copy of ``vidil_tpu/data/text_utils.py`` (`pre_caption`, `save_result`),
-byte-identical to the reference's (reference: data/utils.py:35-123).
+"""Caption and question preprocessing and the per-rank result merge: the
+port's own copy of ``vidil_tpu/data/text_utils.py`` (`pre_caption`,
+`pre_question`, `save_result`), byte-identical to the reference's
+(reference: data/utils.py:35-123).
 """
 
 from __future__ import annotations
@@ -21,6 +22,15 @@ def pre_caption(caption: str, max_words: int = 50) -> str:
     if len(caption_words) > max_words:
         caption = " ".join(caption_words[:max_words])
     return caption
+
+
+def pre_question(question: str, max_ques_words: int = 50) -> str:
+    question = re.sub(r"([.!\"()*#:;~])", "", question.lower())
+    question = question.rstrip(" ")
+    question_words = question.split(" ")
+    if len(question_words) > max_ques_words:
+        question = " ".join(question_words[:max_ques_words])
+    return question
 
 
 def save_result(result: list, result_dir: str, filename: str,

@@ -5,8 +5,8 @@ kernels ``(in, out)``, the ViT patch kernel ``(P*P*C, D)`` in patchify's
 (ph, pw, c) order — except that per-layer parameters are a list of dicts
 (``blocks`` / ``layers``) instead of one stacked leading axis.
 
-* `convert_blip_decoder` / `convert_blip_itm`: a BLIP torch ``.pth`` state
-  dict (reference key names) -> port params.
+* `convert_blip_decoder` / `convert_blip_itm` / `convert_blip_vqa`: a BLIP
+  torch ``.pth`` state dict (reference key names) -> port params.
 * `from_jax_params`: the JAX package's parameter pytree, as numpy arrays
   (or tensors) with stacked layers -> port params.
 * `to_jax_params`: its inverse, port params -> the JAX layout as numpy
@@ -221,4 +221,14 @@ def convert_blip_itm(sd: dict, vit_cfg: ViTConfig, med_cfg: MedConfig) -> dict:
         "vision_proj": _lin(sd, "vision_proj"),
         "text_proj": _lin(sd, "text_proj"),
         "itm_head": _lin(sd, "itm_head"),
+    }
+
+
+def convert_blip_vqa(sd: dict, vit_cfg: ViTConfig, med_cfg: MedConfig) -> dict:
+    """BLIP_VQA checkpoint -> {'visual_encoder', 'text_encoder', 'text_decoder'}."""
+    return {
+        "visual_encoder": convert_vit(sd, vit_cfg, "visual_encoder."),
+        "text_encoder": convert_med(sd, med_cfg, prefix="text_encoder."),
+        "text_decoder": convert_med(sd, med_cfg, prefix="text_decoder.bert.",
+                                    lm_head_prefix="text_decoder."),
     }

@@ -5,14 +5,18 @@ Counterpart of ``vidil_tpu/models/vit.py``: NHWC images, patchify with
 Conv2d), [CLS] + learned position embedding, pre-LN blocks with GELU, and
 a final LayerNorm. ``params["blocks"]`` is a list of per-layer dicts.
 
-The self-attention goes through `attention_auto`: the Hopper flash kernel
-on CUDA tensors, its plain twin on CPU tensors.
+The classic schedule runs the blocks one by one, the self-attention through
+`attention_auto` (the Hopper flash kernels on CUDA tensors, their plain
+twins on CPU tensors). The fused-block schedule (``ViTConfig.use_fused_block``)
+runs each block through `fused_vit_block` (kernels K4, and K5 for the
+gradient with ``use_fused_block_bwd``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vidil_tpu_torch.config import ViTConfig
 from vidil_tpu_torch.models.layers import (
@@ -25,6 +29,7 @@ from vidil_tpu_torch.models.layers import (
     split_heads,
 )
 from vidil_tpu_torch.ops.flash_attention import attention_auto
+from vidil_tpu_torch.ops.fused_vit_block import fused_vit_block
 
 
 def patchify(x, patch_size: int):
@@ -53,19 +58,43 @@ def block_forward(params, x, num_heads: int, eps: float, dtype=None):
     return x
 
 
+def use_fused_schedule(cfg: ViTConfig, x) -> bool:
+    """The fused-block gate of the JAX package's vit_forward: asked for,
+    not under a remat that the forward-only kernel cannot serve (the
+    fwd+bwd pair is its own remat), a 128-multiple width, and on the card
+    (or `fused_block_interpret`, which runs the twins on the CPU). The
+    32-wide test configs stay on the classic schedule."""
+    return (cfg.use_fused_block and (not cfg.remat or cfg.use_fused_block_bwd)
+            and cfg.hidden_size % 128 == 0 and (cfg.fused_block_interpret or x.is_cuda))
+
+
 def vit_forward(params, images, cfg: ViTConfig, dtype=None):
     """images: (B, H, W, C) NHWC, already resized/normalized.
     Returns (B, num_patches + 1, hidden) embeddings (token 0 = [CLS]).
 
-    The classic schedule: blocks one after another, each recomputed in the
-    backward when ``cfg.remat`` (blocks from ``cfg.remat_from_layer`` on).
-    The JAX package's fused-block schedule (its K4/K5 kernels) is not
-    ported; ViTConfig refuses it."""
+    Fused schedule (`use_fused_schedule`): the token axis is padded once to
+    a multiple of 128, every block runs as `fused_vit_block` on the padded
+    array (pad keys masked, pad rows garbage that stays finite), then the
+    pad is sliced off before the final LayerNorm. Under
+    ``use_fused_block_bwd`` the backward kernel recomputes each block from
+    its input, so nothing wraps it in a checkpoint.
+    Classic schedule: blocks one after another, each recomputed in the
+    backward when ``cfg.remat`` (blocks from ``cfg.remat_from_layer`` on)."""
     B = images.shape[0]
     x = linear(params["patch_embed"], patchify(images, cfg.patch_size), dtype=dtype)
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"][:, : x.shape[1], :].to(x.dtype)
+    if use_fused_schedule(cfg, x):
+        L = x.shape[1]
+        lp = (L + 127) // 128 * 128
+        x = F.pad(x, (0, 0, 0, lp - L))
+        for blk in params["blocks"]:
+            x = fused_vit_block(blk, x, cfg.num_heads, cfg.layer_norm_eps, true_len=L,
+                                frames_per_program=cfg.fused_block_frames,
+                                pallas_bwd=cfg.use_fused_block_bwd,
+                                bwd_frames=cfg.fused_block_bwd_frames)
+        return layer_norm(params["norm"], x[:, :L], cfg.layer_norm_eps)
     for i, blk in enumerate(params["blocks"]):
         fn = remat(block_forward, cfg.remat and i >= cfg.remat_from_layer)
         x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype)

@@ -6,8 +6,10 @@ its own shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of its source, so an edited source is
-rebuilt and an unchanged one is reused within a checkout. The build
+The library name carries a hash of its source and of every header under
+``csrc/`` that it includes (``#include "..."``, followed recursively), so an
+edited source or header is rebuilt and an unchanged one is reused within a
+checkout. The build
 directory (``vidil_tpu_torch/_build/``) is listed in ``.gitignore``;
 ``ptxas``'s register and shared-memory report is kept beside each library
 as ``<lib>.log``. `build_all` starts one nvcc per source at once.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +34,11 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "fused_vit_block_fwd": "fused_vit_block_fwd.cu",
+    "fused_vit_block_bwd": "fused_vit_block_bwd.cu",
 }
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,10 +60,27 @@ def nvcc_path() -> str:
     return found
 
 
+def source_files(name: str) -> list[Path]:
+    """The source of kernel library `name` and every file under csrc/ that
+    it includes, directly or through another header, in include order."""
+    files, todo = [], [CSRC_DIR / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -1,0 +1,458 @@
+"""Fused pre-LN ViT block, forward and backward: the hand-written Hopper
+kernels, their plain twins, the autograd Function that pairs them, and
+`fused_vit_block`, the counterpart of ``vidil_tpu/ops/fused_vit_block.py``.
+
+One block computes
+
+    y   = x + proj(MHA(LN1 x))
+    out = y + fc2(GELU(fc1(LN2 y)))
+
+on a token axis padded to a multiple of 128: keys at positions >=
+``true_len`` are masked with a -1e30 score bias (only when the axis is
+padded); pad rows are computed like any other row (finite garbage the
+caller slices off).
+
+On CUDA tensors the forward launches ``csrc/fused_vit_block_fwd.cu`` (the
+counterpart of the TPU kernel ``_fused_block_forward``, K4) and the
+backward ``csrc/fused_vit_block_bwd.cu`` (the counterpart of
+``_fused_block_backward``, K5): each is one C call per layer that runs a
+short chain of kernel launches on the current stream. On CPU tensors the
+same Function runs the plain twins, `fused_block_ref` and
+`fused_block_bwd_ref`, which keep the TPU kernels' rounding points. Nothing
+falls back: a CUDA launch that cannot run raises.
+
+Rounding points of the forward (``_block_kernel``): LN statistics in fp32,
+its output rounded to the input dtype; each GEMM accumulates in fp32, adds
+its bias in fp32 and is rounded; q is not pre-scaled, the fp32 scores are
+multiplied by 1/√Dh, p = e / Σe is normalised in fp32 and then rounded
+before p·v; each head's output is rounded; the fc1 output is rounded, GELU
+runs in fp32 on the rounded value and is rounded again. GELU uses the
+exact erf (``torch.erf`` here, ``erff`` in CUDA); the TPU kernel uses an
+A&S approximation of erf (max error 1.5e-7), which the CPU tests' fp32
+tolerance (5e-5) covers. Backward rounding points: see
+`fused_block_bwd_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIM = 64
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+# launches of the CUDA kernels by this process, one per layer call, for
+# showing that a run went through them; `reset_launch_counts` sets them to 0
+launch_counts = {"fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _acc_dtype(dtype):
+    """fp32 accumulation for bf16/fp32 inputs (the kernels'); fp64 inputs
+    stay fp64, so that the twins can be checked against autograd in fp64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _gelu_exact_f32(h):
+    """GELU with the exact erf, in the dtype of `h` (fp32 in the kernels)."""
+    return 0.5 * h * (1.0 + torch.erf(h * 0.7071067811865476))
+
+
+def _dgelu_exact_f32(h):
+    """d/dh gelu(h) = Phi(h) + h * phi(h)."""
+    phi = torch.exp(-0.5 * h * h) * 0.3989422804014327  # N(0,1) pdf
+    cdf = 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+    return cdf + h * phi
+
+
+# ---------------------------------------------------------------------------
+# plain twins of the kernels
+# ---------------------------------------------------------------------------
+
+def _ln_stats(x32, eps):
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    return (x32 - mean) * r, r
+
+
+def _ln_bwd(dh, xhat, r, s):
+    """d/dx of xhat(x) * s + b given the upstream dh (all in acc)."""
+    dxhat = dh * s
+    return r * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+
+
+def _heads(t, num_heads):
+    """(B, L, H*Dh) -> (B, H, L, Dh)"""
+    B, L, D = t.shape
+    return t.reshape(B, L, num_heads, D // num_heads).transpose(1, 2)
+
+
+def _merge(t):
+    """(B, H, L, Dh) -> (B, L, H*Dh)"""
+    B, H, L, Dh = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * Dh)
+
+
+def _key_bias(Lp, true_len, acc, device):
+    if Lp == true_len:
+        return None
+    pos = torch.arange(Lp, device=device)
+    return torch.where(pos < true_len, 0.0, NEG_INF).to(acc)
+
+
+def _dense(a, w, b, acc):
+    """a @ w + b with the product and the bias add in `acc`."""
+    return torch.matmul(a.to(acc), w.to(acc)) + b.to(acc)
+
+
+def _recompute(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1,
+               *, true_len, num_heads, eps):
+    """The block's forward up to the GELU, at the kernels' rounding points;
+    returns every intermediate the backward reads."""
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    B, Lp, D = x.shape
+    scale = 1.0 / math.sqrt(D // num_heads)
+    xhat1, r1 = _ln_stats(x.to(acc), eps)
+    h1 = (xhat1 * ln1s.to(acc) + ln1b.to(acc)).to(dt)
+    qkv = _dense(h1, wqkv, bqkv, acc).to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    bias = _key_bias(Lp, true_len, acc, x.device)
+    if bias is not None:
+        s = s + bias
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p32 = e / e.sum(dim=-1, keepdim=True)
+    attn = _merge(torch.matmul(p32.to(dt).to(acc), v.to(acc)).to(dt))
+    y = x + _dense(attn, wproj, bproj, acc).to(dt)
+    xhat2, r2 = _ln_stats(y.to(acc), eps)
+    h2 = (xhat2 * ln2s.to(acc) + ln2b.to(acc)).to(dt)
+    hh = _dense(h2, w1, b1, acc).to(dt)
+    a = _gelu_exact_f32(hh.to(acc)).to(dt)
+    return dict(xhat1=xhat1, r1=r1, h1=h1, q=q, k=k, v=v, p32=p32, attn=attn, y=y,
+                xhat2=xhat2, r2=r2, h2=h2, hh=hh, a=a, scale=scale)
+
+
+def fused_block_ref(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
+                    *, true_len: int, num_heads: int, eps: float):
+    """Plain PyTorch version of the forward kernel (the TPU kernel's
+    ``_block_kernel``): x (B, Lp, D) -> (B, Lp, D) in x's dtype. Linear
+    weights and biases come in x's dtype, LayerNorm parameters in any."""
+    f = _recompute(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1,
+                   true_len=true_len, num_heads=num_heads, eps=eps)
+    acc = _acc_dtype(x.dtype)
+    return f["y"] + _dense(f["a"], w2, b2, acc).to(x.dtype)
+
+
+def fused_block_bwd_ref(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
+                        g, *, true_len: int, num_heads: int, eps: float):
+    """Plain PyTorch version of the backward kernel (``_block_bwd_kernel``):
+    recompute the forward from x, then reverse mode by hand. Returns (dx in
+    x's dtype, then the 12 parameter gradients in the accumulation dtype,
+    summed over every row: dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj, dln2s,
+    dln2b, dw1, db1, dw2, db2). Rounding points, step by step:
+
+        db2 = colsum(g);  dw2 = aᵀ·g;  da = g·w2ᵀ (fp32)
+        dhh32 = da · GELU′(hh);  db1 = colsum(dhh32), unrounded
+        dw1 = h2ᵀ·round(dhh);  dh2 = round(dhh)·w1ᵀ (fp32)
+        dln2s = colsum(dh2 · x̂2);  dln2b = colsum(dh2)
+        dy = g + LN2 backward (fp32);  dbproj = colsum(dy)
+        dwproj = attnᵀ·round(dy);  do = round(round(dy)·wprojᵀ)
+        per head, p32 recomputed:  dv = round(p32)ᵀ·do;  dp = do·vᵀ (fp32)
+            D = Σ_k dp·p32;  ds = p32·(dp − D);  dsb = round(ds·scale)
+            dq = dsb·k,  dk = dsbᵀ·q  (q unscaled; both stay fp32)
+        dbqkv = colsum(dqkv32), unrounded;  dwqkv = h1ᵀ·round(dqkv32)
+        dh1 = round(dqkv32)·wqkvᵀ;  dln1s, dln1b as for LN2
+        dx = round(dy + LN1 backward)
+    """
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    f = _recompute(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1,
+                   true_len=true_len, num_heads=num_heads, eps=eps)
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1]).to(acc)
+
+    def colsum(t):
+        return rows(t).sum(dim=0)
+
+    def tn(a, b):  # aᵀ·b summed over every row
+        return rows(a).t() @ rows(b)
+
+    def nt(a, w):  # a·wᵀ
+        return torch.matmul(a.to(acc), w.to(acc).t())
+
+    g32 = g.to(acc)
+    gb = g32.to(dt)
+    db2 = colsum(g32)
+    dw2 = tn(f["a"], gb)
+    dhh32 = nt(gb, w2) * _dgelu_exact_f32(f["hh"].to(acc))
+    dhh = dhh32.to(dt)
+    db1 = colsum(dhh32)
+    dw1 = tn(f["h2"], dhh)
+    dh2 = nt(dhh, w1)
+    dln2s = colsum(dh2 * f["xhat2"])
+    dln2b = colsum(dh2)
+    dy = g32 + _ln_bwd(dh2, f["xhat2"], f["r2"], ln2s.to(acc))
+    dyb = dy.to(dt)
+    dbproj = colsum(dy)
+    dwproj = tn(f["attn"], dyb)
+    do = _heads(nt(dyb, wproj).to(dt), num_heads)
+
+    p32, q, k, v = f["p32"], f["q"], f["k"], f["v"]
+    dv = torch.matmul(p32.to(dt).to(acc).transpose(-1, -2), do.to(acc))
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
+    dsb = (ds * f["scale"]).to(dt).to(acc)
+    dq = torch.matmul(dsb, k.to(acc))
+    dk = torch.matmul(dsb.transpose(-1, -2), q.to(acc))
+    dqkv32 = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
+    dqkvb = dqkv32.to(dt)
+    dbqkv = colsum(dqkv32)
+    dwqkv = tn(f["h1"], dqkvb)
+    dh1 = nt(dqkvb, wqkv)
+    dln1s = colsum(dh1 * f["xhat1"])
+    dln1b = colsum(dh1)
+    dx = (dy + _ln_bwd(dh1, f["xhat1"], f["r1"], ln1s.to(acc))).to(dt)
+    return (dx, dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj, dln2s, dln2b, dw1, db1, dw2, db2)
+
+
+def block_ref(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
+              *, true_len: int, num_heads: int, eps: float):
+    """The block as plain framework ops, differentiable by autograd: the
+    counterpart of the TPU package's ``_block_ref_xla``, which is its
+    recompute backward when the backward kernel is off. Each linear is a
+    product in the input dtype plus a bias add in it; the attention logits
+    and softmax are in the accumulation dtype."""
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    B, Lp, D = x.shape
+
+    def ln(x_, s, b):
+        xhat, _ = _ln_stats(x_.to(acc), eps)
+        return (xhat * s.to(acc) + b.to(acc)).to(dt)
+
+    h1 = ln(x, ln1s, ln1b)
+    qkv = (torch.matmul(h1, wqkv) + bqkv).to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) / math.sqrt(D // num_heads)
+    bias = _key_bias(Lp, true_len, acc, x.device)
+    if bias is not None:
+        logits = logits + bias
+    probs = torch.softmax(logits, dim=-1)
+    o = _merge(torch.matmul(probs.to(dt), v))
+    y = x + (torch.matmul(o, wproj) + bproj).to(dt)
+    h2 = ln(y, ln2s, ln2b)
+    hh = (torch.matmul(h2, w1) + b1).to(dt)
+    a = F.gelu(hh, approximate="none")
+    return y + (torch.matmul(a, w2) + b2).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _check_kernel_operands(x, ln, lin, true_len, num_heads):
+    """The kernels take bf16/fp32, contiguous operands, head dim 64, D and
+    the MLP width multiples of 128, a token axis padded to a multiple of
+    128, and fp32 LayerNorm parameters."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_vit_block kernel takes bf16 or fp32, got {x.dtype}")
+    B, Lp, D = x.shape
+    if D % num_heads or D // num_heads != KERNEL_HEAD_DIM:
+        raise ValueError(f"fused_vit_block kernel takes head dim {KERNEL_HEAD_DIM}, "
+                         f"got D={D} over {num_heads} heads")
+    Dm = lin[4].shape[1]
+    if D % 128 or Dm % 128 or Lp % 128:
+        raise ValueError(f"fused_vit_block kernel wants D, the MLP width and the token axis "
+                         f"in multiples of 128, got D={D}, Dm={Dm}, Lp={Lp}")
+    if not 0 < true_len <= Lp:
+        raise ValueError(f"true_len {true_len} outside (0, {Lp}]")
+    shapes = ((D, 3 * D), (3 * D,), (D, D), (D,), (D, Dm), (Dm,), (Dm, D), (D,))
+    for t, want in zip(lin, shapes):
+        if tuple(t.shape) != want or t.dtype != x.dtype:
+            raise ValueError(f"fused_vit_block: weight {tuple(t.shape)} {t.dtype}, "
+                             f"want {want} {x.dtype}")
+    for t in (x, *ln, *lin):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("fused_vit_block: operands must be contiguous, on one device")
+    for t in ln:
+        if t.dtype != torch.float32 or tuple(t.shape) != (D,):
+            raise ValueError("fused_vit_block: LayerNorm parameters must be fp32 (D,)")
+    return B, Lp, D, Dm
+
+
+def _split(args):
+    """(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2)
+    -> x, LN params as contiguous fp32, linear params contiguous."""
+    x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2 = args
+    ln = tuple(t.float().contiguous() for t in (ln1s, ln1b, ln2s, ln2b))
+    lin = tuple(t.contiguous() for t in (wqkv, bqkv, wproj, bproj, w1, b1, w2, b2))
+    return x.contiguous(), ln, lin
+
+
+def _operand_ptrs(ln, lin):
+    ln1s, ln1b, ln2s, ln2b = ln
+    wqkv, bqkv, wproj, bproj, w1, b1, w2, b2 = lin
+    return [t.data_ptr() for t in (ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b,
+                                   w1, b1, w2, b2)]
+
+
+def _launch_fwd(args, true_len, num_heads, eps):
+    """Run the forward kernel chain on CUDA tensors: (B, Lp, D) out."""
+    x, ln, lin = _split(args)
+    B, Lp, D, Dm = _check_kernel_operands(x, ln, lin, true_len, num_heads)
+    fns = _kernel_fns()
+    code = _DTYPE_CODE[x.dtype]
+    ws = torch.empty(fns["fwd_ws"](code, B, Lp, D, Dm, num_heads), dtype=torch.uint8,
+                     device=x.device)
+    out = torch.empty_like(x)
+    err = fns["fwd"](x.data_ptr(), *_operand_ptrs(ln, lin), out.data_ptr(), ws.data_ptr(),
+                     code, x.device.index, B, Lp, D, Dm, num_heads, true_len, eps,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_vit_block_fwd launch failed: cudaError {err}")
+    launch_counts["fused_vit_block_fwd"] += 1
+    return out
+
+
+def _launch_bwd(args, g, true_len, num_heads, eps):
+    """Run the backward kernel chain on CUDA tensors: (dx, then the 12
+    parameter gradients in fp32)."""
+    x, ln, lin = _split(args)
+    B, Lp, D, Dm = _check_kernel_operands(x, ln, lin, true_len, num_heads)
+    g = g.to(x.dtype).contiguous()
+    if g.shape != x.shape:
+        raise ValueError(f"fused_vit_block: gradient {tuple(g.shape)} for x {tuple(x.shape)}")
+    fns = _kernel_fns()
+    code = _DTYPE_CODE[x.dtype]
+    ws = torch.empty(fns["bwd_ws"](code, B, Lp, D, Dm, num_heads), dtype=torch.uint8,
+                     device=x.device)
+    dx = torch.empty_like(x)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)
+    grads = (f32(D), f32(D), f32(D, 3 * D), f32(3 * D), f32(D, D), f32(D),
+             f32(D), f32(D), f32(D, Dm), f32(Dm), f32(Dm, D), f32(D))
+    err = fns["bwd"](x.data_ptr(), *_operand_ptrs(ln, lin), g.data_ptr(), dx.data_ptr(),
+                     *[t.data_ptr() for t in grads], ws.data_ptr(),
+                     code, x.device.index, B, Lp, D, Dm, num_heads, true_len, eps,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_vit_block_bwd launch failed: cudaError {err}")
+    launch_counts["fused_vit_block_bwd"] += 1
+    return (dx,) + grads
+
+
+_fns: dict = {}
+
+
+def _kernel_fns():
+    if not _fns:
+        from vidil_tpu_torch.ops import _build
+
+        _build.build_all(["fused_vit_block_fwd", "fused_vit_block_bwd"])  # nvcc in parallel
+        fwd_lib = _build.load("fused_vit_block_fwd")
+        bwd_lib = _build.load("fused_vit_block_bwd")
+        dims = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fwd = fwd_lib.vidil_fused_block_fwd
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 15 + dims
+        bwd = bwd_lib.vidil_fused_block_bwd
+        bwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_void_p] * 28 + dims
+        fwd_ws = fwd_lib.vidil_fused_block_fwd_workspace
+        bwd_ws = bwd_lib.vidil_fused_block_bwd_workspace
+        for fn in (fwd_ws, bwd_ws):
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [ctypes.c_int] * 6
+        _fns.update(fwd=fwd, bwd=bwd, fwd_ws=fwd_ws, bwd_ws=bwd_ws)
+    return _fns
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _forward(args, true_len, num_heads, eps):
+    x = args[0]
+    if x.is_cuda:
+        return _launch_fwd(args, true_len, num_heads, eps)
+    if x.device.type == "cpu":
+        return fused_block_ref(*args, true_len=true_len, num_heads=num_heads, eps=eps)
+    raise RuntimeError(f"fused_vit_block: no kernel for device {x.device}")
+
+
+def _backward(args, g, true_len, num_heads, eps):
+    """dx and the 12 parameter gradients, each cast to its input's dtype
+    (the linears' bf16 weights get bf16 gradients, as in the TPU package)."""
+    x = args[0]
+    if x.is_cuda:
+        grads = _launch_bwd(args, g, true_len, num_heads, eps)
+    else:
+        grads = fused_block_bwd_ref(*args, g.to(x.dtype), true_len=true_len,
+                                    num_heads=num_heads, eps=eps)
+    return tuple(d.to(a.dtype) for d, a in zip(grads, args))
+
+
+class FusedBlockFunction(torch.autograd.Function):
+    """Differentiable fused block: the forward kernel, and for the gradient
+    either the backward kernel (``pallas_bwd``, which recomputes the block
+    from x: only x is saved per layer) or autograd through a recompute of
+    `block_ref` (the TPU package's ``pallas_bwd=False`` branch). On CPU
+    tensors the kernels are the twins."""
+
+    @staticmethod
+    def forward(ctx, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
+                true_len: int, num_heads: int, eps: float, pallas_bwd: bool):
+        args = (x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2)
+        ctx.save_for_backward(*args)
+        ctx.block = (true_len, num_heads, eps, pallas_bwd)
+        return _forward(args, true_len, num_heads, eps)
+
+    @staticmethod
+    @once_differentiable  # K5 records no graph: a double backward raises on every device
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        true_len, num_heads, eps, pallas_bwd = ctx.block
+        if pallas_bwd:
+            grads = _backward(args, g, true_len, num_heads, eps)
+        else:
+            with torch.enable_grad():
+                leaves = [a.detach().requires_grad_(True) for a in args]
+                out = block_ref(*leaves, true_len=true_len, num_heads=num_heads, eps=eps)
+                grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None, None)
+
+
+def fused_vit_block(params, x, num_heads: int, eps: float, true_len: int,
+                    frames_per_program: int = 1, pallas_bwd: bool = False,
+                    bwd_frames: int = 1):
+    """One pre-LN ViT block (the ``models/vit.py`` block pytree) over
+    x (B, Lp, D), Lp a multiple of 128, rows at or past `true_len` padding.
+    The linears' weights and biases are cast to x's dtype, the LayerNorm
+    parameters are used as they are (in fp32), as in the TPU package.
+
+    `pallas_bwd` selects the backward kernel instead of autograd through
+    `block_ref`. `frames_per_program` and `bwd_frames` are the TPU grid's
+    frames per program; the Hopper kernels choose their own tiling and
+    their results do not depend on them (the arguments are accepted for
+    the configs' sake)."""
+    del frames_per_program, bwd_frames
+    dt = x.dtype
+    a, m = params["attn"], params["mlp"]
+    return FusedBlockFunction.apply(
+        x, params["norm1"]["scale"], params["norm1"]["bias"],
+        a["qkv"]["kernel"].to(dt), a["qkv"]["bias"].to(dt),
+        a["proj"]["kernel"].to(dt), a["proj"]["bias"].to(dt),
+        params["norm2"]["scale"], params["norm2"]["bias"],
+        m["fc1"]["kernel"].to(dt), m["fc1"]["bias"].to(dt),
+        m["fc2"]["kernel"].to(dt), m["fc2"]["bias"].to(dt),
+        true_len, num_heads, eps, pallas_bwd)

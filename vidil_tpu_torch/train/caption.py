@@ -9,47 +9,21 @@ dtype of the towers (bf16 in the trainer), as in the JAX step.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import blip as B
-from vidil_tpu_torch.train.common import make_optimizer, training_cfgs
+from vidil_tpu_torch.train.common import (
+    TrainState,
+    apply_gradients,
+    create_train_state,
+    training_cfgs,
+)
 
 
-@dataclass
-class CaptionTrainState:
-    params: dict  # port tree of fp32 leaves that require grad
-    optimizer: torch.optim.Optimizer
-    device: torch.device
-    step: int = 0
-
-
-def create_caption_train_state(params, init_lr: float, weight_decay: float = 0.05,
-                               device="cuda") -> CaptionTrainState:
-    """Copy `params` to `device` as fp32 leaves that require grad (the
-    caller's tensors are left as they are), and build the AdamW optimizer
-    over them. CUDA unless the caller asks for the CPU; raises when CUDA is
-    asked for and missing."""
-    from vidil_tpu_torch.pipeline.capfilt import resolve_device
-
-    device = resolve_device(device)
-
-    def leaf(t):
-        if t.dtype != torch.float32:
-            raise TypeError(f"master parameters must be fp32, got {t.dtype}")
-        return t.detach().to(device, copy=True).requires_grad_(True)
-
-    def copy(node):
-        if isinstance(node, dict):
-            return {k: copy(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [copy(v) for v in node]
-        return leaf(node)
-
-    params = copy(params)
-    return CaptionTrainState(params, make_optimizer(params, init_lr, weight_decay), device)
+# the JAX package's names for the trainers' shared state
+CaptionTrainState = TrainState
+create_caption_train_state = create_train_state
 
 
 def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_length: int,
@@ -63,7 +37,7 @@ def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_lengt
     """
     vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat)
 
-    def train_step(state: CaptionTrainState, batch):
+    def train_step(state: TrainState, batch):
         dev = state.device
         video = torch.as_tensor(batch["video"], dtype=torch.float32, device=dev)
         ids = torch.as_tensor(batch["input_ids"], device=dev).long()
@@ -71,11 +45,7 @@ def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_lengt
         embeds = B.encode_video_frames(state.params, video, vit_cfg, dtype=dtype)
         loss = B.blip_caption_loss(state.params, embeds, ids, mask, med_cfg,
                                    prompt_length=prompt_length, dtype=dtype)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": loss.detach()}
+        return apply_gradients(state, loss), {"loss": loss.detach()}
 
     return train_step
 

@@ -28,9 +28,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_MESH_KEYS = ("data_parallel", "model_parallel", "optimizer_sharding")
-
-
 def build_model_and_tokenizer(config):
     from vidil_tpu_torch.config import MedConfig, ViTConfig
     from vidil_tpu_torch.models import convert
@@ -114,17 +111,13 @@ def main(args, config):
         make_caption_train_step,
         select_frame_itm,
     )
-    from vidil_tpu_torch.train.common import resolve_train_batch, set_lr
+    from vidil_tpu_torch.train.common import refuse_mesh_keys, resolve_train_batch, set_lr
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
     from vidil_tpu_torch.utils.logging import MetricLogger
     from vidil_tpu_torch.utils.schedules import cosine_lr_schedule
 
     device = resolve_device(getattr(args, "device", "cuda"))
-    for key in _MESH_KEYS:
-        if key == "model_parallel" and int(config.get(key, 1) or 1) == 1:
-            continue
-        if config.get(key):
-            raise NotImplementedError(f"vidil_tpu_torch: {key} (SPMD mesh) is not ported yet")
+    refuse_mesh_keys(config)
     utils.init_distributed_mode(args)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16

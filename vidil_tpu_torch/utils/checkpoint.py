@@ -1,4 +1,4 @@
-"""Checkpoints of the caption trainer.
+"""Checkpoints of the caption and VQA trainers.
 
 * `save_checkpoint` / `load_checkpoint`: model parameters in the JAX
   package's npz format (``vidil_tpu/utils/checkpoint.py``): '/'-joined paths
@@ -75,7 +75,7 @@ def load_checkpoint(path: str):
 
 
 def save_train_state(path: str, state, meta: dict | None = None) -> None:
-    """The caption train state (train/caption.py) -> ``path`` (.npz)."""
+    """A trainer's state (train/common.py:TrainState) -> ``path`` (.npz)."""
     flat = {"step": np.asarray(state.step, np.int64)}
     for name, p in named_leaves(state.params):
         flat[f"params/{name}"] = p.detach().cpu().numpy()
