@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the port's CUDA
 kernels, holds each against its plain PyTorch version at the main paths'
 shapes, and drives the main paths at full BLIP-base width: CapFilt
-(384 px), the caption fine-tuning step (224 px) on both ViT schedules, and
-the video-QA fine-tuning step with its two answer decoders.
+(384 px), the caption fine-tuning step (224 px) on both ViT schedules, the
+video-QA fine-tuning step with its two answer decoders, and visual
+tokenization with its BLIP and CLIP encoders.
 
     python3 chip_smoke.py
 
@@ -51,8 +52,23 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      rank_answer (k = 128 over 256 answers) must give well-formed answers;
  11. in-situ backward checks (reported): one ViT block's input and qkv
      weight gradients through K1/K2 and through their twins, and through
-     K4/K5 and through theirs.
-The last two lines are the kernels' JSON record (each kernel at its main
+     K4/K5 and through theirs;
+ 12. fused MLP: K3 against fused_mlp_ref at the visual-tokenization ViT
+     encode's (36928, 768) -> 3072 and the ITM block's (8192, 768) -> 3072,
+     bf16 and fp32, run to run bitwise, with the times of the kernel, the
+     plain version and F.linear + F.gelu + F.linear (a yardstick only);
+ 13. visual tokenization at full width, synthetic weights, bf16, over the
+     vendored vg ontology in full: the BLIP engine (ViT-B/384 + MED-base with
+     vision_proj/text_proj/itm_head, use_fused_mlp in both towers, k_test
+     128, top 5, prompts v1) and the CLIP engine (ViT-L/14, byte-level
+     synthetic BPE), two chunks of 8 videos x 8 noise frames each (the first
+     warms up); every video must get 8 frames x 4 categories x 5 ontology
+     terms, and K3 and K1 must launch exactly the times the shapes give;
+     frames/s, ontology-embedding and rerank seconds, peak memory. Reported
+     with it (phase 6's engine): the CapFilt captioner encode with
+     use_fused_mlp against the encode without, after one block and twelve.
+Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
+BLIP ITM fold). The last two lines are the kernels' JSON record (each kernel at its main
 path's shape, bf16; every shape and dtype is on its own "kernel check"
 line above) and {"ok": true, ...}.
 """
@@ -79,6 +95,10 @@ ATOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 
 N_VIDEOS, N_FRAMES, N_CHUNKS = 8, 4, 5  # chunk 0 warms up; 1.. are steady state
 REPS = 20
+# visual tokenization (pipeline_config_msrvtt_train.yaml: videos_per_batch 8,
+# num_frm_visual_tokenization 8, k_test 128, topk_visualize 5); the BLIP
+# rerank scores VT_ITM_ROWS frames per call
+VT_VIDEOS, VT_FRAMES, VT_K_TEST, VT_TOPK, VT_ITM_ROWS = 8, 8, 128, 5, 4
 
 
 def log(*a):
@@ -129,10 +149,15 @@ def _main_path_views(label, gen, device, dtype):
     if label == "vit_self_attention":
         qkv = torch.randn((32, 577, 3 * 768), generator=gen, device=device).to(dtype)
         return tuple(split_heads(t, H) for t in qkv.chunk(3, dim=-1))
-    q = split_heads(torch.randn((32 * 4, 24, 768), generator=gen, device=device).to(dtype), H)
-    q = q.reshape(32, 4, H, 24, 64).transpose(1, 2).reshape(32, H, 96, 64)
-    k = split_heads(torch.randn((32, 577, 768), generator=gen, device=device).to(dtype), H)
-    v = split_heads(torch.randn((32, 577, 768), generator=gen, device=device).to(dtype), H)
+    if label == "vt_clip_vision":  # CLIP-L's separate q, k, v projections
+        return tuple(split_heads(torch.randn((64, 257, 1024), generator=gen, device=device)
+                                 .to(dtype), 16) for _ in range(3))
+    # the grouped ITM: G texts of T tokens per frame fold into G*T query rows
+    B, G, T = (32, 4, 24) if label == "itm_grouped_fold" else (VT_ITM_ROWS, VT_K_TEST, 16)
+    q = split_heads(torch.randn((B * G, T, 768), generator=gen, device=device).to(dtype), H)
+    q = q.reshape(B, G, H, T, 64).transpose(1, 2).reshape(B, H, G * T, 64)
+    k = split_heads(torch.randn((B, 577, 768), generator=gen, device=device).to(dtype), H)
+    v = split_heads(torch.randn((B, 577, 768), generator=gen, device=device).to(dtype), H)
     return q, k, v
 
 
@@ -142,7 +167,9 @@ def check_flash_kernel(fa, device):
     rows = []
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = {"vit_self_attention": ((32, 12, 577, 64), (32, 12, 577, 64)),
-              "itm_grouped_fold": ((32, 12, 96, 64), (32, 12, 577, 64))}
+              "itm_grouped_fold": ((32, 12, 96, 64), (32, 12, 577, 64)),
+              "vt_clip_vision": ((64, 16, 257, 64), (64, 16, 257, 64)),
+              "vt_itm_fold": ((VT_ITM_ROWS, 12, VT_K_TEST * 16, 64), (VT_ITM_ROWS, 12, 577, 64))}
     for dtype in (torch.bfloat16, torch.float32):
         for label, (qs, ks) in shapes.items():
             for layout in ("contiguous", "views"):
@@ -511,7 +538,7 @@ def train_loop(label, step, state, batch, steps, fa, fvb, want, samples):
     if not all(g > 0 for g in qkv_grad_max):
         raise SystemExit(f"{label}: a ViT qkv gradient is zero: {qkv_grad_max}")
     steady = statistics.median(step_ms[1:])
-    prof = profile_train_step(step, state, batch)
+    prof = profile_run(lambda: step(state, batch))
     prof["device_busy_share"] = prof["device_ms"] / steady
     return dict(profile=prof, losses=losses, step_ms=step_ms, enqueue_ms=enqueue_ms,
                 steady_step_ms=steady, steady_enqueue_ms=statistics.median(enqueue_ms[1:]),
@@ -569,19 +596,21 @@ def run_caption_training(fa, fvb, device, schedule, steps):
     return out
 
 
-def profile_train_step(step, state, batch):
-    """One more step (after the counted ones) under torch.profiler: the CUDA
-    kernels' device time, summed (one stream, so it is the busy time), the
-    kernel launches, the top kernels by device time and the shares of the
-    flash kernels (K1, K2) and of the fused block's (K4, K5). The profiled
-    step's wall time is inflated by the profiler."""
+def profile_run(fn):
+    """One more call of `fn` (a train step after the counted ones, or a
+    chunk) under torch.profiler: the CUDA kernels' device time, summed (one
+    stream, so it is the busy time), the kernel launches, the top kernels by
+    device time and the shares of the flash kernels (K1, K2) and of the
+    kernels in csrc/fused_vit_block.cuh's namespace (K4 and K5, or K3 when
+    they do not run). The profiled call's wall time is inflated by the
+    profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     events = prof.key_averages()
@@ -908,10 +937,12 @@ def in_situ_fused_block(fvb, device):
     return out
 
 
-def in_situ_fused_encode(engine, fvb, frames, vit_cfg):
-    """Phase 6: the 384-px captioner encode of one CapFilt chunk with
-    use_fused_block (K4 per block, inference) against the classic encode
-    (K1), after one block and after twelve (reported)."""
+def in_situ_fused_encode(engine, frames, vit_cfg, switch, counts, kernel):
+    """Phases 6 and 13 (reported): the 384-px captioner encode of one CapFilt
+    chunk with one ViT switch on (`use_fused_block`: K4 per block;
+    `use_fused_mlp`: K3 per block, 32 frames x 577 tokens) against the
+    classic encode, after one block and after twelve. `kernel` must launch
+    once per block (`counts` is its module's launch_counts)."""
     import dataclasses
 
     from vidil_tpu_torch.models import vit
@@ -919,16 +950,17 @@ def in_situ_fused_encode(engine, fvb, frames, vit_cfg):
 
     x = preprocess_any(engine._put(frames), vit_cfg.image_size)
     ve = engine.captioner_params["visual_encoder"]
-    fused_cfg = dataclasses.replace(vit_cfg, use_fused_block=True)
+    fused_cfg = dataclasses.replace(vit_cfg, **{switch: True})
     out = {"frames": int(x.shape[0])}
     with torch.no_grad():
         for label, params in (("one_block", dict(ve, blocks=ve["blocks"][:1])), ("twelve", ve)):
-            before = fvb.launch_counts["fused_vit_block_fwd"]
+            before = counts[kernel]
             a = vit.vit_forward(params, x, fused_cfg, dtype=torch.bfloat16)
-            launched = fvb.launch_counts["fused_vit_block_fwd"] - before
+            launched = counts[kernel] - before
             b = vit.vit_forward(params, x, vit_cfg, dtype=torch.bfloat16)
             if launched != len(params["blocks"]) or not torch.isfinite(a).all():
-                raise SystemExit(f"in-situ fused encode: {launched} K4 launches or non-finite")
+                raise SystemExit(f"in-situ {switch} encode: {launched} {kernel} launches "
+                                 "or non-finite")
             out[f"bf16_{label}_max_abs_diff"] = (a.float() - b.float()).abs().max().item()
             out[f"bf16_{label}_max_abs"] = b.float().abs().max().item()
     return out
@@ -976,6 +1008,224 @@ def in_situ_backward(fa, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# visual tokenization: the fused MLP (K3) and the two engines
+# ---------------------------------------------------------------------------
+
+# K3 vs its plain version, on the same rounding points. bf16: the sums run in
+# another order and erff/expf differ from torch's by an ulp, which can flip
+# the rounding of an activation (moving an output by |w2| times its ulp) or
+# of an output: bounded by 1e-2 of max |out|. fp32: order only, 3e-5.
+MLP_BAR = {torch.bfloat16: ("rel", 1e-2), torch.float32: ("abs", 3e-5)}
+# (rows, D, hidden): the ViT-B/384 encode of a chunk (8 videos x 8 frames x
+# 577 tokens) and an ITM rerank block (4 frames x 128 texts x 16 tokens)
+MLP_SHAPES = {"vit_encode": (VT_VIDEOS * VT_FRAMES * 577, 768, 3072),
+              "itm_block": (VT_ITM_ROWS * VT_K_TEST * 16, 768, 3072)}
+
+
+def mlp_bound_ms(M, D, Dm, dtype):
+    """Least time for one K3 call: x and out once, both weights and biases
+    once over HBM, or its two products' 4*M*D*Dm operations at the dtype's
+    peak rate."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * M * D + 2 * D * Dm + Dm + D) * itemsize
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 4 * M * D * Dm / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_fused_mlp(fm, device):
+    """Phase 12: K3 against fused_mlp_ref at both shapes, bf16 and fp32, run
+    to run bitwise, with the CUDA-event times of the kernel, the plain
+    version and F.linear + F.gelu + F.linear."""
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(8)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, (M, D, Dm) in MLP_SHAPES.items():
+            t = lambda shape, scale: (torch.randn(shape, generator=gen, device=device)
+                                      * scale).to(dtype)
+            args = (t((M, D), 1.0), t((D, Dm), D ** -0.5), t((Dm,), 0.02),
+                    t((Dm, D), Dm ** -0.5), t((D,), 0.02))
+            got = fm._launch(*args)
+            again = fm._launch(*args)
+            torch.cuda.synchronize()
+            want = fm.fused_mlp_ref(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            kind, bar = MLP_BAR[dtype]
+            limit = bar * want.float().abs().max().item() if kind == "rel" else bar
+            bitwise = torch.equal(got, again)
+            x, w1, b1, w2, b2 = args
+            bound, bound_by = mlp_bound_ms(M, D, Dm, dtype)
+            row = dict(shape=label, dtype=str(dtype).replace("torch.", ""), x=[M, D], hidden=Dm,
+                       max_abs_err=err, limit=limit, run_to_run_bitwise=bitwise,
+                       ms=time_ms(lambda: fm._launch(*args)),
+                       plain_ms=time_ms(lambda: fm.fused_mlp_ref(*args)),
+                       library_ms=time_ms(lambda: F.linear(F.gelu(F.linear(x, w1.t(), b1)),
+                                                           w2.t(), b2)),
+                       bound_ms=bound, bound_by=bound_by)
+            log("kernel check (fused mlp):", json.dumps(row))
+            rows.append(row)
+            if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit):
+                raise SystemExit(f"fused_mlp_fwd disagrees with its plain version: {row}")
+    return rows
+
+
+def _vt_engines(device):
+    """The two engines at full width with synthetic weights made on the
+    device, bf16: BLIP (ViT-B/384, MED-base from configs/med_config.json,
+    use_fused_mlp in both towers, embed 256) and CLIP ViT-L/14 with a
+    byte-level BPE (every id below 49,408; <|endoftext|> the highest)."""
+    import os
+
+    from vidil_tpu_torch.config import CLIPConfig, MedConfig, ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.models.clip import clip_shapes
+    from vidil_tpu_torch.pipeline.visual_tokenization import (
+        BlipTokenizationEngine,
+        ClipTokenizationEngine,
+    )
+    from vidil_tpu_torch.tokenizer import (
+        BlipTokenizer,
+        ClipBPETokenizer,
+        write_bench_vocab,
+        write_test_clip_bpe,
+    )
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    vit_cfg = ViTConfig.from_name("base", 384, use_fused_mlp=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    med_cfg = MedConfig.from_json(os.path.join(repo, "configs", "med_config.json"),
+                                  encoder_width=vit_cfg.hidden_size, use_fused_mlp=True)
+    clip_cfg = CLIPConfig.vit_l_14()
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "vocab.txt")
+        write_bench_vocab(vocab)
+        tok = BlipTokenizer(vocab)
+        bpe = [os.path.join(tmp, "vocab.json"), os.path.join(tmp, "merges.txt")]
+        write_test_clip_bpe(*bpe, words=[])
+        clip_tok = ClipBPETokenizer(*bpe, max_len=clip_cfg.max_text_len)
+    if not clip_tok.eos_token_id == clip_tok.vocab_size - 1 < clip_cfg.vocab_size:
+        raise SystemExit("synthetic CLIP BPE: <|endoftext|> must be the highest id")
+    blip_engine = BlipTokenizationEngine(
+        convert.from_jax_params(synth_tree(blip.blip_itm_shapes(vit_cfg, med_cfg), device,
+                                           salt=2.0)),
+        vit_cfg, med_cfg, tok, k_test=VT_K_TEST, dtype=torch.bfloat16, device=device)
+    clip_engine = ClipTokenizationEngine(
+        convert.from_jax_params(synth_tree(clip_shapes(clip_cfg), device, salt=4.0)),
+        clip_cfg, clip_tok, dtype=torch.bfloat16, device=device)
+    return blip_engine, clip_engine
+
+
+def run_visual_tokenization(fa, fm, device):
+    """Phase 13: both engines over the vendored vg ontology; per engine the
+    ontology embedding (timed, then cached as the CLI caches it), a warm-up
+    chunk and a timed chunk through predict_videos; launch counts of K1 and
+    K3 against the counts the shapes give."""
+    import math
+    import os
+
+    from vidil_tpu_torch.pipeline import visual_tokenization as vt
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    onto = vt.load_ontology(vt.ontology_paths("vg", os.path.join(repo, "visual_token_ontology")))
+    counts = {k: len(v) for k, v in onto.items()}
+    if counts != {"objects": 19958, "attributes": 15026, "scenes": 365, "verbs": 7410}:
+        raise SystemExit(f"vendored vg ontology counts {counts}")
+    fns = vt.get_prefix_prompt_functions("v1")
+    blip_engine, clip_engine = _vt_engines(device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    for name, engine in (("blip", blip_engine), ("clip", clip_engine)):
+        blip_mode = name == "blip"
+        size = engine.vit_cfg.image_size if blip_mode else engine.cfg.image_size
+        n_layers = engine.med_cfg.num_layers if blip_mode else 0
+        cache = {}
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        fm.reset_launch_counts()
+        t0 = time.time()
+        for key, terms in onto.items():
+            cache[key] = engine.embed_texts([fns[key](t) for t in terms])
+        torch.cuda.synchronize()
+        onto_s = time.time() - t0
+        # K3: 12 per 512-text block of >= 2048 rows of the MED text encode
+        want_k3 = 0
+        for key, terms in onto.items():
+            n, L = len(terms), cache[key][1].shape[1] if blip_mode else 0
+            blocks = 1 if n <= vt.EMBEDDING_BATCH_LIMIT_TEXT else math.ceil(
+                n / vt.EMBEDDING_BATCH_LIMIT_TEXT)
+            if min(n, vt.EMBEDDING_BATCH_LIMIT_TEXT) * L >= 2048:
+                want_k3 += n_layers * blocks
+        onto_launches = {"fused_mlp_fwd": fm.launch_counts["fused_mlp_fwd"],
+                         "flash_attention_fwd": fa.launch_counts["flash_attention_fwd"]}
+        if onto_launches != {"fused_mlp_fwd": want_k3, "flash_attention_fwd": 0}:
+            raise SystemExit(f"{name} ontology embedding launches {onto_launches}, want "
+                             f"{want_k3} K3 and no K1")
+        rerank_s = []
+        if blip_mode:
+            rerank_all = engine.rerank_all
+
+            def timed_rerank(*a, **kw):
+                t = time.time()
+                r = rerank_all(*a, **kw)  # ends in a copy to the host
+                rerank_s.append(time.time() - t)
+                return r
+
+            engine.rerank_all = timed_rerank
+        for chunk in range(2):
+            frames = {f"c{chunk}v{v}": torch.randint(0, 256, (VT_FRAMES, size, size, 3),
+                                                     generator=gen, device=device,
+                                                     dtype=torch.uint8)
+                      for v in range(VT_VIDEOS)}
+            caps = {vid: [f"caption of {vid}"] for vid in frames}
+            rerank_s.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            fm.reset_launch_counts()
+            t0 = time.time()
+            res = vt.predict_videos(engine, frames, caps, onto, fns, topk_visualize=VT_TOPK,
+                                    text_cache=cache, pad_to_videos=VT_VIDEOS)
+            chunk_s = time.time() - t0
+        launches = {"fused_mlp_fwd": fm.launch_counts["fused_mlp_fwd"],
+                    "flash_attention_fwd": fa.launch_counts["flash_attention_fwd"]}
+        peak, rerank_total = torch.cuda.max_memory_allocated(), sum(rerank_s)
+        prof = profile_run(lambda: vt.predict_videos(engine, frames, caps, onto, fns,
+                                                     topk_visualize=VT_TOPK, text_cache=cache,
+                                                     pad_to_videos=VT_VIDEOS))
+        prof["k3_kernels_ms"] = prof.pop("fused_block_kernels_ms")
+        prof["device_busy_share"] = prof["device_ms"] / (chunk_s * 1e3)
+        n_frames = VT_VIDEOS * VT_FRAMES
+        if blip_mode:
+            # the ViT encode (K3 + K1 per block), then per category
+            # ceil(frames / 4) ITM blocks of 4 x 128 x L >= 2048 rows: K3 in
+            # the FFN and K1 in the grouped cross-attention, per layer
+            itm_blocks = len(onto) * math.ceil(n_frames / VT_ITM_ROWS)
+            n_vit = engine.vit_cfg.num_layers
+            want = {"fused_mlp_fwd": n_vit + n_layers * itm_blocks,
+                    "flash_attention_fwd": n_vit + n_layers * itm_blocks}
+        else:  # quick_gelu: no K3; K1 in every vision layer
+            want = {"fused_mlp_fwd": 0, "flash_attention_fwd": engine.cfg.vision_layers}
+        if launches != want:
+            raise SystemExit(f"{name} chunk launches {launches}, want {want}")
+        for vid, obj in res.items():
+            ok = len(obj["frame_tokens"]) == VT_FRAMES and all(
+                len(ft[key]) == VT_TOPK and set(ft[key]) <= set(onto[key])
+                for ft in obj["frame_tokens"] for key in onto)
+            ok = ok and all(set(obj["aggregated_tokens"][k]) <= set(onto[k]) for k in onto)
+            if not ok or set(res) != set(frames):
+                raise SystemExit(f"{name}: malformed visual tokens for {vid}: {obj}")
+        out[name] = dict(frames_per_s=n_frames / chunk_s, chunk_s=chunk_s,
+                         ontology_embedding_s=onto_s, rerank_s=rerank_total,
+                         peak_memory_gib=peak / 2**30, profile=prof,
+                         launches=launches, ontology_launches=onto_launches,
+                         frames=n_frames, videos=VT_VIDEOS,
+                         sample=res[next(iter(res))]["aggregated_tokens"])
+        log(f"visual tokenization ({name}):", json.dumps(out[name]))
+        del cache
+    del blip_engine, clip_engine
+    torch.cuda.empty_cache()
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -989,6 +1239,7 @@ def main():
 
     from vidil_tpu_torch.ops import _build
     from vidil_tpu_torch.ops import flash_attention as fa
+    from vidil_tpu_torch.ops import fused_mlp as fm
     from vidil_tpu_torch.ops import fused_vit_block as fvb
 
     t0 = time.time()
@@ -1030,8 +1281,12 @@ def main():
     frames0 = _concat_frames([c["frames"] for c in chunks[0]])
     situ = in_situ_check(engine, fa, frames0, vit_cfg, med_cfg)
     log("in-situ (kernel vs twin in the captioner encode):", json.dumps(situ))
-    situ_enc = in_situ_fused_encode(engine, fvb, frames0, vit_cfg)
+    situ_enc = in_situ_fused_encode(engine, frames0, vit_cfg, "use_fused_block",
+                                    fvb.launch_counts, "fused_vit_block_fwd")
     log("in-situ (fused-block K4 vs classic captioner encode, 384 px):", json.dumps(situ_enc))
+    situ_mlp = in_situ_fused_encode(engine, frames0, vit_cfg, "use_fused_mlp",
+                                    fm.launch_counts, "fused_mlp_fwd")
+    log("in-situ (fused MLP K3 vs plain MLP, captioner encode, 384 px):", json.dumps(situ_mlp))
 
     del engine
     torch.cuda.empty_cache()
@@ -1063,6 +1318,13 @@ def main():
     situ_block = in_situ_fused_block(fvb, device)
     log("in-situ (K4/K5 vs twins, one fused ViT block's gradients, bf16):",
         json.dumps(situ_block))
+    mlp_rows = check_fused_mlp(fm, device)
+    vt = run_visual_tokenization(fa, fm, device)
+    for name, r in vt.items():
+        log(f"visual tokenization ({name}): {r['frames_per_s']:.2f} frames/s ({VT_VIDEOS} videos "
+            f"x {VT_FRAMES} frames, second chunk), ontology embedding "
+            f"{r['ontology_embedding_s']:.2f} s, rerank {r['rerank_s']:.3f} s, peak memory "
+            f"{r['peak_memory_gib']:.2f} GiB, card {card}")
 
     def entry(name, source, replaces, n, rs, shape, desc, **extra):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"
@@ -1078,7 +1340,9 @@ def main():
     record = {"kernels": [
         entry("flash_attention_fwd", fwd_src, "vidil_tpu/ops/flash_attention.py:290", launches,
               rows, "vit_self_attention",
-              "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path"),
+              "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path",
+              launches_visual_tokenization_blip=vt["blip"]["launches"]["flash_attention_fwd"],
+              launches_visual_tokenization_clip=vt["clip"]["launches"]["flash_attention_fwd"]),
         entry("flash_attention_fwd_lse", fwd_src, "vidil_tpu/ops/flash_attention.py:290",
               classic["flash_attention_fwd_lse"], lse_rows, "train_224",
               "q,k,v (48, 12, 197, 64) bf16 views, with fp32 lse rows; classic training path "
@@ -1098,6 +1362,12 @@ def main():
               "x, g (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
               "path (the trainers' default)",
               launches_vqa=vqa["launches"]["fused_vit_block_bwd"]),
+        entry("fused_mlp_fwd", "vidil_tpu_torch/csrc/fused_mlp_fwd.cu",
+              "vidil_tpu/ops/fused_mlp.py:69", vt["blip"]["launches"]["fused_mlp_fwd"],
+              mlp_rows, "vit_encode",
+              "x (36928, 768) -> 3072 bf16, the ViT-B/384 encode of a chunk (8 videos x 8 "
+              "frames); visual tokenization path (BLIP engine, use_fused_mlp)",
+              launches_ontology=vt["blip"]["ontology_launches"]["fused_mlp_fwd"]),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

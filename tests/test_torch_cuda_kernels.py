@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from vidil_tpu_torch.models.layers import merge_heads, split_heads
+from vidil_tpu_torch.models.layers import merge_heads, mlp, split_heads
 from vidil_tpu_torch.ops import flash_attention as fa
+from vidil_tpu_torch.ops import fused_mlp as fm
 
 
 @pytest.fixture
@@ -288,3 +289,72 @@ def test_fused_vit_block_function_on_the_card(cuda_device):
                 == before["fused_vit_block_bwd"] + int(pallas_bwd))
         grads.append(dx)
     assert _rel_err(grads[0], grads[1]) <= 0.06
+
+
+# ---------------------------------------------------------------------------
+# the fused MLP (K3)
+# ---------------------------------------------------------------------------
+
+# (tolerance) K3 vs its plain version on the same rounding points. bf16: the
+# fp32 sums run in another order and erff/expf differ from torch's by an
+# ulp, which can flip the rounding of an activation (moving an output by
+# |w2| times its ulp) or of an output: 1e-2 of max |out|. fp32: order only.
+MLP_BAR = {torch.bfloat16: 1e-2, torch.float32: 3e-5}
+
+
+def _mlp_args(shape, D, Dm, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(s, scale):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * scale).to(device, dtype)
+
+    return (t(shape, 1.0), t((D, Dm), D ** -0.5), t((Dm,), 0.02), t((Dm, D), Dm ** -0.5),
+            t((D,), 0.02))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,D,Dm", [((300, 256), 256, 512), ((3, 100, 128), 128, 512),
+                                        ((2048, 768), 768, 3072)])
+def test_fused_mlp_kernel_matches_plain_version(cuda_device, dtype, shape, D, Dm):
+    """Row counts that are and are not multiples of the kernel's 128-row
+    tile (the wrapper pads), leading dims kept; run to run bitwise."""
+    args = _mlp_args(shape, D, Dm, dtype, cuda_device, 21)
+    before = fm.launch_counts["fused_mlp_fwd"]
+    got = fm._launch(*args)
+    again = fm._launch(*args)
+    torch.cuda.synchronize()
+    assert fm.launch_counts["fused_mlp_fwd"] == before + 2
+    want = fm.fused_mlp_ref(*args)
+    assert got.shape == want.shape == args[0].shape and got.dtype == dtype
+    torch.testing.assert_close(got, again, atol=0, rtol=0)
+    err = (got.float() - want.float()).abs().max().item()
+    limit = MLP_BAR[dtype] * (want.float().abs().max().item() if dtype == torch.bfloat16 else 1)
+    assert err <= limit, (err, limit)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_function_grads_on_the_card(cuda_device):
+    """fused_mlp on CUDA: one K3 launch forward; the gradient is autograd
+    through the plain mlp, so it equals autograd of layers.mlp (fp32)."""
+    args = _mlp_args((2, 150, 256), 256, 1024, torch.float32, cuda_device, 22)
+    g = torch.randn(args[0].shape, device=cuda_device)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    params = {"fc1": {"kernel": leaves[1], "bias": leaves[2]},
+              "fc2": {"kernel": leaves[3], "bias": leaves[4]}}
+    before = fm.launch_counts["fused_mlp_fwd"]
+    got = torch.autograd.grad(fm.fused_mlp(params, leaves[0]), leaves, g)
+    assert fm.launch_counts["fused_mlp_fwd"] == before + 1
+    want = torch.autograd.grad(mlp(params, leaves[0]), leaves, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_rejects_what_it_does_not_take(cuda_device):
+    args = _mlp_args((4, 96), 96, 384, torch.float32, cuda_device, 23)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fm._launch(*args)
+    args = _mlp_args((4, 128), 128, 512, torch.float16, cuda_device, 23)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        fm._launch(*args)

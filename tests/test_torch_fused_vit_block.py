@@ -286,12 +286,13 @@ def test_training_cfgs_matches_jax(monkeypatch, env, default_fused_bwd, start):
 
 
 def test_training_cfgs_turns_the_fused_mlp_off_under_autodiff(monkeypatch):
-    """JAX's training_cfgs turns K3 off under autodiff; the port refuses K3
-    at construction, so a config that reaches training_cfgs never has it."""
+    """The configs take K3's switch, and training_cfgs turns it off under
+    autodiff in both towers, as JAX's does."""
     monkeypatch.delenv("VIDIL_TPU_TRAIN_FUSED_BLOCK", raising=False)
-    with pytest.raises(NotImplementedError, match="use_fused_mlp"):
-        ViTConfig(**VIT_KW, use_fused_mlp=True)
-    with pytest.raises(NotImplementedError, match="use_fused_mlp"):
-        MedConfig(use_fused_mlp=True)
-    v, m = training_cfgs(ViTConfig(**VIT_KW), MedConfig())
+    vit, med = ViTConfig(**VIT_KW, use_fused_mlp=True), MedConfig(use_fused_mlp=True)
+    assert vit.use_fused_mlp and med.use_fused_mlp
+    v, m = training_cfgs(vit, med)
+    jv, jm = j_training_cfgs(JViT(**VIT_KW, use_fused_mlp=True), JMed(use_fused_mlp=True))
     assert not v.use_fused_mlp and not m.use_fused_mlp and v.use_fused_block
+    assert (v.use_fused_mlp, m.use_fused_mlp, v.use_fused_block) == (
+        jv.use_fused_mlp, jm.use_fused_mlp, jv.use_fused_block)

@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_vidil_tpu():
     assert "vidil_tpu_torch.run_video_CapFilt" in mods and len(mods) > 30
     for name in ("train_caption_video", "train.caption", "train.common", "utils.checkpoint",
                  "utils.logging", "utils.schedules", "data.datasets", "data.transforms",
-                 "data.text_utils", "evals.caption", "evals.caption_metrics"):
+                 "data.text_utils", "evals.caption", "evals.caption_metrics",
+                 "run_visual_tokenization", "pipeline.visual_tokenization", "models.clip",
+                 "ops.fused_mlp"):
         assert f"vidil_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"
@@ -168,8 +170,8 @@ def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
     editing only a shared header must give a new library, not a stale one."""
     from vidil_tpu_torch.ops import _build
 
-    assert [p.name for p in _build.source_files("fused_vit_block_bwd")] == [
-        "fused_vit_block_bwd.cu", "fused_vit_block.cuh"]
+    for name in ("fused_vit_block_bwd", "fused_mlp_fwd"):
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "fused_vit_block.cuh"]
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("// v1\n")

@@ -3,16 +3,17 @@
 The port's own copy of the JAX package's ``ViTConfig`` / ``MedConfig``
 fields (same defaults, same ``from_json`` mapping of a BERT/MED json),
 with the training fields the trainers read (remat, label smoothing) and
-the fused ViT block's switches (kernels K4/K5, `models/vit.py`). The fused
-MLP switch (kernel K3, not ported yet) and ``remat_policy="dots"`` are
-fields too, but a config that turns one on fails at construction with
-NotImplementedError instead of running another path.
+the fused ViT block's switches (kernels K4/K5, `models/vit.py`) and the
+fused MLP switch (kernel K3, `models/layers.py:mlp_auto`), and the JAX
+package's ``CLIPConfig``. ``remat_policy="dots"`` is a field too, but a
+config that sets it fails at construction with NotImplementedError instead
+of running another path.
 """
 
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 
 import torch
 
@@ -34,19 +35,9 @@ def compute_dtype_from_config(config: dict, override=None) -> torch.dtype:
     return table[name]
 
 
-def _refuse_unported(cfg, switches) -> None:
-    """Raise for every TPU-only field of `switches` that `cfg` sets away from
-    its default, and for a remat policy other than None (full recompute)."""
-    on = [f.name for f in fields(cfg) if f.name in switches and getattr(cfg, f.name) != f.default]
-    if on:
-        raise NotImplementedError(
-            f"vidil_tpu_torch: {', '.join(on)} (TPU kernels of the JAX package) "
-            "are not ported yet")
+def _refuse_unported(cfg) -> None:
+    """Raise for a remat policy other than None (full recompute)."""
     remat_policy(cfg.remat_policy)
-
-
-_VIT_TPU_SWITCHES = ("use_fused_mlp",)
-_MED_TPU_SWITCHES = ("use_fused_mlp",)
 
 
 @dataclass(frozen=True)
@@ -65,7 +56,7 @@ class ViTConfig:
     remat: bool = False  # torch.utils.checkpoint on blocks >= remat_from_layer
     remat_from_layer: int = 0
     remat_policy: str | None = None  # None = recompute the whole block
-    use_fused_mlp: bool = False  # kernel K3 of the JAX package: accepted only when off
+    use_fused_mlp: bool = False  # the MLP as kernel K3 (models/layers.py:mlp_auto)
     # The fused-block schedule: each block as kernel K4 (`use_fused_block`),
     # its gradient as kernel K5 (`use_fused_block_bwd`, which is its own
     # remat; otherwise autograd through a recompute of the plain block). It
@@ -81,7 +72,7 @@ class ViTConfig:
     fused_block_interpret: bool = False
 
     def __post_init__(self):
-        _refuse_unported(self, _VIT_TPU_SWITCHES)
+        _refuse_unported(self)
 
     @property
     def num_patches(self) -> int:
@@ -119,10 +110,10 @@ class MedConfig:
     label_smoothing: float = 0.1
     remat: bool = False  # torch.utils.checkpoint on every layer
     remat_policy: str | None = None  # None = recompute the whole layer
-    use_fused_mlp: bool = False  # TPU kernel switch: accepted only when off
+    use_fused_mlp: bool = False  # the FFN as kernel K3 (models/layers.py:mlp_auto)
 
     def __post_init__(self):
-        _refuse_unported(self, _MED_TPU_SWITCHES)
+        _refuse_unported(self)
 
     @classmethod
     def from_json(cls, path: str, **overrides) -> "MedConfig":
@@ -143,3 +134,39 @@ class MedConfig:
         )
         mapped.update(overrides)
         return cls(**mapped)
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    """OpenAI CLIP dual towers (ViT-L/14 defaults; HF clip-vit-large-patch14)."""
+
+    # vision tower
+    image_size: int = 224
+    patch_size: int = 14
+    vision_hidden_size: int = 1024
+    vision_layers: int = 24
+    vision_heads: int = 16
+    vision_intermediate_size: int = 4096
+    # text tower
+    vocab_size: int = 49408
+    text_hidden_size: int = 768
+    text_layers: int = 12
+    text_heads: int = 12
+    text_intermediate_size: int = 3072
+    max_text_len: int = 77
+    # shared
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+
+    @classmethod
+    def vit_b_32(cls) -> "CLIPConfig":
+        return cls(
+            patch_size=32, vision_hidden_size=768, vision_layers=12, vision_heads=12,
+            vision_intermediate_size=3072, text_hidden_size=512, text_heads=8,
+            text_intermediate_size=2048, projection_dim=512,
+        )
+
+    @classmethod
+    def vit_l_14(cls) -> "CLIPConfig":
+        return cls()

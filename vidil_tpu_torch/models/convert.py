@@ -5,8 +5,10 @@ kernels ``(in, out)``, the ViT patch kernel ``(P*P*C, D)`` in patchify's
 (ph, pw, c) order — except that per-layer parameters are a list of dicts
 (``blocks`` / ``layers``) instead of one stacked leading axis.
 
-* `convert_blip_decoder` / `convert_blip_itm` / `convert_blip_vqa`: a BLIP
-  torch ``.pth`` state dict (reference key names) -> port params.
+* `convert_blip_decoder` / `convert_blip_itm` / `convert_blip_retrieval` /
+  `convert_blip_vqa`: a BLIP torch ``.pth`` state dict (reference key names)
+  -> port params.
+* `convert_clip`: an HF ``CLIPModel`` state dict -> port params.
 * `from_jax_params`: the JAX package's parameter pytree, as numpy arrays
   (or tensors) with stacked layers -> port params.
 * `to_jax_params`: its inverse, port params -> the JAX layout as numpy
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vidil_tpu_torch.config import MedConfig, ViTConfig
+from vidil_tpu_torch.config import CLIPConfig, MedConfig, ViTConfig
 
 STACKED_KEYS = ("blocks", "layers")
 
@@ -26,8 +28,10 @@ STACKED_KEYS = ("blocks", "layers")
 def _t(x):
     if isinstance(x, torch.Tensor):
         return x
-    x = np.ascontiguousarray(np.asarray(x))
-    if not x.flags.writeable:  # e.g. a view of a JAX array
+    x = np.asarray(x)
+    # a transposed view, or a read-only view of a JAX array; copy() keeps a
+    # 0-d array 0-d, where np.ascontiguousarray would make it 1-d
+    if not (x.flags.c_contiguous and x.flags.writeable):
         x = x.copy()
     return torch.from_numpy(x)
 
@@ -224,6 +228,23 @@ def convert_blip_itm(sd: dict, vit_cfg: ViTConfig, med_cfg: MedConfig) -> dict:
     }
 
 
+def convert_blip_retrieval(sd: dict, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                           with_momentum: bool = True) -> dict:
+    """BLIP_Retrieval[_Video] checkpoint -> the ITM tree, plus the momentum
+    encoders under 'momentum' (when asked for and present) and 'temp'."""
+    params = convert_blip_itm(sd, vit_cfg, med_cfg)
+    if with_momentum and "visual_encoder_m.cls_token" in sd:
+        params["momentum"] = {
+            "visual_encoder": convert_vit(sd, vit_cfg, "visual_encoder_m."),
+            "text_encoder": convert_med(sd, med_cfg, prefix="text_encoder_m."),
+            "vision_proj": _lin(sd, "vision_proj_m"),
+            "text_proj": _lin(sd, "text_proj_m"),
+        }
+    if "temp" in sd:
+        params["temp"] = _t(_np(sd["temp"]).reshape(()))
+    return params
+
+
 def convert_blip_vqa(sd: dict, vit_cfg: ViTConfig, med_cfg: MedConfig) -> dict:
     """BLIP_VQA checkpoint -> {'visual_encoder', 'text_encoder', 'text_decoder'}."""
     return {
@@ -231,4 +252,58 @@ def convert_blip_vqa(sd: dict, vit_cfg: ViTConfig, med_cfg: MedConfig) -> dict:
         "text_encoder": convert_med(sd, med_cfg, prefix="text_encoder."),
         "text_decoder": convert_med(sd, med_cfg, prefix="text_decoder.bert.",
                                     lm_head_prefix="text_decoder."),
+    }
+
+
+# ---------------------------------------------------------------------------
+# HF CLIP
+# ---------------------------------------------------------------------------
+
+def _clip_tower_layers(sd, prefix, n_layers):
+    layers = []
+    for i in range(n_layers):
+        b = f"{prefix}.layers.{i}."
+        layers.append({
+            "norm1": _ln(sd, b + "layer_norm1"),
+            "attn": {
+                "query": _lin(sd, b + "self_attn.q_proj"),
+                "key": _lin(sd, b + "self_attn.k_proj"),
+                "value": _lin(sd, b + "self_attn.v_proj"),
+                "out": _lin(sd, b + "self_attn.out_proj"),
+            },
+            "norm2": _ln(sd, b + "layer_norm2"),
+            "mlp": {"fc1": _lin(sd, b + "mlp.fc1"), "fc2": _lin(sd, b + "mlp.fc2")},
+        })
+    return layers
+
+
+def convert_clip(sd: dict, cfg: CLIPConfig) -> dict:
+    """HF CLIPModel state dict -> port CLIP params; the patch convolution
+    becomes a (P*P*C, D) kernel in patchify's (ph, pw, c) order."""
+    conv_w = _np(sd["vision_model.embeddings.patch_embedding.weight"])  # (D, C, P, P)
+    D = conv_w.shape[0]
+    pre = "vision_model.pre_layrnorm"  # HF's spelling; later versions fix it
+    if pre + ".weight" not in sd:
+        pre = "vision_model.pre_layernorm"
+    vision = {
+        "patch_embed": {"kernel": _t(conv_w.transpose(2, 3, 1, 0).reshape(-1, D))},
+        "class_embedding": _t(_np(sd["vision_model.embeddings.class_embedding"])),
+        "pos_embed": _t(_np(sd["vision_model.embeddings.position_embedding.weight"])),
+        "pre_norm": _ln(sd, pre),
+        "layers": _clip_tower_layers(sd, "vision_model.encoder", cfg.vision_layers),
+        "post_norm": _ln(sd, "vision_model.post_layernorm"),
+    }
+    text = {
+        "token_embedding": {
+            "embedding": _t(_np(sd["text_model.embeddings.token_embedding.weight"]))},
+        "pos_embed": _t(_np(sd["text_model.embeddings.position_embedding.weight"])),
+        "layers": _clip_tower_layers(sd, "text_model.encoder", cfg.text_layers),
+        "final_norm": _ln(sd, "text_model.final_layer_norm"),
+    }
+    return {
+        "vision": vision,
+        "text": text,
+        "visual_projection": {"kernel": _t(_np(sd["visual_projection.weight"]).T)},
+        "text_projection": {"kernel": _t(_np(sd["text_projection.weight"]).T)},
+        "logit_scale": _t(_np(sd["logit_scale"]).reshape(())),
     }

@@ -63,7 +63,12 @@ def gelu(x):
     return F.gelu(x, approximate="none")
 
 
-ACT2FN = {"gelu": gelu}
+def quick_gelu(x):
+    """x * sigmoid(1.702 x) — OpenAI CLIP activation."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+ACT2FN = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 
 def embedding_lookup(params, ids):
@@ -127,6 +132,39 @@ def mlp(params, x, act=gelu, dtype=None):
     h = linear(params["fc1"], x, dtype=dtype)
     h = act(h)
     return linear(params["fc2"], h, dtype=dtype)
+
+
+# The JAX package's gate (measured there on a TPU, v5e): the fused kernel at
+# >= 2048 flattened rows, the plain MLP below. The two take different
+# rounding points (the kernel's GELU runs in fp32 on the unrounded fc1
+# output), so the gate is part of what `use_fused_mlp` means and is kept as
+# it is; whether another row threshold is faster on an H100 is open.
+_FUSED_MLP_MIN_ROWS = 2048
+_FUSED_MLP_MAX_WEIGHT_BYTES = 64 * 1024 * 1024
+
+
+def mlp_auto(params, x, act=gelu, dtype=None, use_fused: bool = False,
+             interpret: bool = False):
+    """mlp() with the JAX package's dispatch to the fused MLP kernel
+    (``ops/fused_mlp.py``, K3): fused only when asked for, for an exact-GELU
+    MLP with >= _FUSED_MLP_MIN_ROWS flattened rows whose two weights fit in
+    64 MB, on a CUDA tensor. `interpret` lifts the device condition, so a
+    CPU tensor runs the kernel's plain version (the tests' route). x and the
+    weights are cast to `dtype` before the call."""
+    rows = x.numel() // x.shape[-1]
+    k1 = params["fc1"]["kernel"]
+    itemsize = dtype.itemsize if dtype is not None else k1.element_size()
+    if (use_fused and act is gelu and rows >= _FUSED_MLP_MIN_ROWS
+            and 2 * k1.numel() * itemsize <= _FUSED_MLP_MAX_WEIGHT_BYTES
+            and (interpret or x.is_cuda)):
+        from vidil_tpu_torch.ops.fused_mlp import fused_mlp
+
+        if dtype is not None:
+            params = {name: {k: v.to(dtype) for k, v in lin.items()}
+                      for name, lin in params.items()}
+            x = x.to(dtype)
+        return fused_mlp(params, x)
+    return mlp(params, x, act=act, dtype=dtype)
 
 
 def cast_linears(tree, dtype):

@@ -30,7 +30,7 @@ from vidil_tpu_torch.models.layers import (
     mask_to_bias,
     matmul_f32,
     merge_heads,
-    mlp,
+    mlp_auto,
     remat,
     split_heads,
 )
@@ -175,7 +175,8 @@ def _attn_block_precomputed_kv(p, x, k, v, bias, num_heads: int, eps: float,
 
 
 def _ffn_block(layer, x, cfg: MedConfig, dtype=None):
-    h = mlp(layer["mlp"], x, act=ACT2FN[cfg.hidden_act], dtype=dtype)
+    h = mlp_auto(layer["mlp"], x, act=ACT2FN[cfg.hidden_act], dtype=dtype,
+                 use_fused=cfg.use_fused_mlp)
     return layer_norm(layer["mlp_norm"], h + x, cfg.layer_norm_eps)
 
 

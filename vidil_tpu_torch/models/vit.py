@@ -7,7 +7,8 @@ a final LayerNorm. ``params["blocks"]`` is a list of per-layer dicts.
 
 The classic schedule runs the blocks one by one, the self-attention through
 `attention_auto` (the Hopper flash kernels on CUDA tensors, their plain
-twins on CPU tensors). The fused-block schedule (``ViTConfig.use_fused_block``)
+twins on CPU tensors), and the MLP through `mlp_auto` (kernel K3 with
+``ViTConfig.use_fused_mlp``). The fused-block schedule (``ViTConfig.use_fused_block``)
 runs each block through `fused_vit_block` (kernels K4, and K5 for the
 gradient with ``use_fused_block_bwd``).
 """
@@ -24,7 +25,7 @@ from vidil_tpu_torch.models.layers import (
     layer_norm,
     linear,
     merge_heads,
-    mlp,
+    mlp_auto,
     remat,
     split_heads,
 )
@@ -51,10 +52,13 @@ def attention(params, x, num_heads: int, dtype=None):
     return linear(params["proj"], merge_heads(out), dtype=dtype)
 
 
-def block_forward(params, x, num_heads: int, eps: float, dtype=None):
-    """Pre-LN residual block."""
+def block_forward(params, x, num_heads: int, eps: float, dtype=None,
+                  use_fused_mlp: bool = False):
+    """Pre-LN residual block; the MLP goes through `mlp_auto` (kernel K3
+    when `use_fused_mlp` and its gate allow)."""
     x = x + attention(params["attn"], layer_norm(params["norm1"], x, eps), num_heads, dtype=dtype)
-    x = x + mlp(params["mlp"], layer_norm(params["norm2"], x, eps), act=gelu, dtype=dtype)
+    x = x + mlp_auto(params["mlp"], layer_norm(params["norm2"], x, eps), act=gelu, dtype=dtype,
+                     use_fused=use_fused_mlp)
     return x
 
 
@@ -97,7 +101,7 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None):
         return layer_norm(params["norm"], x[:, :L], cfg.layer_norm_eps)
     for i, blk in enumerate(params["blocks"]):
         fn = remat(block_forward, cfg.remat and i >= cfg.remat_from_layer)
-        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype)
+        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype, cfg.use_fused_mlp)
     return layer_norm(params["norm"], x, cfg.layer_norm_eps)
 
 

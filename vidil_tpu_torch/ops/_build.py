@@ -34,6 +34,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "fused_mlp_fwd": "fused_mlp_fwd.cu",
     "fused_vit_block_fwd": "fused_vit_block_fwd.cu",
     "fused_vit_block_bwd": "fused_vit_block_bwd.cu",
 }

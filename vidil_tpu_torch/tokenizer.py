@@ -1,8 +1,9 @@
-"""BERT WordPiece tokenizer for the BLIP text side (host code, no torch).
+"""Tokenizers for the BLIP and CLIP text sides (host code, no torch).
 
 The port's own copy of the JAX package's tokenizer (``BasicTokenizer``,
-``WordPieceTokenizer``, ``Encoding``, ``BlipTokenizer`` and the vocab
-writers), so that ``vidil_tpu_torch`` imports nothing of ``vidil_tpu``.
+``WordPieceTokenizer``, ``Encoding``, ``BlipTokenizer``, the CLIP BPE
+``ClipBPETokenizer``, ``trimmed_pad_len`` and the vocab writers), so that
+``vidil_tpu_torch`` imports nothing of ``vidil_tpu``.
 Compatible with HF ``BertTokenizer``: bert-base-uncased vocab + '[DEC]'
 bos + '[ENC]' (vocab 30524), as in BLIP's ``init_tokenizer``.
 """
@@ -279,6 +280,200 @@ class BlipTokenizer:
         return [self.decode(row, skip_special_tokens) for row in np.asarray(batch_ids)]
 
 
+# ---------------------------------------------------------------------------
+# CLIP BPE
+# ---------------------------------------------------------------------------
+
+def bytes_to_unicode() -> dict:
+    """GPT-2/CLIP reversible byte<->unicode map (printable chars preferred)."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("¡"), ord("¬") + 1))
+        + list(range(ord("®"), ord("ÿ") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(2**8):
+        if b not in bs:
+            bs.append(b)
+            cs.append(2**8 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+def _get_pairs(word):
+    pairs = set()
+    prev = word[0]
+    for ch in word[1:]:
+        pairs.add((prev, ch))
+        prev = ch
+    return pairs
+
+
+class ClipBPETokenizer:
+    """CLIPTokenizer-compatible BPE (vocab.json + merges.txt), offline.
+
+    Matches HF's non-ftfy path: BasicTokenizer(strip_accents=False,
+    do_split_on_punc=False) cleanup, word regex, byte-to-unicode mapping,
+    end-of-word '</w>' BPE. Used by the CLIP visual-tokenization text side
+    (reference: run_visual_tokenization.py:84-96 via CLIPProcessor).
+    """
+
+    def __init__(self, vocab_file: str, merges_file: str, max_len: int = 77):
+        import json as _json
+
+        import regex as re
+
+        with open(vocab_file, encoding="utf-8") as f:
+            self.encoder: dict[str, int] = _json.load(f)
+        self.decoder = {v: k for k, v in self.encoder.items()}
+        with open(merges_file, encoding="utf-8") as f:
+            merges = f.read().strip().split("\n")[1 : 49152 - 256 - 2 + 1]
+        self.bpe_ranks = {tuple(m.split()): i for i, m in enumerate(merges)}
+        self.byte_encoder = bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        self.cache = {"<|startoftext|>": "<|startoftext|>", "<|endoftext|>": "<|endoftext|>"}
+        self.bos_token = "<|startoftext|>"
+        self.eos_token = "<|endoftext|>"
+        self.unk_token = "<|endoftext|>"
+        self.bos_token_id = self.encoder[self.bos_token]
+        self.eos_token_id = self.encoder[self.eos_token]
+        self.pad_token_id = self.eos_token_id
+        self.max_len = max_len
+        self.nlp = BasicTokenizer(strip_accents=False, do_split_on_punc=False)
+        self.pat = re.compile(
+            r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+""",
+            re.IGNORECASE,
+        )
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.encoder)
+
+    def bpe(self, token: str) -> str:
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = _get_pairs(word)
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word: list[str] = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                new_word.extend(word[i:j])
+                i = j
+                if word[i] == first and i < len(word) - 1 and word[i + 1] == second:
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    def tokenize(self, text: str) -> list[str]:
+        text = " ".join(self.nlp.tokenize(text))
+        out: list[str] = []
+        for token in self.pat.findall(text):
+            token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
+            out.extend(self.bpe(token).split(" "))
+        return out
+
+    def convert_tokens_to_ids(self, tokens) -> list[int]:
+        unk = self.encoder[self.unk_token]
+        return [self.encoder.get(t, unk) for t in tokens]
+
+    def encode(self, text: str, truncation: bool = True, max_length: int | None = None) -> list[int]:
+        max_length = max_length or self.max_len
+        ids = self.convert_tokens_to_ids(self.tokenize(text))
+        if truncation and len(ids) > max_length - 2:
+            ids = ids[: max_length - 2]
+        return [self.bos_token_id] + ids + [self.eos_token_id]
+
+    def __call__(self, texts, padding: str = "longest", truncation: bool = True,
+                 max_length: int | None = None) -> Encoding:
+        if isinstance(texts, str):
+            texts = [texts]
+        seqs = [self.encode(t, truncation=truncation, max_length=max_length) for t in texts]
+        L = max_length if padding == "max_length" else max(len(s) for s in seqs)
+        ids = np.full((len(seqs), L), self.pad_token_id, np.int32)
+        mask = np.zeros((len(seqs), L), np.int32)
+        for i, s in enumerate(seqs):
+            ids[i, : len(s)] = s[:L]
+            mask[i, : len(s)] = 1
+        return Encoding(input_ids=ids, attention_mask=mask)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        specials = {self.bos_token_id, self.eos_token_id}
+        toks = [self.decoder[int(i)] for i in np.asarray(ids).tolist()
+                if not (skip_special_tokens and int(i) in specials)]
+        text = "".join(toks)
+        data = bytearray(self.byte_decoder[c] for c in text)
+        return data.decode("utf-8", errors="replace").replace("</w>", " ").strip()
+
+
+def trimmed_pad_len(attention_mask, cap: int = 35, mult: int = 8) -> int:
+    """Effective padded length for a tokenized batch: the true max token
+    count rounded up to ``mult``, clamped to the reference's fixed pad
+    ``cap``. Shared by the ITM-text trims (visual tokenization rerank,
+    retrieval-eval rerank): masked pad positions contribute exactly 0 to
+    attention (their -1e4 additive bias underflows exp() in fp32), so
+    slicing ids/atts to this length is bitwise-neutral while the
+    per-row text-side FLOPs drop ~cap/L."""
+    import numpy as np
+
+    L = int(np.asarray(attention_mask).sum(axis=1).max())
+    return min(cap, max(mult, ((L + mult - 1) // mult) * mult))
+
+
+def write_test_clip_bpe(vocab_path: str, merges_path: str, words: list[str]) -> None:
+    """Build a tiny CLIP-style vocab.json + merges.txt covering `words`:
+    every byte-char and byte-char+'</w>' is in the vocab, plus whole-word
+    merges for the given words. For tests and toy runs."""
+    import json as _json
+
+    chars = sorted(set(bytes_to_unicode().values()))
+    vocab = {}
+    for c in chars:
+        vocab[c] = len(vocab)
+    for c in chars:
+        vocab[c + "</w>"] = len(vocab)
+    merges = ["#version: 0.2"]
+    for w in words:
+        w = w.lower()
+        if len(w) < 2:
+            continue
+        # merge left-to-right: (a b), (ab c), ... final token w</w>
+        prefix = w[0]
+        for i, ch in enumerate(w[1:], start=1):
+            is_last = i == len(w) - 1
+            right = ch + "</w>" if is_last else ch
+            merges.append(f"{prefix} {right}")
+            prefix = prefix + ch
+            tok = prefix + ("</w>" if is_last else "")
+            if tok not in vocab:
+                vocab[tok] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        _json.dump(vocab, f)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(merges) + "\n")
 
 
 def write_test_vocab(path: str, words: list[str]) -> None:
