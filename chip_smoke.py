@@ -10,13 +10,19 @@ tokenization with its BLIP and CLIP encoders.
 Needs a CUDA card and nvcc (CUDA_HOME or /usr/local/cuda); imports only
 vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   1. card: name and power limit (nvidia-smi);
-  2. build: nvcc of every kernel source (in parallel), with the build seconds;
+  2. build: nvcc of every kernel source (in parallel), with the build seconds
+     and ptxas's registers and spills; the counts of HGMMA (wgmma), UTMALDG
+     (TMA loads) and SYNCS (mbarrier) instructions in the SASS of the bf16
+     flash-attention forward (cuobjdump), which fails without wgmma or TMA;
   3. kernel check: the flash-attention kernel (K1) against its twin at the
      ViT self-attention shape (32, 12, 577, 64) and the grouped-ITM fold
      (q (32, 12, 96, 64) over k/v (32, 12, 577, 64)), bf16 and fp32, on
-     contiguous tensors and on the main path's strided views, with
-     CUDA-event times of the kernel, the twin and
-     F.scaled_dot_product_attention (timed as a yardstick only);
+     contiguous tensors and on the main path's strided views, bitwise run to
+     run, with the times of the kernel, the twin and
+     F.scaled_dot_product_attention (timed as a yardstick only), the
+     kernel's TFLOP/s, share of its bound and share of real work in its
+     padded tiles, and its wrapper's host us per call (and, at the ViT
+     views, its C entry's alone);
   4. main path: CapFiltEngine.dispatch_chunk / complete_chunk over chunks of
      8 videos x 4 frames (RGB and YUV420), synthetic full-width weights,
      bf16, beam_group_kv and the fused filter; the kernel's launch count
@@ -27,7 +33,8 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      caption token agreement); the same encode with use_fused_block (K4 per
      block) against the classic one;
   7. training attention kernels: K1 with logsumexp rows against its twin at
-     the ViT shapes and the 224-px trainer's (48, 12, 197, 64); the
+     the ViT shapes and the 224-px trainer's (48, 12, 197, 64), with the
+     rates of phase 3 and bitwise run to run; the
      backward kernel (K2) against its twin at (48, 12, 197, 64) and
      (32, 12, 577, 64), bf16 and fp32, run to run bitwise;
   8. fused ViT block: K4 against fused_block_ref at the trainers' block
@@ -68,7 +75,9 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      with it (phase 6's engine): the CapFilt captioner encode with
      use_fused_mlp against the encode without, after one block and twelve.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
-BLIP ITM fold). The last two lines are the kernels' JSON record (each kernel at its main
+BLIP ITM fold). Kernel times ("ms", "plain_ms", "library_ms") are the median
+of single calls between CUDA events on an idle card: device time plus the
+host work before the launch. The last two lines are the kernels' JSON record (each kernel at its main
 path's shape, bf16; every shape and dtype is on its own "kernel check"
 line above) and {"ok": true, ...}.
 """
@@ -76,6 +85,8 @@ line above) and {"ok": true, ...}.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +137,21 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def host_us(fn) -> float:
+    """Host microseconds per call of fn over REPS calls issued back to back
+    after warm-up, the card left to run them afterwards: the enqueue cost
+    (the wrapper's checks, tensor maps, launch)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / REPS * 1e6
+
+
 def attention_bound_ms(q, k, dtype, with_lse=False):
     """Least time for the call: q, k, v read once and o (and the fp32 lse
     rows) written once over HBM, or its 4*B*H*Lq*Lk*D operations at the
@@ -136,6 +162,57 @@ def attention_bound_ms(q, k, dtype, with_lse=False):
     flops = 4 * B * H * Lq * Lk * D
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_counts(lib, kernel="flash_fwd_bf16"):
+    """Counts of HGMMA (wgmma), UTMALDG (TMA tile loads) and SYNCS (mbarrier)
+    instructions in the SASS of each function of a built library whose name
+    holds `kernel` (cuobjdump -sass, beside nvcc in the toolkit)."""
+    from vidil_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel in name:
+            label = f"{kernel}<{'lse' if 'ILb1E' in name else 'no lse'}>"
+            counts[label] = {ins: len(re.findall(rf"\b{ins}\b", part))
+                             for ins in ("HGMMA", "UTMALDG", "SYNCS")}
+    return counts
+
+
+# phase 3/7 fields that K1's record entries carry as well
+RATE_KEYS = ("tflops", "bound_share", "tile_use", "host_us")
+
+
+def c_entry_host_us(fa, q, k, v) -> float:
+    """Host us per call of the forward's C entry alone (ctypes, for bf16 the
+    three tensor maps, the launch), the Python wrapper left out: bf16 minus
+    fp32 at one shape is what encoding the maps costs."""
+    fn = fa._kernel_fns()["fwd"]
+    o = torch.empty_like(q)  # held until host_us has synchronized
+    args = fa._fwd_args(q, k, v, o, None, torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_fwd C entry failed: cudaError {err}")
+
+    return host_us(call)
+
+
+def attention_rates(fa, q, k, ms, bound):
+    """Achieved TFLOP/s of the call's 4*B*H*Lq*Lk*D operations, the share
+    of the least time (bound / ms), and the share of the kernel's tiles'
+    work (query tiles x key tiles, padded) that is real."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    q_tiles, k_tiles, _ = fa.kernel_tiles(Lq, Lk, q.dtype)
+    padded = q_tiles * fa.KERNEL_BLOCK_M[q.dtype] * k_tiles * fa.KERNEL_BLOCK_K[q.dtype]
+    return {"tflops": 4 * B * H * Lq * Lk * D / (ms * 1e-3) / 1e12, "bound_share": bound / ms,
+            "tile_use": Lq * Lk / padded}
 
 
 def _main_path_views(label, gen, device, dtype):
@@ -180,18 +257,23 @@ def check_flash_kernel(fa, device):
                     k = torch.randn(ks, generator=gen, device=device).to(dtype)
                     v = torch.randn(ks, generator=gen, device=device).to(dtype)
                 got = fa.flash_attention(q, k, v)
+                bitwise = torch.equal(got, fa.flash_attention(q, k, v))
                 torch.cuda.synchronize()
-                want = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K)
+                want = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
                 err = (got.float() - want.float()).abs().max().item()
-                ok = bool(torch.isfinite(got).all()) and err <= ATOL[dtype]
+                ok = bool(torch.isfinite(got).all()) and err <= ATOL[dtype] and bitwise
                 bound, bound_by = attention_bound_ms(q, k, dtype)
-                twin = lambda: fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K)
+                twin = lambda: fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
+                kernel = lambda: fa.flash_attention(q, k, v)
                 row = dict(shape=label, layout=layout, dtype=str(dtype).replace("torch.", ""),
-                           q=list(qs), kv=list(ks), max_abs_err=err, atol=ATOL[dtype],
-                           ms=time_ms(lambda: fa.flash_attention(q, k, v)),
+                           q=list(q.shape), kv=list(k.shape), max_abs_err=err, atol=ATOL[dtype],
+                           run_to_run_bitwise=bitwise, ms=time_ms(kernel),
                            plain_ms=time_ms(twin),
                            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                            bound_ms=bound, bound_by=bound_by)
+                row.update(attention_rates(fa, q, k, row["ms"], bound), host_us=host_us(kernel))
+                if label == "vit_self_attention" and layout == "views":
+                    row["c_entry_host_us"] = c_entry_host_us(fa, q, k, v)
                 log("kernel check:", json.dumps(row))
                 rows.append(row)
                 if not ok:
@@ -327,7 +409,7 @@ def in_situ_check(engine, fa, frames, vit_cfg, med_cfg):
     from vidil_tpu_torch.utils.synth import synth_tree
 
     def twin(q, k, v):
-        return fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K)
+        return fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
 
     def both(fn):
         a = fn()
@@ -410,23 +492,27 @@ def check_fwd_lse(fa, device):
                 if layout == "contiguous":
                     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
                 o, lse = fa._launch(q, k, v, with_lse=True)
+                o2, lse2 = fa._launch(q, k, v, with_lse=True)
+                bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
                 torch.cuda.synchronize()
-                want_o, want_lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K,
-                                                          return_lse=True)
+                want_o, want_lse = fa.flash_attention_ref(
+                    q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype], return_lse=True)
                 err = (o.float() - want_o.float()).abs().max().item()
                 lse_err = (lse - want_lse).abs().max().item()
                 ok = (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
-                      and err <= ATOL[dtype] and lse_err <= LSE_ATOL[dtype])
+                      and err <= ATOL[dtype] and lse_err <= LSE_ATOL[dtype] and bitwise)
                 bound, bound_by = attention_bound_ms(q, k, dtype, with_lse=True)
+                kernel = lambda: fa._launch(q, k, v, with_lse=True)
                 row = dict(shape=label, layout=layout, dtype=str(dtype).replace("torch.", ""),
                            q=[B, 12, L, 64], max_abs_err=err, lse_max_abs_err=lse_err,
-                           atol=ATOL[dtype], lse_atol=LSE_ATOL[dtype],
-                           ms=time_ms(lambda: fa._launch(q, k, v, with_lse=True)),
+                           atol=ATOL[dtype], lse_atol=LSE_ATOL[dtype], run_to_run_bitwise=bitwise,
+                           ms=time_ms(kernel),
                            inference_ms=time_ms(lambda: fa._launch(q, k, v)),
                            plain_ms=time_ms(lambda: fa.flash_attention_ref(
-                               q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=True)),
+                               q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype], return_lse=True)),
                            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                            bound_ms=bound, bound_by=bound_by)
+                row.update(attention_rates(fa, q, k, row["ms"], bound), host_us=host_us(kernel))
                 log("kernel check (fwd with lse):", json.dumps(row))
                 rows.append(row)
                 if not ok:
@@ -992,7 +1078,7 @@ def in_situ_backward(fa, device):
     got = grads()
     fwd, bwd = fa._forward, fa._backward
     fa._forward = lambda q, k, v, with_lse: fa.flash_attention_ref(
-        q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=with_lse)
+        q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype], return_lse=with_lse)
     fa._backward = lambda q, k, v, o, lse, g: fa.flash_attention_bwd_ref(
         q, k, v, o, lse, g.to(q.dtype))
     try:
@@ -1248,6 +1334,10 @@ def main():
     for name, path in libs.items():
         log(f"ptxas ({name}):", " | ".join(sorted(set(
             line.strip() for line in open(f"{path}.log") if "registers" in line or "spill" in line))))
+    sass = sass_counts(libs["flash_attention_fwd"])
+    log("sass (flash_attention_fwd, bf16 kernel):", json.dumps(sass))
+    if len(sass) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in sass.values()):
+        raise SystemExit(f"the bf16 flash-attention forward runs without wgmma or TMA: {sass}")
 
     rows = check_flash_kernel(fa, device)
 
@@ -1333,7 +1423,8 @@ def main():
                 "launches": n,
                 "max_abs_err": max(x["max_abs_err"] for x in rs if x["dtype"] == "bfloat16"),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": desc, **extra}
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": desc,
+                **{k: r[k] for k in RATE_KEYS if k in r}, **extra}
 
     fwd_src = "vidil_tpu_torch/csrc/flash_attention_fwd.cu"
     classic, fused = trains["classic"]["launches"], trains["fused"]["launches"]
@@ -1342,7 +1433,8 @@ def main():
               rows, "vit_self_attention",
               "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path",
               launches_visual_tokenization_blip=vt["blip"]["launches"]["flash_attention_fwd"],
-              launches_visual_tokenization_clip=vt["clip"]["launches"]["flash_attention_fwd"]),
+              launches_visual_tokenization_clip=vt["clip"]["launches"]["flash_attention_fwd"],
+              sass=sass),
         entry("flash_attention_fwd_lse", fwd_src, "vidil_tpu/ops/flash_attention.py:290",
               classic["flash_attention_fwd_lse"], lse_rows, "train_224",
               "q,k,v (48, 12, 197, 64) bf16 views, with fp32 lse rows; classic training path "

@@ -29,19 +29,60 @@ def _qkv(B, H, Lq, Lk, D, seed):
                  for s in ((B, H, Lq, D), (B, H, Lk, D), (B, H, Lk, D)))
 
 
-# (tolerance) kernel vs twin at the kernel's own 64-key tiling: only the
-# fp32 summation order differs, which can move a bf16 rounding by one ulp
+# the bf16 kernel's tile edges (64 rows per consumer warpgroup, 128 per
+# block, 128 keys per tile), beside the first shapes
+EDGE_LQ = (1, 63, 65, 127, 129, 577)
+EDGE_LK = (1, 64, 127, 128, 129, 197, 577)
+FWD_SHAPES = [(1, 2, 96, 200, 64), (2, 3, 577, 577, 64), (1, 1, 1, 1, 64), (1, 2, 65, 64, 64)]
+FWD_SHAPES += [(1, 2, lq, lk, 64) for lq in EDGE_LQ for lk in EDGE_LK
+               if (1, 2, lq, lk, 64) not in FWD_SHAPES]
+
+
+# (tolerance) kernel vs twin at the kernel's own tiling (KERNEL_BLOCK_K[dtype]
+# keys): the fp32 summation order differs, and the bf16 kernel's exp2 differs
+# from torch.exp in the last fp32 bits; either can move a bf16 rounding by
+# one ulp
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2), (torch.float32, 2e-5)])
-@pytest.mark.parametrize("B,H,Lq,Lk,D", [(1, 2, 96, 200, 64), (2, 3, 577, 577, 64),
-                                         (1, 1, 1, 1, 64), (1, 2, 65, 64, 64)])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", FWD_SHAPES)
 def test_flash_kernel_matches_twin(cuda_device, dtype, atol, B, H, Lq, Lk, D):
     q, k, v = (torch.from_numpy(x).to(cuda_device, dtype) for x in _qkv(B, H, Lq, Lk, D, 6))
     before = fa.launch_counts["flash_attention_fwd"]
     got = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.launch_counts["flash_attention_fwd"] == before + 1
-    want = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K)
+    want = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[dtype])
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_is_deterministic(cuda_device, dtype):
+    """No atomics: two forward runs give the same bits, o and lse."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype) for x in _qkv(3, 4, 577, 577, 64, 10))
+    first, second = fa._launch(q, k, v, with_lse=True), fa._launch(q, k, v, with_lse=True)
+    for a, b in zip(first, second):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    torch.testing.assert_close(fa._launch(q, k, v), fa._launch(q, k, v), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2), (torch.float32, 2e-5)])
+def test_flash_kernel_grouped_itm_fold(cuda_device, dtype, atol):
+    """The grouped ITM folds G texts' query rows of one frame into one
+    (B, H, G*L, D) view (models/med.py:_grouped_attention): the kernel on
+    the view gives the bits of a contiguous copy and agrees with the twin."""
+    B, G, L, H, Lk = 3, 4, 24, 2, 577
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((B * G, L, H * 64), dtype=np.float32))
+    q = split_heads(x.to(cuda_device, dtype), H)
+    qf = q.reshape(B, G, H, L, 64).transpose(1, 2).reshape(B, H, G * L, 64)
+    assert qf.data_ptr() == q.data_ptr()  # a view, not a copy
+    k, v = (split_heads(torch.from_numpy(rng.standard_normal((B, Lk, H * 64), dtype=np.float32))
+                        .to(cuda_device, dtype), H) for _ in range(2))
+    got = fa.flash_attention(qf, k, v)
+    torch.testing.assert_close(got, fa.flash_attention(qf.contiguous(), k, v), atol=0, rtol=0)
+    want = fa.flash_attention_ref(qf, k, v, block_k=fa.KERNEL_BLOCK_K[dtype])
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
@@ -85,13 +126,15 @@ LSE_ATOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
 # fp32 differs in order alone. (Per gradient, a dq that is zero up to
 # rounding, as with one key, would make any relative bar meaningless.)
 BWD_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+LSE_SHAPES = [(1, 2, 96, 200, 64), (4, 3, 197, 197, 64), (1, 2, 65, 64, 64)]
+LSE_SHAPES += [(1, 2, lq, lk, 64) for lq in EDGE_LQ for lk in EDGE_LK
+               if (1, 2, lq, lk, 64) not in LSE_SHAPES]
 BWD_SHAPES = [(2, 3, 197, 197, 64), (1, 2, 577, 577, 64), (1, 2, 65, 130, 64), (1, 1, 1, 1, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2), (torch.float32, 2e-5)])
-@pytest.mark.parametrize("B,H,Lq,Lk,D", [(1, 2, 96, 200, 64), (4, 3, 197, 197, 64),
-                                         (1, 2, 65, 64, 64)])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", LSE_SHAPES)
 def test_flash_kernel_lse_matches_twin(cuda_device, dtype, atol, B, H, Lq, Lk, D):
     q, k, v = (torch.from_numpy(x).to(cuda_device, dtype) for x in _qkv(B, H, Lq, Lk, D, 7))
     before = dict(fa.launch_counts)
@@ -99,7 +142,8 @@ def test_flash_kernel_lse_matches_twin(cuda_device, dtype, atol, B, H, Lq, Lk, D
     torch.cuda.synchronize()
     assert fa.launch_counts["flash_attention_fwd_lse"] == before["flash_attention_fwd_lse"] + 1
     assert fa.launch_counts["flash_attention_fwd"] == before["flash_attention_fwd"]
-    want_o, want_lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=True)
+    want_o, want_lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[dtype],
+                                              return_lse=True)
     torch.testing.assert_close(o.float(), want_o.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL[dtype], rtol=0)
     # the inference launch gives the same o, bit for bit
@@ -110,7 +154,7 @@ def _bwd_inputs(B, H, Lq, Lk, D, dtype, device, seed):
     q, k, v = (torch.from_numpy(x).to(device, dtype) for x in _qkv(B, H, Lq, Lk, D, seed))
     g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         (B, H, Lq, D), dtype=np.float32)).to(device, dtype)
-    o, lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K, return_lse=True)
+    o, lse = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[dtype], return_lse=True)
     return q, k, v, o, lse, g
 
 

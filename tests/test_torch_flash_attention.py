@@ -52,13 +52,81 @@ def test_twin_matches_jax_kernel_bf16(B, H, Lq, Lk, D):
     np.testing.assert_allclose(got, want, atol=7.8e-3, rtol=0)
 
 
-@pytest.mark.parametrize("block_k", [None, fa.KERNEL_BLOCK_K, 16])
+@pytest.mark.parametrize("block_k", [None, *sorted(set(fa.KERNEL_BLOCK_K.values())), 16])
 def test_twin_tiling_agrees_fp32(block_k):
     """The online softmax gives the same function at any tile width."""
     q, k, v = _qkv(2, 2, 50, 130, 64, seed=2)
     ref = dot_product_attention(*map(torch.from_numpy, (q, k, v))).numpy()
     got = fa.flash_attention_ref(*map(torch.from_numpy, (q, k, v)), block_k=block_k).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D", [(1, 2, 577, 577, 64), (1, 2, 96, 577, 64)])
+def test_twin_at_kernel_tiles_matches_jax_kernel_bf16(B, H, Lq, Lk, D):
+    """The twin walking the bf16 CUDA kernel's key tiles (where its running
+    max advances, and so where p is rounded) against the JAX kernel in bf16,
+    at the ViT and grouped-ITM shapes: the Hopper tile keeps the TPU
+    kernel's rounding within the bar of test_twin_matches_jax_kernel_bf16
+    (one bf16 ulp at |o| <= 2, 7.8e-3)."""
+    q, k, v = _qkv(B, H, Lq, Lk, D, seed=1)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax_flash(jq, jk, jv, interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = fa.flash_attention_ref(tq, tk, tv, block_k=fa.KERNEL_BLOCK_K[torch.bfloat16])
+    np.testing.assert_allclose(got.float().numpy(), want, atol=7.8e-3, rtol=0)
+
+
+@pytest.mark.parametrize("Lq,Lk,dtype,want", [
+    (577, 577, torch.bfloat16, (5, 5, 65)), (96, 577, torch.bfloat16, (1, 5, 65)),
+    (197, 197, torch.bfloat16, (2, 2, 69)), (1, 128, torch.bfloat16, (1, 1, 128)),
+    (129, 129, torch.bfloat16, (2, 2, 1)), (577, 577, torch.float32, (10, 10, 1)),
+    (64, 64, torch.float32, (1, 1, 64))])
+def test_kernel_tiles(Lq, Lk, dtype, want):
+    """The forward kernel's query tiles, key tiles and the ragged last key
+    tile's real keys (the twin's key tiles at block_k=KERNEL_BLOCK_K)."""
+    assert fa.kernel_tiles(Lq, Lk, dtype) == want
+    q_tiles, k_tiles, tail = want
+    assert (k_tiles - 1) * fa.KERNEL_BLOCK_K[dtype] + tail == Lk
+    assert (q_tiles - 1) * fa.KERNEL_BLOCK_M[dtype] < Lq <= q_tiles * fa.KERNEL_BLOCK_M[dtype]
+
+
+def test_tma_operand_copies_only_expanded_bf16():
+    """The bf16 kernel reads through TMA tensor maps, whose strides must be
+    non-zero: an expanded bf16 operand is copied out, a strided view is
+    passed as it is, and fp32 (read through pointers) is never copied."""
+    expanded = torch.zeros((1, 2, 1, 64), dtype=torch.bfloat16).expand(3, 2, 5, 64)
+    got = fa._tma_operand(expanded)
+    assert got.is_contiguous() and torch.equal(got, expanded)
+    view = torch.zeros((3, 2, 6, 64), dtype=torch.bfloat16)[:, :, 1:]
+    assert fa._tma_operand(view) is view
+    expanded32 = torch.zeros((1, 2, 1, 64)).expand(3, 2, 5, 64)
+    assert fa._tma_operand(expanded32) is expanded32
+
+
+def test_heads_last_empty_is_head_split_of_a_heads_last_allocation():
+    o = fa._heads_last_empty(3, 4, 5, 64, torch.zeros(1, dtype=torch.bfloat16))
+    want = torch.empty((3, 5, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert (o.shape, o.stride(), o.dtype) == (want.shape, want.stride(), want.dtype)
+    assert merge_heads(o).data_ptr() == o.data_ptr()  # a view, not a copy
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_fwd_args_follow_the_c_entry(with_lse):
+    """The forward C entry's arguments: five pointers, dtype code, device,
+    B, H, Lq, Lk, D, four (batch, head, seq) stride triples, scale, stream;
+    one per argtype that `_kernel_fns` declares."""
+    x = torch.zeros((2, 7, 3, 4, 64), dtype=torch.bfloat16)  # a fused-QKV output
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    q = q[:, :, :5]
+    o = fa._heads_last_empty(2, 4, 5, 64, q)
+    lse = torch.empty((2, 4, 5)) if with_lse else None
+    args = fa._fwd_args(q, k, v, o, lse, 1234)
+    assert len(args) == 5 + 7 + 12 + 2
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        lse.data_ptr() if with_lse else None)
+    assert args[5:12] == (fa._DTYPE_CODE[torch.bfloat16], None, 2, 4, 5, 7, 64)
+    assert args[12:24] == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    assert args[24:] == (0.125, 1234)
 
 
 def test_cpu_wrapper_runs_twin_without_counting():

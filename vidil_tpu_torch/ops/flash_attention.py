@@ -24,6 +24,7 @@ Backward rounding points: see `flash_attention_bwd_ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -33,10 +34,13 @@ from vidil_tpu_torch.models.layers import dot_product_attention
 
 NEG_INF = -1e30
 
-# keys per K/V tile in the CUDA forward kernel (kBlockN in the source): the
-# online softmax's running max advances once per tile, so the twin
-# reproduces the kernel's bf16 rounding exactly when it walks the same tiles
-KERNEL_BLOCK_K = 64
+# query rows per block and keys per K/V tile of the CUDA forward kernel, per
+# dtype (kBlockM/kBlockN for the bf16 wgmma kernel, kF32BlockM/kF32BlockN for
+# the fp32 one, in the source): the online softmax's running max advances
+# once per key tile, so the twin reproduces the kernel's bf16 rounding when
+# it walks the same tiles (block_k=KERNEL_BLOCK_K[dtype])
+KERNEL_BLOCK_M = {torch.bfloat16: 128, torch.float32: 64}
+KERNEL_BLOCK_K = {torch.bfloat16: 128, torch.float32: 64}
 KERNEL_HEAD_DIM = 64
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -58,6 +62,16 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def kernel_tiles(Lq: int, Lk: int, dtype) -> tuple[int, int, int]:
+    """The forward kernel's tiling of one (batch, head): (query tiles, key
+    tiles, real keys in the last key tile). A call has B*H*query-tiles work
+    items; each walks every key tile, and the last one's keys past Lk score
+    -1e30."""
+    bm, bk = KERNEL_BLOCK_M[dtype], KERNEL_BLOCK_K[dtype]
+    k_tiles = -(-Lk // bk)
+    return -(-Lq // bm), k_tiles, Lk - (k_tiles - 1) * bk
+
+
 def _acc_dtype(dtype):
     """fp32 accumulation for bf16/fp32 inputs (the kernels'); fp64 inputs
     stay fp64, so that gradcheck can run the twins."""
@@ -76,13 +90,19 @@ def _scale(D: int, dtype, device):
     return torch.tensor(1.0 / math.sqrt(D), dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_value(D: int, dtype) -> float:
+    """`_scale` as the Python float the kernels take (computed once)."""
+    return _scale(D, dtype, "cpu").item()
+
+
 def flash_attention_ref(q, k, v, block_k: int | None = None, return_lse: bool = False):
     """Plain PyTorch version of the forward kernel, tile by tile.
 
     block_k: keys per online-softmax step. None takes the TPU kernel's
     rule (one block of round_up(Lk, 128) keys up to 2048, else 512), so
     that on the CPU the twin follows the JAX kernel's schedule;
-    KERNEL_BLOCK_K follows the CUDA kernel's.
+    KERNEL_BLOCK_K[dtype] follows the CUDA kernel's.
     return_lse: also return lse = m + log(l), (B, H, Lq) in the
     accumulation dtype (fp32 for bf16/fp32 inputs).
     """
@@ -175,35 +195,51 @@ def _check_kernel_operands(named):
         raise ValueError(f"flash_attention kernel takes head dim {KERNEL_HEAD_DIM}, got {D}")
     vec = 16 // named[0][1].element_size()  # elements per 16-byte vector load
     for name, t in named:
-        if t.stride(3) != 1:
+        st = t.stride()
+        if st[3] != 1:
             raise ValueError(f"flash_attention: {name} needs unit stride over D")
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
             raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned "
-                             f"(strides {t.stride()})")
+                             f"(strides {st})")
 
 
 def _heads_last_empty(B, H, L, D, like):
     """(B, H, L, D) view of a (B, L, H, D) allocation: merge_heads of it is a
     view, and so is the head split of its gradient."""
-    return torch.empty((B, L, H, D), dtype=like.dtype, device=like.device).transpose(1, 2)
+    return torch.empty_strided((B, H, L, D), (L * H * D, D, H * D, 1), dtype=like.dtype,
+                               device=like.device)
+
+
+def _tma_operand(t):
+    """The bf16 kernel reads q, k and v through TMA tensor maps, whose
+    strides must be non-zero: an expanded (stride-0) dim is copied out."""
+    st = t.stride()
+    if 0 in st and t.dtype == torch.bfloat16 and any(
+            s == 0 and n > 1 for s, n in zip(st, t.shape)):
+        return t.contiguous()
+    return t
+
+
+def _fwd_args(q, k, v, o, lse, stream):
+    """The forward C entry's arguments, in its order (lse None: no lse rows)."""
+    B, H, Lq, D = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], q.device.index,
+            B, H, Lq, k.shape[2], D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], _scale_value(D, q.dtype), stream)
 
 
 def _launch(q, k, v, with_lse: bool = False):
     """Run the forward kernel on CUDA tensors (strided views accepted).
     Returns o, or (o, lse) with lse (B, H, Lq) fp32 when with_lse."""
     _check_kernel_operands((("q", q), ("k", k), ("v", v)))
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
     B, H, Lq, D = q.shape
-    Lk = k.shape[2]
     o = _heads_last_empty(B, H, Lq, D, q)
     lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    scale = _scale(D, q.dtype, "cpu").item()
-    fn = _kernel_fns()["fwd"]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr() if with_lse else None,
-             _DTYPE_CODE[q.dtype], q.device.index, B, H, Lq, Lk, D,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-             scale, torch.cuda.current_stream(q.device).cuda_stream)
+    err = _kernel_fns()["fwd"](*_fwd_args(q, k, v, o, lse,
+                                           torch.cuda.current_stream(q.device).cuda_stream))
     name = "flash_attention_fwd_lse" if with_lse else "flash_attention_fwd"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -229,7 +265,7 @@ def _launch_bwd(q, k, v, o, lse, g):
     dq = _heads_last_empty(B, H, Lq, D, q)
     dk = _heads_last_empty(B, H, Lk, D, k)
     dv = _heads_last_empty(B, H, Lk, D, v)
-    scale = _scale(D, q.dtype, "cpu").item()
+    scale = _scale_value(D, q.dtype)
     fn = _kernel_fns()["bwd"]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
