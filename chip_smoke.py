@@ -12,8 +12,10 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc of every kernel source (in parallel), with the build seconds
      and ptxas's registers and spills; the counts of HGMMA (wgmma), UTMALDG
-     (TMA loads) and SYNCS (mbarrier) instructions in the SASS of the bf16
-     flash-attention forward (cuobjdump), which fails without wgmma or TMA;
+     (TMA loads) and SYNCS (mbarrier) instructions in the SASS (cuobjdump) of
+     the bf16 flash-attention forward, which must keep its counts, and of
+     every bf16 GEMM instance of K3, K4 and K5 (csrc/gemm_sm90.cuh), each of
+     which must hold HGMMA and UTMALDG;
   3. kernel check: the flash-attention kernel (K1) against its twin at the
      ViT self-attention shape (32, 12, 577, 64) and the grouped-ITM fold
      (q (32, 12, 96, 64) over k/v (32, 12, 577, 64)), bf16 and fp32, on
@@ -26,7 +28,8 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   4. main path: CapFiltEngine.dispatch_chunk / complete_chunk over chunks of
      8 videos x 4 frames (RGB and YUV420), synthetic full-width weights,
      bf16, beam_group_kv and the fused filter; the kernel's launch count
-     must show it ran in both encodes and in the ITM;
+     must show it ran in both encodes (the reference's gate keeps the ITM's
+     attention on the plain path);
   5. stage breakdown of one RGB and one YUV420 chunk (host clock, synced);
   6. in-situ checks (reported, not pass bars): the captioner encode through
      K1 and through its twin (one block and twelve, bf16 and fp32, and the
@@ -42,12 +45,16 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      768), 577 true tokens; K5 against fused_block_bwd_ref (dx and the 12
      gradients) at the trainers' block, run to run bitwise; bf16 and fp32;
      with the times of the kernel, the twin and a library block
-     (F.layer_norm, F.linear, SDPA, F.gelu; a yardstick only);
+     (F.layer_norm, F.linear, SDPA, F.gelu; a yardstick only); and, from
+     torch.profiler, each call's device ms beside the library block's, its
+     launches by part (GEMMs, attention passes, LN rows, column sums,
+     split-K sums) and its GEMMs' TFLOP/s;
   9. caption training at full width (ViT-B/16 224 px, MED from
      configs/med_config.json), synthetic weights, one fixed batch of 12
      videos x 4 frames with 40-token captions, bf16, MED remat on: 4 steps
-     of the classic schedule (VIDIL_TPU_TRAIN_FUSED_BLOCK=0: exactly 12 K1
-     with lse and 12 K2 launches per step) and 8 of the default fused one
+     of the classic schedule (VIDIL_TPU_TRAIN_FUSED_BLOCK=0: at 224 px the
+     reference's gate sends the attention to the plain path, so no K1 or K2
+     launch) and 8 of the default fused one
      (exactly 12 K4 and 12 K5 launches per step, no K1/K2): finite losses,
      the last below the first, non-zero ViT qkv gradients in every block;
      steady step ms (CUDA events), host enqueue ms, samples/s, peak memory
@@ -57,27 +64,32 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      35-token questions, 1-3 answers of 12 tokens each, 8 steps, with the
      checks of phase 9 (12 K4 + 12 K5 per step); then vqa_generate_ids and
      rank_answer (k = 128 over 256 answers) must give well-formed answers;
- 11. in-situ backward checks (reported): one ViT block's input and qkv
-     weight gradients through K1/K2 and through their twins, and through
-     K4/K5 and through theirs;
+ 11. in-situ backward checks (reported): one classic ViT-B/384 block over
+     32 frames x 577 tokens, whose attention passes the gate (exactly one
+     K1-with-lse and one K2 launch, else the run fails), its input and qkv
+     weight gradients through K1/K2 and through their twins; one fused
+     224-px block's through K4/K5 and through theirs;
  12. fused MLP: K3 against fused_mlp_ref at the visual-tokenization ViT
      encode's (36928, 768) -> 3072 and the ITM block's (8192, 768) -> 3072,
      bf16 and fp32, run to run bitwise, with the times of the kernel, the
-     plain version and F.linear + F.gelu + F.linear (a yardstick only);
+     plain version and F.linear + F.gelu + F.linear (a yardstick only), and
+     from torch.profiler the device ms of both and each GEMM's TFLOP/s;
  13. visual tokenization at full width, synthetic weights, bf16, over the
      vendored vg ontology in full: the BLIP engine (ViT-B/384 + MED-base with
      vision_proj/text_proj/itm_head, use_fused_mlp in both towers, k_test
      128, top 5, prompts v1) and the CLIP engine (ViT-L/14, byte-level
      synthetic BPE), two chunks of 8 videos x 8 noise frames each (the first
      warms up); every video must get 8 frames x 4 categories x 5 ontology
-     terms, and K3 and K1 must launch exactly the times the shapes give;
+     terms, and K3 and K1 must launch exactly the times the shapes give
+     (no K1 in the CLIP engine: its 257-token attention fails the gate);
      frames/s, ontology-embedding and rerank seconds, peak memory. Reported
      with it (phase 6's engine): the CapFilt captioner encode with
      use_fused_mlp against the encode without, after one block and twelve.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold). Kernel times ("ms", "plain_ms", "library_ms") are the median
 of single calls between CUDA events on an idle card: device time plus the
-host work before the launch. The last two lines are the kernels' JSON record (each kernel at its main
+host work before the launch; "device_ms" (phases 8, 12) is device time
+alone. The last two lines are the kernels' JSON record (each kernel at its main
 path's shape, bf16; every shape and dtype is on its own "kernel check"
 line above) and {"ok": true, ...}.
 """
@@ -85,6 +97,7 @@ line above) and {"ok": true, ...}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -164,6 +177,23 @@ def attention_bound_ms(q, k, dtype, with_lse=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+# K1's counts in each bf16 instance of its wgmma + TMA kernel (moving its
+# PTX wrappers into csrc/sm90.cuh left them as they were)
+K1_SASS = {"HGMMA": 13, "UTMALDG": 3, "SYNCS": 24}
+# the bf16 GEMM (csrc/gemm_sm90.cuh) in the libraries of K3, K4 and K5
+GEMM_LIBS = ("fused_mlp_fwd", "fused_vit_block_fwd", "fused_vit_block_bwd")
+
+
+def _sass_label(kernel, name):
+    """A short label for a mangled kernel name: K1's instance by its lse
+    flag; a GEMM instance by its tile width, operand majors and epilogue."""
+    if kernel == "flash_fwd_bf16":
+        return f"{kernel}<{'lse' if 'ILb1E' in name else 'no lse'}>"
+    m = re.search(r"ILi(\d+)ELb([01])ELb([01])EN9vit_block8BlockEpiILi(\d)E", name)
+    return f"{kernel}<bn={m[1]},mn_a={m[2]},mn_b={m[3]},epi={m[4]}>" if m else name
+
+
 def sass_counts(lib, kernel="flash_fwd_bf16"):
     """Counts of HGMMA (wgmma), UTMALDG (TMA tile loads) and SYNCS (mbarrier)
     instructions in the SASS of each function of a built library whose name
@@ -177,10 +207,31 @@ def sass_counts(lib, kernel="flash_fwd_bf16"):
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
         if kernel in name:
-            label = f"{kernel}<{'lse' if 'ILb1E' in name else 'no lse'}>"
-            counts[label] = {ins: len(re.findall(rf"\b{ins}\b", part))
-                             for ins in ("HGMMA", "UTMALDG", "SYNCS")}
+            counts[_sass_label(kernel, name)] = {ins: len(re.findall(rf"\b{ins}\b", part))
+                                                for ins in SASS_OPS}
     return counts
+
+
+def check_sass(libs):
+    """Phase 2's SASS checks: both bf16 K1 instances keep their wgmma, TMA
+    and mbarrier counts; every bf16 GEMM instance of K3, K4 and K5 runs
+    wgmma from TMA loads; no mma.sync GEMM is left (its kernel was
+    vit_block::gemm_bf16)."""
+    sass = {"flash_attention_fwd": sass_counts(libs["flash_attention_fwd"])}
+    log("sass (flash_attention_fwd, bf16 kernel):", json.dumps(sass["flash_attention_fwd"]))
+    if len(sass["flash_attention_fwd"]) != 2 or any(
+            c != K1_SASS for c in sass["flash_attention_fwd"].values()):
+        raise SystemExit(f"the bf16 flash-attention forward's SASS changed: {sass}, want "
+                         f"{K1_SASS} per instance")
+    for name in GEMM_LIBS:
+        sass[name] = sass_counts(libs[name], "gemm_bf16")
+        log(f"sass ({name}, bf16 GEMM instances):", json.dumps(sass[name]))
+        old = sass_counts(libs[name], "vit_block9gemm_bf16")
+        if not sass[name] or old or not all(c["HGMMA"] and c["UTMALDG"]
+                                            for c in sass[name].values()):
+            raise SystemExit(f"{name}: a bf16 GEMM runs without wgmma or TMA: {sass[name]}, "
+                             f"mma.sync GEMMs {list(old)}")
+    return sass
 
 
 # phase 3/7 fields that K1's record entries carry as well
@@ -672,8 +723,9 @@ def run_caption_training(fa, fvb, device, schedule, steps):
             os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = env
     n = vit_cfg.num_layers
     fused = schedule == "fused"
-    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0 if fused else n,
-            "flash_attention_bwd": 0 if fused else n,
+    # the classic step's attention at 224 px (48, 12, 197, 64) fails the
+    # reference's gate: plain attention, no K1 or K2, as in the reference
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
             "fused_vit_block_fwd": n if fused else 0, "fused_vit_block_bwd": n if fused else 0}
     out = train_loop(f"training ({schedule})", step, state, batch, steps, fa, fvb, want,
                      TRAIN_VIDEOS)
@@ -717,6 +769,57 @@ def profile_run(fn):
 # the device kernels that K4 and K5 launch (csrc/fused_vit_block*.cu)
 FUSED_BLOCK_KERNELS = ("vit_block::", "colsum_partial", "colsum_final", "sum_splits",
                        "ln_bwd_rows", "attn_bwd_dq", "attn_bwd_dkdv")
+
+# the launches of one K4, K5 or K3 call by part (substrings of the kernel
+# names torch.profiler reports): the GEMMs (csrc/gemm_sm90.cuh, or the fp32
+# FMA tiles), the attention passes, the LayerNorm rows, the column sums and
+# the split-K sums
+KERNEL_PARTS = {"gemm": ("gemm_bf16", "gemm_f32"), "attention": ("attn_",),
+                "ln_rows": ("ln_rows", "ln_bwd_rows"),
+                "column_sums": ("colsum_partial", "colsum_final"), "sum_splits": ("sum_splits",)}
+PROFILE_REPS = 5
+
+
+def device_profile(fn, reps=PROFILE_REPS):
+    """torch.profiler over `reps` calls of fn after one warm-up call: the
+    device ms per call (its kernels' device time, summed: one stream) and,
+    per kernel name, [ms per call, launches per call]. Per name, the mean
+    of the launches it recorded times its launches per call, the recorded
+    count over `reps` rounded up (the profiler can drop a few launches of a
+    window); a window that recorded no kernel is profiled again, twice at
+    most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host = {e.key for e in events if e.device_type != DeviceType.CUDA}
+        kernels = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA and e.key not in host and e.count:
+                per_call = math.ceil(e.count / reps)
+                kernels[e.key] = [e.self_device_time_total / 1e3 / e.count * per_call, per_call]
+        if kernels:
+            break
+    return sum(ms for ms, _ in kernels.values()), kernels
+
+
+def kernel_parts(kernels):
+    """A call's device ms and launches by part (KERNEL_PARTS)."""
+    parts = {}
+    for name, (ms, n) in kernels.items():
+        part = next((p for p, keys in KERNEL_PARTS.items() if any(k in name for k in keys)),
+                    "other")
+        got = parts.setdefault(part, {"ms": 0.0, "launches": 0.0})
+        got["ms"] += ms
+        got["launches"] += n
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +900,28 @@ def _rel_err(a, b):
     return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
 
 
+def block_gemm_flops(B, Lp, backward=False, D=BLOCK_D):
+    """Operations of one block call's GEMMs: the forward's qkv, proj, fc1 and
+    fc2 products, 2*M*D*(3D + D + 2Dm); the backward's recompute (all but
+    fc2) and its four data- and four weight-gradient products."""
+    M, Dm = B * Lp, 4 * D
+    fwd = 2 * M * D * (4 * D + 2 * Dm)
+    return (2 * M * D * (4 * D + Dm) + 2 * fwd) if backward else fwd
+
+
+def block_device_times(kernel, library, B, Lp, dtype, backward=False):
+    """Phase 8's device times (torch.profiler, PROFILE_REPS calls): the
+    kernel's and the library block's ms per call, the kernel's launches by
+    part, and its GEMMs' rate."""
+    dev_ms, kernels = device_profile(kernel)
+    lib_ms, _ = device_profile(library)
+    parts = kernel_parts(kernels)
+    gemm_ms = parts.get("gemm", {}).get("ms", 0.0)
+    return {"device_ms": dev_ms, "library_device_ms": lib_ms, "parts": parts,
+            "gemm_tflops": block_gemm_flops(B, Lp, backward) / (gemm_ms * 1e-3) / 1e12
+            if gemm_ms else None}
+
+
 def check_fused_block(fvb, device):
     """Phase 8: K4 against fused_block_ref at both block shapes, K5 against
     fused_block_bwd_ref (dx and the 12 gradients) at the trainers' shape,
@@ -822,6 +947,8 @@ def check_fused_block(fvb, device):
                            *args, true_len=true_len, num_heads=H, eps=eps)),
                        library_ms=time_ms(lambda: library_block(args, true_len)),
                        bound_ms=bound, bound_by=bound_by)
+            row.update(block_device_times(lambda: fvb._launch_fwd(args, true_len, H, eps),
+                                          lambda: library_block(args, true_len), B, Lp, dtype))
             log("kernel check (fused block fwd):", json.dumps(row))
             fwd_rows.append(row)
             if not (bool(torch.isfinite(got).all()) and rel <= BLOCK_FWD_RTOL[dtype]):
@@ -849,6 +976,10 @@ def check_fused_block(fvb, device):
                        library_ms=time_ms(lambda: torch.autograd.grad(
                            library_block(leaves, true_len), leaves, g)),
                        bound_ms=bound, bound_by=bound_by)
+            row.update(block_device_times(
+                lambda: fvb._launch_bwd(args, g, true_len, H, eps),
+                lambda: torch.autograd.grad(library_block(leaves, true_len), leaves, g),
+                B, Lp, dtype, backward=True))
             log("kernel check (fused block bwd):", json.dumps(row))
             bwd_rows.append(row)
             finite = all(bool(torch.isfinite(a).all()) for a in got)
@@ -1052,19 +1183,27 @@ def in_situ_fused_encode(engine, frames, vit_cfg, switch, counts, kernel):
     return out
 
 
+# phase 11's classic block: ViT-B/384 over a CapFilt chunk's 32 frames x 577
+# tokens, where the reference's gate sends the attention to the kernels
+SITU_FRAMES = N_VIDEOS * N_FRAMES
+
+
 def in_situ_backward(fa, device):
-    """Phase 11: one full-width ViT block at the trainer's shape, bf16:
-    the input gradient and the qkv weight gradient through the kernels and
-    through the twins (at the kernels' tiling)."""
+    """Phase 11: one full-width ViT-B/384 block on the classic schedule,
+    bf16, over 32 frames of 577 tokens (the attention passes the
+    reference's gate): exactly one K1-with-lse and one K2 launch, then the
+    input gradient and the qkv weight gradient through the kernels and
+    through the twins (at the kernels' tiling). Returns the report and the
+    kernels' launches."""
     from vidil_tpu_torch.config import ViTConfig
     from vidil_tpu_torch.models import blip, convert, vit
     from vidil_tpu_torch.utils.synth import synth_tree
 
-    cfg = ViTConfig.from_name("base", 224)
+    cfg = ViTConfig.from_name("base", 384)
     blk = convert.from_jax_params(synth_tree({"blocks": blip.vit_shapes(cfg)["blocks"]},
                                              device, salt=1.0))["blocks"][0]
     gen = torch.Generator(device=device).manual_seed(4)
-    shape = (TRAIN_VIDEOS * TRAIN_FRAMES, cfg.seq_len, cfg.hidden_size)
+    shape = (SITU_FRAMES, cfg.seq_len, cfg.hidden_size)
     x0 = torch.randn(shape, generator=gen, device=device)
     r = torch.randn(shape, generator=gen, device=device)
 
@@ -1075,7 +1214,14 @@ def in_situ_backward(fa, device):
         out = vit.block_forward(p, x, cfg.num_heads, cfg.layer_norm_eps, dtype=torch.bfloat16)
         return torch.autograd.grad((out.float() * r).sum(), (x, w))
 
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
     got = grads()
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 1, "flash_attention_bwd": 1}
+    if launches != want:
+        raise SystemExit(f"in-situ backward at {shape}: launches {launches}, want {want}")
     fwd, bwd = fa._forward, fa._backward
     fa._forward = lambda q, k, v, with_lse: fa.flash_attention_ref(
         q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype], return_lse=with_lse)
@@ -1085,13 +1231,13 @@ def in_situ_backward(fa, device):
         want = grads()
     finally:
         fa._forward, fa._backward = fwd, bwd
-    out = {}
+    out = {"x": list(shape), "launches": launches}
     for name, a, b in zip(("dx", "d_qkv_kernel"), got, want):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise SystemExit(f"in-situ backward: non-finite {name}")
         out[f"{name}_max_abs_diff"] = (a - b).abs().max().item()
         out[f"{name}_max_abs"] = b.abs().max().item()
-    return out
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1148,6 +1294,17 @@ def check_fused_mlp(fm, device):
                        library_ms=time_ms(lambda: F.linear(F.gelu(F.linear(x, w1.t(), b1)),
                                                            w2.t(), b2)),
                        bound_ms=bound, bound_by=bound_by)
+            dev_ms, kernels = device_profile(lambda: fm._launch(*args))
+            lib_ms, _ = device_profile(lambda: F.linear(F.gelu(F.linear(x, w1.t(), b1)),
+                                                        w2.t(), b2))
+            # fc1 is the GEMM with K3's GELU epilogue (kEpiGeluF32 = 5), fc2
+            # the one with the plain store (kEpiStore = 0); 2*M*D*Dm each
+            gemms = {label: sum(ms for k, (ms, _) in kernels.items() if key in k)
+                     for label, key in (("fc1", "BlockEpi<5>"), ("fc2", "BlockEpi<0>"))}
+            row.update(device_ms=dev_ms, library_device_ms=lib_ms, gemm_ms=gemms,
+                       gemm_tflops={k: 2 * M * D * Dm / (v * 1e-3) / 1e12 if v else None
+                                    for k, v in gemms.items()},
+                       kernels={k.split("(")[0]: v for k, v in kernels.items()})
             log("kernel check (fused mlp):", json.dumps(row))
             rows.append(row)
             if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit):
@@ -1206,7 +1363,6 @@ def run_visual_tokenization(fa, fm, device):
     ontology embedding (timed, then cached as the CLI caches it), a warm-up
     chunk and a timed chunk through predict_videos; launch counts of K1 and
     K3 against the counts the shapes give."""
-    import math
     import os
 
     from vidil_tpu_torch.pipeline import visual_tokenization as vt
@@ -1283,14 +1439,21 @@ def run_visual_tokenization(fa, fm, device):
         n_frames = VT_VIDEOS * VT_FRAMES
         if blip_mode:
             # the ViT encode (K3 + K1 per block), then per category
-            # ceil(frames / 4) ITM blocks of 4 x 128 x L >= 2048 rows: K3 in
-            # the FFN and K1 in the grouped cross-attention, per layer
-            itm_blocks = len(onto) * math.ceil(n_frames / VT_ITM_ROWS)
+            # ceil(frames / 4) ITM blocks of 4 frames x 128 texts x L tokens,
+            # L the category's text length: K3 in the FFN at >= 2048 rows, and
+            # K1 in the grouped cross-attention, (4, 12, 128 L, 64) over
+            # (4, 12, 577, 64), where the reference's gate passes it
             n_vit = engine.vit_cfg.num_layers
-            want = {"fused_mlp_fwd": n_vit + n_layers * itm_blocks,
-                    "flash_attention_fwd": n_vit + n_layers * itm_blocks}
-        else:  # quick_gelu: no K3; K1 in every vision layer
-            want = {"fused_mlp_fwd": 0, "flash_attention_fwd": engine.cfg.vision_layers}
+            want = {"fused_mlp_fwd": n_vit, "flash_attention_fwd": n_vit}
+            for key in onto:
+                L = cache[key][1].shape[1]
+                blocks = n_layers * math.ceil(n_frames / VT_ITM_ROWS)
+                q = torch.empty((VT_ITM_ROWS, 12, VT_K_TEST * L, 64), device="meta")
+                k = torch.empty((VT_ITM_ROWS, 12, 577, 64), device="meta")
+                want["fused_mlp_fwd"] += blocks * (VT_ITM_ROWS * VT_K_TEST * L >= 2048)
+                want["flash_attention_fwd"] += blocks * fa._flash_profitable(q, k, None)
+        else:  # quick_gelu: no K3; CLIP-L's (64, 16, 257, 64) fails the gate: no K1
+            want = {"fused_mlp_fwd": 0, "flash_attention_fwd": 0}
         if launches != want:
             raise SystemExit(f"{name} chunk launches {launches}, want {want}")
         for vid, obj in res.items():
@@ -1334,10 +1497,7 @@ def main():
     for name, path in libs.items():
         log(f"ptxas ({name}):", " | ".join(sorted(set(
             line.strip() for line in open(f"{path}.log") if "registers" in line or "spill" in line))))
-    sass = sass_counts(libs["flash_attention_fwd"])
-    log("sass (flash_attention_fwd, bf16 kernel):", json.dumps(sass))
-    if len(sass) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in sass.values()):
-        raise SystemExit(f"the bf16 flash-attention forward runs without wgmma or TMA: {sass}")
+    sass = check_sass(libs)
 
     rows = check_flash_kernel(fa, device)
 
@@ -1346,9 +1506,13 @@ def main():
     torch.cuda.synchronize()
     log(f"engine: synthetic full-width weights on the device in {time.time() - t0:.1f} s")
     chunks = make_chunks(yuv_chunks={2, 4})
-    per_chunk = 2 * vit_cfg.num_layers + med_cfg.num_layers  # two encodes + ITM layers
+    # K1 in the two encodes' self-attention (32 frames x 577 tokens); the
+    # reference's gate keeps the ITM's attention on the plain path: the fused
+    # filter's 96-row fold (Lq < 128) and a classic filter call's (at most 32
+    # frames x 140 rows over 577 keys: 124 MB of logits, under 128 MiB)
+    per_chunk = 2 * vit_cfg.num_layers
     results, launches, classic_calls, fps, peak = run_main_path(engine, fa, chunks, per_chunk)
-    want = per_chunk * len(chunks) + med_cfg.num_layers * classic_calls
+    want = per_chunk * len(chunks)
     if launches != want:
         raise SystemExit(f"kernel launches {launches}, want {want}")
     if len(results) != N_VIDEOS * len(chunks):
@@ -1403,7 +1567,7 @@ def main():
         f"memory {vqa['peak_memory_gib']:.2f} GiB; generate {vqa['generate_s']:.3f} s, rank "
         f"{vqa['rank_s']:.3f} s; card {card}")
     log("vqa:", json.dumps(vqa))
-    situ_bwd = in_situ_backward(fa, device)
+    situ_bwd, situ_launches = in_situ_backward(fa, device)
     log("in-situ (kernels vs twins, one ViT block's gradients, bf16):", json.dumps(situ_bwd))
     situ_block = in_situ_fused_block(fvb, device)
     log("in-situ (K4/K5 vs twins, one fused ViT block's gradients, bf16):",
@@ -1426,40 +1590,57 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": desc,
                 **{k: r[k] for k in RATE_KEYS if k in r}, **extra}
 
+    def gemm_sass(lib):
+        """A library's bf16 GEMM instances and their fewest wgmma and TMA
+        instructions (phase 2 fails if any is 0)."""
+        return {"instances": len(sass[lib]),
+                "min_HGMMA": min(c["HGMMA"] for c in sass[lib].values()),
+                "min_UTMALDG": min(c["UTMALDG"] for c in sass[lib].values())}
+
+    def device(rs, shape):
+        r = next(x for x in rs if x["dtype"] == "bfloat16" and x["shape"] == shape)
+        return {k: r[k] for k in ("device_ms", "library_device_ms", "gemm_tflops")}
+
     fwd_src = "vidil_tpu_torch/csrc/flash_attention_fwd.cu"
-    classic, fused = trains["classic"]["launches"], trains["fused"]["launches"]
+    fused = trains["fused"]["launches"]
     record = {"kernels": [
         entry("flash_attention_fwd", fwd_src, "vidil_tpu/ops/flash_attention.py:290", launches,
               rows, "vit_self_attention",
               "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path",
               launches_visual_tokenization_blip=vt["blip"]["launches"]["flash_attention_fwd"],
               launches_visual_tokenization_clip=vt["clip"]["launches"]["flash_attention_fwd"],
-              sass=sass),
+              sass=sass["flash_attention_fwd"]),
         entry("flash_attention_fwd_lse", fwd_src, "vidil_tpu/ops/flash_attention.py:290",
-              classic["flash_attention_fwd_lse"], lse_rows, "train_224",
-              "q,k,v (48, 12, 197, 64) bf16 views, with fp32 lse rows; classic training path "
-              "(VIDIL_TPU_TRAIN_FUSED_BLOCK=0)"),
+              situ_launches["flash_attention_fwd_lse"], lse_rows, "vit_self_attention",
+              "q,k,v (32, 12, 577, 64) bf16 views, with fp32 lse rows; the classic schedule's "
+              "ViT-B/384 block (phase 11); at 224 px the reference's gate sends the attention "
+              "to the plain path"),
         entry("flash_attention_bwd", "vidil_tpu_torch/csrc/flash_attention_bwd.cu",
-              "vidil_tpu/ops/flash_attention.py:242", classic["flash_attention_bwd"], bwd_rows,
-              "train_224", "q,k,v,o,g (48, 12, 197, 64) bf16 views; classic training path"),
+              "vidil_tpu/ops/flash_attention.py:242", situ_launches["flash_attention_bwd"],
+              bwd_rows, "train_384",
+              "q,k,v,o,g (32, 12, 577, 64) bf16 views; the classic schedule's ViT-B/384 block "
+              "(phase 11)"),
         entry("fused_vit_block_fwd", "vidil_tpu_torch/csrc/fused_vit_block_fwd.cu",
               "vidil_tpu/ops/fused_vit_block.py:139", fused["fused_vit_block_fwd"],
               block_fwd_rows, "train_224",
               "x (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
               "path (the trainers' default)",
-              launches_vqa=vqa["launches"]["fused_vit_block_fwd"]),
+              launches_vqa=vqa["launches"]["fused_vit_block_fwd"],
+              **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd")),
         entry("fused_vit_block_bwd", "vidil_tpu_torch/csrc/fused_vit_block_bwd.cu",
               "vidil_tpu/ops/fused_vit_block.py:345", fused["fused_vit_block_bwd"],
               block_bwd_rows, "train_224",
               "x, g (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
               "path (the trainers' default)",
-              launches_vqa=vqa["launches"]["fused_vit_block_bwd"]),
+              launches_vqa=vqa["launches"]["fused_vit_block_bwd"],
+              **device(block_bwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_bwd")),
         entry("fused_mlp_fwd", "vidil_tpu_torch/csrc/fused_mlp_fwd.cu",
               "vidil_tpu/ops/fused_mlp.py:69", vt["blip"]["launches"]["fused_mlp_fwd"],
               mlp_rows, "vit_encode",
               "x (36928, 768) -> 3072 bf16, the ViT-B/384 encode of a chunk (8 videos x 8 "
               "frames); visual tokenization path (BLIP engine, use_fused_mlp)",
-              launches_ontology=vt["blip"]["ontology_launches"]["fused_mlp_fwd"]),
+              launches_ontology=vt["blip"]["ontology_launches"]["fused_mlp_fwd"],
+              **device(mlp_rows, "vit_encode"), sass_gemm=gemm_sass("fused_mlp_fwd")),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -85,9 +85,10 @@ def test_towers_and_embeddings_match_jax(params):
 
 
 def test_bf16_embeddings_close_to_jax(params):
-    """(tolerance) bf16 compute: both packages round at the same linears;
-    the attention is a flash twin here and XLA there, so a few bf16 ulps of
-    a unit-norm embedding."""
+    """(tolerance) bf16 compute: both packages round at the same linears
+    and, at these shapes, both take plain attention (the reference's gate);
+    the fp32 sums still run in another order, so a few bf16 ulps of a
+    unit-norm embedding."""
     jp, tp = params
     rng = np.random.default_rng(2)
     img = rng.standard_normal((2, 28, 28, 3)).astype(np.float32)

@@ -308,6 +308,53 @@ def test_fused_block_bwd_kernel_is_deterministic(cuda_device, dtype):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+# the trainers' ViT-B/16 block at 224 px: D / Dm / 3D = 768 / 3072 / 2304, so
+# the GEMM runs in all three operand layouts (x.W, g.W^T, A^T.B) with all
+# five epilogues of K4 and K5
+TRAINER_BLOCK = (48, 256, 768, 12, 197)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_block_kernels_at_the_trainer_block(cuda_device, dtype):
+    """K4 and K5 at the trainer block against their twins, each bitwise
+    equal run to run."""
+    B, Lp, D, H, true_len = TRAINER_BLOCK
+    args, g = _block_args(B, Lp, D, H, dtype, cuda_device, 15)
+    g[:, true_len:] = 0
+    out = fvb._launch_fwd(args, true_len, H, 1e-6)
+    torch.testing.assert_close(out, fvb._launch_fwd(args, true_len, H, 1e-6), atol=0, rtol=0)
+    want = fvb.fused_block_ref(*args, true_len=true_len, num_heads=H, eps=1e-6)
+    assert _rel_err(out, want) <= FWD_RTOL[dtype], _rel_err(out, want)
+    got = fvb._launch_bwd(args, g, true_len, H, 1e-6)
+    for a, b in zip(got, fvb._launch_bwd(args, g, true_len, H, 1e-6)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    want = fvb.fused_block_bwd_ref(*args, g, true_len=true_len, num_heads=H, eps=1e-6)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    assert max(errs) <= BLOCK_BWD_RTOL[dtype], errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lp,splits", [(48, 256, "some > 1"), (1, 128, "all 1")])
+def test_fused_block_bwd_weight_grad_splits(cuda_device, B, Lp, splits):
+    """K5 in bf16 at a row count whose weight gradients are summed from
+    several split-K partials (12,288 rows) and at one where each is a
+    single product (128 rows): the twin's gradients either way, bitwise run
+    to run."""
+    _, _, D, H, _ = TRAINER_BLOCK
+    counts = fvb.weight_grad_splits(torch.bfloat16, B, Lp, D, 4 * D, H)
+    assert (max(counts) > 1) if splits == "some > 1" else (max(counts) == 1), counts
+    true_len = min(Lp, 197)
+    args, g = _block_args(B, Lp, D, H, torch.bfloat16, cuda_device, 16)
+    g[:, true_len:] = 0
+    got = fvb._launch_bwd(args, g, true_len, H, 1e-6)
+    for a, b in zip(got, fvb._launch_bwd(args, g, true_len, H, 1e-6)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    want = fvb.fused_block_bwd_ref(*args, g, true_len=true_len, num_heads=H, eps=1e-6)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    assert max(errs) <= BLOCK_BWD_RTOL[torch.bfloat16], errs
+
+
 @pytest.mark.cuda
 def test_fused_vit_block_function_on_the_card(cuda_device):
     """fused_vit_block on CUDA: one K4 launch forward, one K5 launch
@@ -362,7 +409,8 @@ def _mlp_args(shape, D, Dm, dtype, device, seed):
                                         ((2048, 768), 768, 3072)])
 def test_fused_mlp_kernel_matches_plain_version(cuda_device, dtype, shape, D, Dm):
     """Row counts that are and are not multiples of the kernel's 128-row
-    tile (the wrapper pads), leading dims kept; run to run bitwise."""
+    tile (the kernel masks the ragged tile), leading dims kept; run to run
+    bitwise."""
     args = _mlp_args(shape, D, Dm, dtype, cuda_device, 21)
     before = fm.launch_counts["fused_mlp_fwd"]
     got = fm._launch(*args)
@@ -372,6 +420,24 @@ def test_fused_mlp_kernel_matches_plain_version(cuda_device, dtype, shape, D, Dm
     want = fm.fused_mlp_ref(*args)
     assert got.shape == want.shape == args[0].shape and got.dtype == dtype
     torch.testing.assert_close(got, again, atol=0, rtol=0)
+    err = (got.float() - want.float()).abs().max().item()
+    limit = MLP_BAR[dtype] * (want.float().abs().max().item() if dtype == torch.bfloat16 else 1)
+    assert err <= limit, (err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [300, 36928])
+def test_fused_mlp_kernel_ragged_rows(cuda_device, dtype, rows):
+    """K3 at ViT-B widths (768 -> 3072) on row counts that leave a ragged
+    last 128-row tile (the BLIP encode of a chunk has 36,928 rows), with no
+    row padding in device memory: the plain version's result, bitwise run
+    to run."""
+    args = _mlp_args((rows, 768), 768, 3072, dtype, cuda_device, 24)
+    got = fm._launch(*args)
+    torch.testing.assert_close(got, fm._launch(*args), atol=0, rtol=0)
+    want = fm.fused_mlp_ref(*args)
+    assert got.shape == (rows, 768)
     err = (got.float() - want.float()).abs().max().item()
     limit = MLP_BAR[dtype] * (want.float().abs().max().item() if dtype == torch.bfloat16 else 1)
     assert err <= limit, (err, limit)

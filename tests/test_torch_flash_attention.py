@@ -138,13 +138,75 @@ def test_cpu_wrapper_runs_twin_without_counting():
 
 
 def test_attention_auto_dispatch():
+    """Small shapes fail the reference's gate, so unmasked and biased
+    calls alike take dot_product_attention, as the JAX package's
+    attention_auto does off its kernel."""
     q, k, v = map(torch.from_numpy, _qkv(1, 2, 8, 12, 16, seed=4))
     bias = torch.zeros((1, 1, 8, 12))
     bias[..., -3:] = -10000.0
-    torch.testing.assert_close(fa.attention_auto(q, k, v), fa.flash_attention_ref(q, k, v),
+    torch.testing.assert_close(fa.attention_auto(q, k, v), dot_product_attention(q, k, v),
                                atol=0, rtol=0)
     torch.testing.assert_close(fa.attention_auto(q, k, v, bias=bias),
                                dot_product_attention(q, k, v, bias=bias), atol=0, rtol=0)
+
+
+# (q shape, k shape, with a bias): the K1 shapes of the port's main paths
+# (PERF.md), the reference test's shapes, and the gate's edges
+GATE_CASES = {
+    "vit_384": ((32, 12, 577, 64), (32, 12, 577, 64), False),
+    "itm_fold_96_rows": ((32, 12, 96, 64), (32, 12, 577, 64), False),
+    "clip_l_257": ((64, 16, 257, 64), (64, 16, 257, 64), False),
+    "blip_vt_fold": ((4, 12, 2048, 64), (4, 12, 577, 64), False),
+    "train_224": ((48, 12, 197, 64), (48, 12, 197, 64), False),
+    "capfilt_filter_fold_140": ((128, 12, 140, 64), (128, 12, 640, 64), False),
+    "decode_step": ((96, 12, 1, 64), (96, 12, 2308, 64), False),
+    "lq_127": ((64, 12, 127, 64), (64, 12, 577, 64), False),
+    "lq_128": ((64, 12, 128, 64), (64, 12, 577, 64), False),
+    "both_axes_511": ((16, 12, 511, 64), (16, 12, 511, 64), False),
+    "lq_512": ((16, 12, 512, 64), (16, 12, 511, 64), False),
+    "lk_511": ((32, 12, 200, 64), (32, 12, 511, 64), False),
+    "lk_512": ((32, 12, 200, 64), (32, 12, 512, 64), False),
+    "logits_just_under_128mib": ((8, 16, 512, 64), (8, 16, 511, 64), False),
+    "logits_at_128mib": ((8, 16, 512, 64), (8, 16, 512, 64), False),
+    "head_dim_256": ((32, 12, 577, 256), (32, 12, 577, 256), False),
+    "head_dim_257": ((32, 12, 577, 257), (32, 12, 577, 257), False),
+    "bias": ((32, 12, 577, 64), (32, 12, 577, 64), True),
+}
+
+
+@pytest.mark.parametrize("case", list(GATE_CASES))
+def test_flash_gate_matches_jax(case):
+    """The port's _flash_profitable is the JAX package's, shape by shape
+    (shape-only operands: nothing is allocated)."""
+    import jax
+
+    from vidil_tpu.ops.flash_attention import _flash_profitable as jax_gate
+
+    qs, ks, with_bias = GATE_CASES[case]
+    bias_shape = (1, 1, qs[2], ks[2])
+    want = jax_gate(jax.ShapeDtypeStruct(qs, jnp.bfloat16), jax.ShapeDtypeStruct(ks, jnp.bfloat16),
+                    jax.ShapeDtypeStruct(bias_shape, jnp.float32) if with_bias else None)
+    meta = lambda shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="meta")
+    got = fa._flash_profitable(meta(qs), meta(ks),
+                               meta(bias_shape, torch.float32) if with_bias else None)
+    assert got == want
+
+
+@pytest.mark.parametrize("case,route", [
+    ("train_224", "plain"), ("clip_l_257", "plain"), ("itm_fold_96_rows", "plain"),
+    ("vit_384", "flash"), ("blip_vt_fold", "flash")])
+def test_attention_auto_routes_main_path_shapes(monkeypatch, case, route):
+    """In bf16, the 224-px trainer, CLIP-L and the 96-row ITM fold take
+    dot_product_attention; ViT-B/384 and the BLIP rerank fold take
+    flash_attention (the kernel on the card)."""
+    calls = []
+    monkeypatch.setattr(fa, "flash_attention", lambda q, k, v: calls.append("flash"))
+    monkeypatch.setattr(fa, "dot_product_attention",
+                        lambda q, k, v, bias=None: calls.append("plain"))
+    qs, ks, _ = GATE_CASES[case]
+    q, k, v = (torch.empty(s, dtype=torch.bfloat16, device="meta") for s in (qs, ks, ks))
+    fa.attention_auto(q, k, v)
+    assert calls == [route]
 
 
 def test_strided_views_match_contiguous():

@@ -171,7 +171,10 @@ def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
     from vidil_tpu_torch.ops import _build
 
     for name in ("fused_vit_block_bwd", "fused_mlp_fwd"):
-        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "fused_vit_block.cuh"]
+        assert [p.name for p in _build.source_files(name)] == [
+            f"{name}.cu", "fused_vit_block.cuh", "gemm_sm90.cuh", "sm90.cuh"]
+    assert [p.name for p in _build.source_files("flash_attention_fwd")] == [
+        "flash_attention_fwd.cu", "sm90.cuh"]
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("// v1\n")

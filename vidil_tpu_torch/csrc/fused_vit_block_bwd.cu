@@ -38,7 +38,17 @@
 // trainer shape (48 frames, 256 padded tokens, 768 wide) the TPU cost model
 // counts three times the forward's operations, 550 GFLOP (~0.56 ms); the
 // recompute, the split attention passes and the device-memory intermediates
-// make this first kernel do and move more than that.
+// make this kernel do and move more than that. Its 11 products (3 of the
+// recompute, 4 data and 4 weight gradients: 464 GFLOP, 0.47 ms at peak) run
+// on the wgmma + TMA GEMM of gemm_sm90.cuh; the weight gradients' split-K
+// comes from its tile plan (3-4 partials for dwproj, dw1 and dw2 at 12,288
+// rows, none for dwqkv). Device time per call at that shape, by part
+// (chip_smoke.py phase 8, torch.profiler; H100 80GB HBM3, 700 W): GEMMs
+// 0.99 ms (11 launches, 469 TFLOP/s), attention 1.12 ms (the recompute's
+// forward and the dq and dk/dv passes, mma.sync), column sums 0.22 ms (12),
+// LayerNorm rows 0.16 ms (4), split sums 0.06 ms (3): 2.54 ms. What is left:
+// the attention passes on K1's TMA and wgmma tiles, and the column sums and
+// LayerNorm rows folded into the GEMMs' epilogues.
 
 #include "fused_vit_block.cuh"
 
@@ -129,17 +139,14 @@ __global__ void sum_splits(const float* part, int splits, long long n, float* ou
   }
 }
 
-template <typename T>
-SplitK weight_grad_split(int I, int J, int rows) {
-  return split_k(rows, splits_wanted<T>(I, J));
-}
-
+// dst (I, J) = A^T . B over all rows: both operands MN-major; with more than
+// one split, the splits' fp32 partials are added in order by sum_splits
 template <typename T>
 cudaError_t weight_grad(const T* a, int I, const T* b, int J, int rows, float* part, float* dst,
                         cudaStream_t s) {
-  const SplitK sk = weight_grad_split<T>(I, J, rows);
+  const SplitK sk = gemm_split<T>(I, J, rows, true);
   GemmArgs p{a, I, b, J, nullptr, nullptr, nullptr, sk.count > 1 ? part : dst, J, I, J, rows, rows};
-  VB_CHECK((gemm<T, true, true, kEpiF32>(p, splits_wanted<T>(I, J), s)));  // the same split
+  VB_CHECK((gemm<T, true, true, kEpiF32>(p, true, s)));  // the same split
   if (sk.count == 1) return cudaSuccess;
   sum_splits<<<264, 256, 0, s>>>(part, sk.count, static_cast<long long>(I) * J, dst);
   return cudaGetLastError();
@@ -147,7 +154,7 @@ cudaError_t weight_grad(const T* a, int I, const T* b, int J, int rows, float* p
 
 template <typename T>
 long long weight_grad_partials(int I, int J, int rows) {
-  const SplitK sk = weight_grad_split<T>(I, J, rows);
+  const SplitK sk = gemm_split<T>(I, J, rows, true);
   return sk.count > 1 ? static_cast<long long>(sk.count) * I * J : 0;
 }
 
@@ -676,6 +683,21 @@ extern "C" long long vidil_fused_block_bwd_workspace(int dtype, int B, int Lp, i
   if (!dims_ok(d)) return -1;
   return static_cast<long long>(dtype == 0 ? bwd_workspace<bf16>(d, nullptr, nullptr)
                                            : bwd_workspace<float>(d, nullptr, nullptr));
+}
+
+// The split-K partials of the four weight gradients (dw2, dw1, dwproj, dwqkv)
+// at these dimensions, into out[4]; -1 for dimensions the backward does not
+// take.
+extern "C" int vidil_fused_block_bwd_wgrad_splits(int dtype, int B, int Lp, int D, int Dm, int H,
+                                                  int* out) {
+  const Dims d{B, Lp, D, Dm, H, Lp, 0.f};
+  if (!dims_ok(d) || (dtype != 0 && dtype != 1)) return -1;
+  const int ij[4][2] = {{Dm, D}, {D, Dm}, {D, D}, {D, 3 * D}};
+  for (int i = 0; i < 4; ++i) {
+    out[i] = dtype == 0 ? gemm_split<bf16>(ij[i][0], ij[i][1], d.M(), true).count
+                        : gemm_split<float>(ij[i][0], ij[i][1], d.M(), true).count;
+  }
+  return 0;
 }
 
 // dtype: 0 = bf16, 1 = fp32 (x, g, dx, the linears' weights and biases);

@@ -26,10 +26,12 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the 224-px
 // trainer shape (48 frames, 256 padded tokens, 768 wide) the block does
 // 2*12288*768*(4*768 + 2*3072 + 2*256) = 183 GFLOP against ~45 MB of x, out
-// and weights, so it is bound by operations (~0.19 ms). This first kernel
-// uses mma.sync with double-buffered cp.async tiles, and keeps every
-// intermediate in device memory; wgmma, TMA and keeping the (rows, 3072) MLP
-// intermediate on chip are later work.
+// and weights, so it is bound by operations (~0.19 ms). Its four products
+// (174 GFLOP) run on the wgmma + TMA GEMM of gemm_sm90.cuh, shared with K3
+// and K5. Left for this kernel's own redesign: the two-pass attention
+// (mma.sync on 64 x 64 tiles staged by plain loads, with the key mask), the
+// LayerNorm rows, and the seven launches with every intermediate in device
+// memory.
 
 #include "fused_vit_block.cuh"
 

@@ -7,11 +7,9 @@ L2-normalised output embeddings. ``params["vision"]["layers"]`` and
 from an HF state dict through ``convert.convert_clip`` or from `clip_shapes`
 and ``utils/synth.py:synth_tree``.
 
-Attention goes through `attention_auto`: the vision tower's unmasked
-self-attention takes the flash kernel (K1) on CUDA tensors — the JAX
-package's TPU gate kept CLIP's 257-token sequences off its kernel, but the
-port's dispatch sends every unmasked call to K1 — and the text tower's
-causal bias takes the plain path.
+Attention goes through `attention_auto`, with the JAX package's gate:
+CLIP's 257-token vision sequences and the text tower's causal bias both
+take the plain path (`dot_product_attention`), as in the reference.
 """
 
 from __future__ import annotations

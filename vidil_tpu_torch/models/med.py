@@ -98,8 +98,9 @@ def _grouped_attention(q, k, v, bias, group_size: int):
     """Attention where ``group_size`` query rows share one K/V batch row.
 
     q: (B*G, H, L, Dh), k/v: (B, H, Lk, Dh). With no bias the group folds
-    into the query axis, (B, H, G*L, Dh), and goes to the flash kernel as a
-    strided view (no copy when q is a split_heads view of a projection)."""
+    into the query axis, (B, H, G*L, Dh), and goes to `attention_auto` as
+    a strided view (no copy when q is a split_heads view of a projection):
+    the flash kernel where the reference's gate sends the fold."""
     Bn, H, L, Dh = q.shape
     B = Bn // group_size
     if bias is None:
@@ -218,7 +219,7 @@ def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=No
 
     if mode == "multimodal" and encoder_hidden_states is not None:
         # no mask = attend the whole memory: keep the bias None so the
-        # grouped cross-attention takes the flash kernel
+        # grouped cross-attention can take the flash kernel
         cross_bias = (None if encoder_attention_mask is None
                       else invert_attention_mask(encoder_attention_mask))
         enc = encoder_hidden_states if dtype is None else encoder_hidden_states.to(dtype)

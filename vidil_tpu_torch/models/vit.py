@@ -6,8 +6,10 @@ Conv2d), [CLS] + learned position embedding, pre-LN blocks with GELU, and
 a final LayerNorm. ``params["blocks"]`` is a list of per-layer dicts.
 
 The classic schedule runs the blocks one by one, the self-attention through
-`attention_auto` (the Hopper flash kernels on CUDA tensors, their plain
-twins on CPU tensors), and the MLP through `mlp_auto` (kernel K3 with
+`attention_auto` (the reference's gate: the Hopper flash kernels on CUDA
+tensors, or their plain twins on CPU tensors, where the logits would
+spill, as at 384 px; `dot_product_attention` otherwise, as at 224 px),
+and the MLP through `mlp_auto` (kernel K3 with
 ``ViTConfig.use_fused_mlp``). The fused-block schedule (``ViTConfig.use_fused_block``)
 runs each block through `fused_vit_block` (kernels K4, and K5 for the
 gradient with ``use_fused_block_bwd``).

@@ -345,12 +345,37 @@ def flash_attention(q, k, v):
     return FlashAttentionFunction.apply(q, k, v, with_lse)
 
 
+# the TPU package's gate threshold (vidil_tpu/ops/flash_attention.py:53):
+# fp32 logits of at least this many bytes
+_LOGITS_SPILL_BYTES = 128 * 1024 * 1024
+
+
+def _flash_profitable(q, k, bias) -> bool:
+    """The TPU package's dispatch rule (``_flash_profitable``), as it is:
+    no bias, Lq >= 128, a >= 512-long axis on either side, D <= 256 and
+    fp32 logits of at least `_LOGITS_SPILL_BYTES`."""
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    return (bias is None and Lq >= 128 and (Lq >= 512 or Lk >= 512)
+            and q.shape[-1] <= 256
+            and B * H * Lq * Lk * 4 >= _LOGITS_SPILL_BYTES)
+
+
 def attention_auto(q, k, v, bias=None):
-    """Unmasked attention goes to `flash_attention` (the kernels on CUDA,
-    the twins on the CPU); attention with an additive bias goes to
-    `dot_product_attention`. The TPU package's profitability gate was
-    measured on a TPU and does not carry over: every unmasked call takes
-    the kernel."""
-    if bias is not None:
-        return dot_product_attention(q, k, v, bias=bias)
-    return flash_attention(q, k, v)
+    """The reference's routing (``vidil_tpu/ops/flash_attention.py:
+    attention_auto``): `flash_attention` (the kernels on CUDA tensors, the
+    twins on the CPU, where the reference runs its kernel with
+    ``interpret=True``) when `_flash_profitable` holds, else
+    `dot_product_attention`.
+
+    The gate is kept because it decides which rounding a call gets: the
+    kernel rounds p = exp(s - m) before its row sum and P·V, key tile by
+    key tile; the plain path casts the normalised probabilities. So,
+    as for K3's 2048-row gate (``models/layers.py:mlp_auto``), a shape
+    takes the function the reference computes for it. Whether this rule,
+    measured on a TPU, is also the fastest one on an H100 is a separate
+    question, left open (ROADMAP).
+    """
+    if _flash_profitable(q, k, bias):
+        return flash_attention(q, k, v)
+    return dot_product_attention(q, k, v, bias=bias)

@@ -23,13 +23,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from vidil_tpu_torch.models.layers import mlp
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-KERNEL_ROW_BLOCK = 128  # the CUDA kernel's row tile: rows are padded to it
 
 # launches of the CUDA kernel by this process (one per call), for showing
 # that a run went through it; `reset_launch_counts` sets it to 0
@@ -73,8 +71,8 @@ def fused_mlp_ref(x, w1, b1, w2, b2):
 
 def _check_kernel_operands(x, w1, b1, w2, b2):
     """The kernel takes bf16/fp32, one dtype and device for all five
-    tensors, contiguous weights, and D and the hidden width in multiples of
-    128."""
+    tensors, contiguous 16-byte-aligned operands (its tensor maps and
+    vector stores), and D and the hidden width in multiples of 128."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_mlp kernel takes bf16 or fp32, got {x.dtype}")
     D, Dm = x.shape[-1], w1.shape[-1]
@@ -86,26 +84,28 @@ def _check_kernel_operands(x, w1, b1, w2, b2):
             raise ValueError(f"fused_mlp: weight {tuple(t.shape)} {t.dtype}, want {want} {x.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("fused_mlp: weights must be contiguous, on x's device")
+    if any(t.data_ptr() % 16 for t in (x, w1, b1, w2, b2)):
+        raise ValueError("fused_mlp: x, the weights and the biases must be 16-byte aligned")
     return D, Dm
 
 
 def _launch(x, w1, b1, w2, b2):
-    """Run the kernel on CUDA tensors: rows flattened and padded to a
-    multiple of 128 (pad rows are zeros, their results dropped)."""
+    """Run the kernel on CUDA tensors, rows flattened (any count: the
+    kernel reads past the last row as zeros and stores none of it)."""
+    x = x.contiguous()
     D, Dm = _check_kernel_operands(x, w1, b1, w2, b2)
-    xm = x.reshape(-1, D)
-    M = xm.shape[0]
-    m_pad = -(-max(M, 1) // KERNEL_ROW_BLOCK) * KERNEL_ROW_BLOCK
-    xm = F.pad(xm, (0, 0, 0, m_pad - M)) if m_pad != M else xm.contiguous()
-    act = torch.empty((m_pad, Dm), dtype=x.dtype, device=x.device)
-    out = torch.empty((m_pad, D), dtype=x.dtype, device=x.device)
-    err = _kernel_fn()(xm.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+    M = x.numel() // D
+    act = torch.empty((M, Dm), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    if M == 0:
+        return out
+    err = _kernel_fn()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                        act.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], x.device.index,
-                       m_pad, D, Dm, torch.cuda.current_stream(x.device).cuda_stream)
+                       M, D, Dm, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
     launch_counts["fused_mlp_fwd"] += 1
-    return out[:M].reshape(x.shape)
+    return out
 
 
 _fns: dict = {}

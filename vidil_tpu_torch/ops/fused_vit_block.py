@@ -288,6 +288,9 @@ def _check_kernel_operands(x, ln, lin, true_len, num_heads):
     for t in ln:
         if t.dtype != torch.float32 or tuple(t.shape) != (D,):
             raise ValueError("fused_vit_block: LayerNorm parameters must be fp32 (D,)")
+    if any(t.data_ptr() % 16 for t in (x, *lin)):
+        raise ValueError("fused_vit_block: x and the linears' weights and biases must be "
+                         "16-byte aligned (the GEMM's tensor maps and vector loads)")
     return B, Lp, D, Dm
 
 
@@ -331,8 +334,9 @@ def _launch_bwd(args, g, true_len, num_heads, eps):
     x, ln, lin = _split(args)
     B, Lp, D, Dm = _check_kernel_operands(x, ln, lin, true_len, num_heads)
     g = g.to(x.dtype).contiguous()
-    if g.shape != x.shape:
-        raise ValueError(f"fused_vit_block: gradient {tuple(g.shape)} for x {tuple(x.shape)}")
+    if g.shape != x.shape or g.data_ptr() % 16:
+        raise ValueError(f"fused_vit_block: gradient {tuple(g.shape)} for x {tuple(x.shape)}, "
+                         "16-byte aligned")
     fns = _kernel_fns()
     code = _DTYPE_CODE[x.dtype]
     ws = torch.empty(fns["bwd_ws"](code, B, Lp, D, Dm, num_heads), dtype=torch.uint8,
@@ -373,8 +377,21 @@ def _kernel_fns():
         for fn in (fwd_ws, bwd_ws):
             fn.restype = ctypes.c_longlong
             fn.argtypes = [ctypes.c_int] * 6
-        _fns.update(fwd=fwd, bwd=bwd, fwd_ws=fwd_ws, bwd_ws=bwd_ws)
+        splits = bwd_lib.vidil_fused_block_bwd_wgrad_splits
+        splits.restype = ctypes.c_int
+        splits.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        _fns.update(fwd=fwd, bwd=bwd, fwd_ws=fwd_ws, bwd_ws=bwd_ws, wgrad_splits=splits)
     return _fns
+
+
+def weight_grad_splits(dtype, B, Lp, D, Dm, num_heads):
+    """How many split-K partials the backward kernel sums for each of its
+    weight gradients (dw2, dw1, dwproj, dwqkv) at these dimensions: the
+    kernel's own tile plan (csrc/gemm_sm90.cuh:plan for bf16)."""
+    out = (ctypes.c_int * 4)()
+    if _kernel_fns()["wgrad_splits"](_DTYPE_CODE[dtype], B, Lp, D, Dm, num_heads, out) != 0:
+        raise ValueError(f"fused_vit_block_bwd takes no ({B}, {Lp}, {D}, {Dm}, {num_heads})")
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,10 @@ def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: b
       what fill device memory at large batches);
     * the fused MLP (kernel K3) off under autodiff;
     * the ViT's schedule from ``VIDIL_TPU_TRAIN_FUSED_BLOCK``: ``0`` gives
-      the classic schedule (blocks one by one, attention through the flash
-      kernels K1 + K2); ``1`` keeps a forward-only fused request
+      the classic schedule (blocks one by one, attention through
+      `attention_auto`: the flash kernels K1 + K2 where the reference's
+      gate sends the shape, as at 384 px; plain attention at 224 px);
+      ``1`` keeps a forward-only fused request
       (``use_fused_block`` without ``use_fused_block_bwd``: kernel K4, the
       gradient by autograd through a recompute of the plain block); unset,
       a forward-only request is turned off, and with `default_fused_bwd`
