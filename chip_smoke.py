@@ -12,10 +12,13 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   1. card: name and power limit (nvidia-smi);
   2. build: nvcc of every kernel source (in parallel), with the build seconds
      and ptxas's registers and spills; the counts of HGMMA (wgmma), UTMALDG
-     (TMA loads) and SYNCS (mbarrier) instructions in the SASS (cuobjdump) of
-     the bf16 flash-attention forward, which must keep its counts, and of
-     every bf16 GEMM instance of K3, K4 and K5 (csrc/gemm_sm90.cuh), each of
-     which must hold HGMMA and UTMALDG;
+     (TMA loads), SYNCS (mbarrier) and HMMA (mma.sync) instructions in the
+     SASS (cuobjdump) of the bf16 flash-attention forward, which must keep
+     its counts, of the bf16 flash-attention backward's two kernels and of
+     every instance of the fused block's bf16 attention (K4, K5's
+     recompute), each of which must hold HGMMA, UTMALDG and SYNCS and no
+     HMMA, and of every bf16 GEMM instance of K3, K4 and K5
+     (csrc/gemm_sm90.cuh), each of which must hold HGMMA and UTMALDG;
   3. kernel check: the flash-attention kernel (K1) against its twin at the
      ViT self-attention shape (32, 12, 577, 64) and the grouped-ITM fold
      (q (32, 12, 96, 64) over k/v (32, 12, 577, 64)), bf16 and fp32, on
@@ -39,16 +42,22 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      the ViT shapes and the 224-px trainer's (48, 12, 197, 64), with the
      rates of phase 3 and bitwise run to run; the
      backward kernel (K2) against its twin at (48, 12, 197, 64) and
-     (32, 12, 577, 64), bf16 and fp32, run to run bitwise;
+     (32, 12, 577, 64), bf16 and fp32, run to run bitwise, with its device
+     ms and SDPA backward's (torch.profiler) and its TFLOP/s by device time
+     over the 7 products it runs and the 5 of the bound;
   8. fused ViT block: K4 against fused_block_ref at the trainers' block
      (48, 256, 768), 197 true tokens, and the CapFilt encode's (32, 640,
      768), 577 true tokens; K5 against fused_block_bwd_ref (dx and the 12
-     gradients) at the trainers' block, run to run bitwise; bf16 and fp32;
+     gradients) at the trainers' block; both run to run bitwise; bf16 and
+     fp32;
      with the times of the kernel, the twin and a library block
      (F.layer_norm, F.linear, SDPA, F.gelu; a yardstick only); and, from
      torch.profiler, each call's device ms beside the library block's, its
      launches by part (GEMMs, attention passes, LN rows, column sums,
-     split-K sums) and its GEMMs' TFLOP/s;
+     split-K sums) and its GEMMs' TFLOP/s; then the block's attention
+     launch alone (K4's, and with its statistics K5's recompute) against
+     its twin at both shapes, bf16 and fp32, run to run bitwise, beside
+     SDPA with the key mask;
   9. caption training at full width (ViT-B/16 224 px, MED from
      configs/med_config.json), synthetic weights, one fixed batch of 12
      videos x 4 frames with 40-token captions, bf16, MED remat on: 4 steps
@@ -177,10 +186,17 @@ def attention_bound_ms(q, k, dtype, with_lse=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA")
 # K1's counts in each bf16 instance of its wgmma + TMA kernel (moving its
 # PTX wrappers into csrc/sm90.cuh left them as they were)
-K1_SASS = {"HGMMA": 13, "UTMALDG": 3, "SYNCS": 24}
+K1_SASS = {"HGMMA": 13, "UTMALDG": 3, "SYNCS": 24, "HMMA": 0}
+# the bf16 attention kernels on wgmma + TMA, by library: K2's two passes and
+# the fused block's attention (6 instances: with and without statistics, at
+# 1, 2 or more key chunks). K5's own dq and dk/dv passes (attn_bwd_*) still
+# run mma.sync and are not checked here
+WGMMA_ATTENTION = {"flash_attention_bwd": (("flash_bwd_dq_bf16", 1), ("flash_bwd_dkdv_bf16", 1)),
+                   "fused_vit_block_fwd": (("attn_fwd_wgmma", 6),),
+                   "fused_vit_block_bwd": (("attn_fwd_wgmma", 6),)}
 # the bf16 GEMM (csrc/gemm_sm90.cuh) in the libraries of K3, K4 and K5
 GEMM_LIBS = ("fused_mlp_fwd", "fused_vit_block_fwd", "fused_vit_block_bwd")
 
@@ -190,6 +206,12 @@ def _sass_label(kernel, name):
     flag; a GEMM instance by its tile width, operand majors and epilogue."""
     if kernel == "flash_fwd_bf16":
         return f"{kernel}<{'lse' if 'ILb1E' in name else 'no lse'}>"
+    if kernel.startswith("flash_bwd_"):
+        return kernel
+    if kernel == "attn_fwd_wgmma":
+        m = re.search(r"ILb([01])ELi(\d)E", name)
+        passes = "3 passes" if m[2] == "0" else f"1 pass, {m[2]} chunk(s)"
+        return f"{kernel}<{'stats' if m[1] == '1' else 'no stats'}, {passes}>"
     m = re.search(r"ILi(\d+)ELb([01])ELb([01])EN9vit_block8BlockEpiILi(\d)E", name)
     return f"{kernel}<bn={m[1]},mn_a={m[2]},mn_b={m[3]},epi={m[4]}>" if m else name
 
@@ -214,15 +236,29 @@ def sass_counts(lib, kernel="flash_fwd_bf16"):
 
 def check_sass(libs):
     """Phase 2's SASS checks: both bf16 K1 instances keep their wgmma, TMA
-    and mbarrier counts; every bf16 GEMM instance of K3, K4 and K5 runs
-    wgmma from TMA loads; no mma.sync GEMM is left (its kernel was
-    vit_block::gemm_bf16)."""
+    and mbarrier counts; K2's two bf16 kernels and every instance of the
+    fused block's bf16 attention run wgmma from TMA loads on mbarriers, with
+    no mma.sync left (the mma.sync block attention was attn_fwd_bf16); every
+    bf16 GEMM instance of K3, K4 and K5 runs wgmma from TMA loads; no
+    mma.sync GEMM is left (its kernel was vit_block::gemm_bf16)."""
     sass = {"flash_attention_fwd": sass_counts(libs["flash_attention_fwd"])}
     log("sass (flash_attention_fwd, bf16 kernel):", json.dumps(sass["flash_attention_fwd"]))
     if len(sass["flash_attention_fwd"]) != 2 or any(
             c != K1_SASS for c in sass["flash_attention_fwd"].values()):
         raise SystemExit(f"the bf16 flash-attention forward's SASS changed: {sass}, want "
                          f"{K1_SASS} per instance")
+    for lib, kernels in WGMMA_ATTENTION.items():
+        for kernel, instances in kernels:
+            got = sass_counts(libs[lib], kernel)
+            sass[f"{lib}:{kernel}"] = got
+            log(f"sass ({lib}, {kernel}):", json.dumps(got))
+            old = sass_counts(libs[lib], "attn_fwd_bf16")
+            if len(got) != instances or old or not all(
+                    c["HGMMA"] and c["UTMALDG"] and c["SYNCS"] and not c["HMMA"]
+                    for c in got.values()):
+                raise SystemExit(f"{lib}: a bf16 attention kernel runs without wgmma, TMA or "
+                                 f"mbarriers, or with mma.sync: {got} (want {instances} "
+                                 f"instances), mma.sync attention {list(old)}")
     for name in GEMM_LIBS:
         sass[name] = sass_counts(libs[name], "gemm_bf16")
         log(f"sass ({name}, bf16 GEMM instances):", json.dumps(sass[name]))
@@ -593,14 +629,21 @@ def check_bwd(fa, device):
             qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
             out = F.scaled_dot_product_attention(qs, ks, vs)
             bound, bound_by = attention_bwd_bound_ms(q, k, dtype)
+            kernel = lambda: fa._launch_bwd(q, k, v, o, lse, g)
+            library = lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True)
+            dev_ms, kernels = device_profile(kernel)
+            flops = 2 * B * 12 * L * L * 64  # one product
             row = dict(shape=label, layout="views", dtype=str(dtype).replace("torch.", ""),
                        q=[B, 12, L, 64], max_abs_err=max(errs.values()), errs=errs,
                        max_abs_grad=scale, rtol=BWD_RTOL[dtype], run_to_run_bitwise=bitwise,
-                       ms=time_ms(lambda: fa._launch_bwd(q, k, v, o, lse, g)),
+                       ms=time_ms(kernel),
                        plain_ms=time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, g)),
-                       library_ms=time_ms(lambda: torch.autograd.grad(
-                           out, (qs, ks, vs), g, retain_graph=True)),
-                       bound_ms=bound, bound_by=bound_by)
+                       library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by,
+                       device_ms=dev_ms, library_device_ms=device_profile(library)[0],
+                       tflops_7_products=7 * flops / (dev_ms * 1e-3) / 1e12,
+                       tflops_5_products=5 * flops / (dev_ms * 1e-3) / 1e12,
+                       kernels={re.sub(r"\(anonymous namespace\)::", "", k).split("(")[0]: v
+                                for k, v in kernels.items()})
             log("kernel check (bwd):", json.dumps(row))
             rows.append(row)
             if not ok:
@@ -726,7 +769,8 @@ def run_caption_training(fa, fvb, device, schedule, steps):
     # the classic step's attention at 224 px (48, 12, 197, 64) fails the
     # reference's gate: plain attention, no K1 or K2, as in the reference
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
-            "fused_vit_block_fwd": n if fused else 0, "fused_vit_block_bwd": n if fused else 0}
+            "fused_vit_block_fwd": n if fused else 0, "fused_vit_block_bwd": n if fused else 0,
+            "fused_vit_block_attention": 0}
     out = train_loop(f"training ({schedule})", step, state, batch, steps, fa, fvb, want,
                      TRAIN_VIDEOS)
     out.update(schedule=schedule, videos=TRAIN_VIDEOS, frames=TRAIN_FRAMES, tokens=TRAIN_TOKENS,
@@ -774,7 +818,8 @@ FUSED_BLOCK_KERNELS = ("vit_block::", "colsum_partial", "colsum_final", "sum_spl
 # names torch.profiler reports): the GEMMs (csrc/gemm_sm90.cuh, or the fp32
 # FMA tiles), the attention passes, the LayerNorm rows, the column sums and
 # the split-K sums
-KERNEL_PARTS = {"gemm": ("gemm_bf16", "gemm_f32"), "attention": ("attn_",),
+KERNEL_PARTS = {"gemm": ("gemm_bf16", "gemm_f32"),
+                "attention": ("attn_fwd_wgmma", "attn_fwd_f32", "attn_bwd_"),
                 "ln_rows": ("ln_rows", "ln_bwd_rows"),
                 "column_sums": ("colsum_partial", "colsum_final"), "sum_splits": ("sum_splits",)}
 PROFILE_REPS = 5
@@ -925,8 +970,8 @@ def block_device_times(kernel, library, B, Lp, dtype, backward=False):
 def check_fused_block(fvb, device):
     """Phase 8: K4 against fused_block_ref at both block shapes, K5 against
     fused_block_bwd_ref (dx and the 12 gradients) at the trainers' shape,
-    bf16 and fp32, K5 twice on the same inputs (bitwise equal), with the
-    CUDA-event times of the kernel, the twin and the library block."""
+    bf16 and fp32, K4 and K5 twice on the same inputs (bitwise equal), with
+    the CUDA-event times of the kernel, the twin and the library block."""
     fwd_rows, bwd_rows = [], []
     gen = torch.Generator(device=device).manual_seed(5)
     H, eps = BLOCK_H, BLOCK_EPS
@@ -935,13 +980,14 @@ def check_fused_block(fvb, device):
         for label, (B, Lp, true_len) in BLOCK_SHAPES.items():
             args = block_args(B, Lp, dtype, gen, device)
             got = fvb._launch_fwd(args, true_len, H, eps)
+            bitwise = torch.equal(got, fvb._launch_fwd(args, true_len, H, eps))
             torch.cuda.synchronize()
             want = fvb.fused_block_ref(*args, true_len=true_len, num_heads=H, eps=eps)
             rel = _rel_err(got, want)
             bound, bound_by = block_bound_ms(B, Lp, dtype)
             row = dict(shape=label, dtype=dname, x=[B, Lp, BLOCK_D], true_len=true_len,
                        max_abs_err=(got.float() - want.float()).abs().max().item(),
-                       rel_err=rel, rtol=BLOCK_FWD_RTOL[dtype],
+                       rel_err=rel, rtol=BLOCK_FWD_RTOL[dtype], run_to_run_bitwise=bitwise,
                        ms=time_ms(lambda: fvb._launch_fwd(args, true_len, H, eps)),
                        plain_ms=time_ms(lambda: fvb.fused_block_ref(
                            *args, true_len=true_len, num_heads=H, eps=eps)),
@@ -951,7 +997,7 @@ def check_fused_block(fvb, device):
                                           lambda: library_block(args, true_len), B, Lp, dtype))
             log("kernel check (fused block fwd):", json.dumps(row))
             fwd_rows.append(row)
-            if not (bool(torch.isfinite(got).all()) and rel <= BLOCK_FWD_RTOL[dtype]):
+            if not (bool(torch.isfinite(got).all()) and bitwise and rel <= BLOCK_FWD_RTOL[dtype]):
                 raise SystemExit(f"fused_vit_block_fwd disagrees with its twin: {row}")
             if label != "train_224":
                 continue
@@ -986,6 +1032,73 @@ def check_fused_block(fvb, device):
             if not (finite and bitwise and max(errs.values()) <= BLOCK_BWD_RTOL[dtype]):
                 raise SystemExit(f"fused_vit_block_bwd disagrees with its twin: {row}")
     return fwd_rows, bwd_rows
+
+
+# the block's attention alone vs its twin (tests/test_torch_cuda_kernels.py
+# states the derivation): out within 2**-6 max |v| in bf16 (flips of p's
+# rounding), 1e-5 max |v| in fp32; row max 1e-4 absolute, row sum 2e-4
+# relative (the fp32 sums' order)
+ATTN_OUT_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+ATTN_MAX_ATOL, ATTN_SUM_RTOL = 1e-4, 2e-4
+
+
+def attention_block_bound_ms(B, Lp, dtype, with_stats, D=BLOCK_D):
+    """Least time for the block's attention launch: the (B, Lp, 3D) QKV
+    workspace read once and the (B, Lp, D) output (and the fp32 statistics)
+    written once, or its 4*B*Lp*Lp*D operations at the dtype's peak rate."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * B * Lp * D * itemsize + with_stats * 2 * B * BLOCK_H * Lp * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 4 * B * Lp * Lp * D / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_block_attention(fvb, device):
+    """Phase 8: the fused block's attention launch alone (K4's; with its
+    statistics, K5's recompute) against block_attention_ref at both block
+    shapes, bf16 and fp32, run to run bitwise, with the times of the
+    kernel, the twin and SDPA with the key mask (a yardstick only)."""
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(10)
+    H, D = BLOCK_H, BLOCK_D
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, (B, Lp, true_len) in BLOCK_SHAPES.items():
+            qkv = torch.randn((B, Lp, 3 * D), generator=gen, device=device).to(dtype)
+            q, k, v = (t.reshape(B, Lp, H, D // H).transpose(1, 2) for t in qkv.split(D, dim=-1))
+            mask = None
+            if true_len != Lp:
+                mask = (torch.arange(Lp, device=device) < true_len)[None, None, None, :]
+            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            v_max = v.float().abs().max().item()
+            for with_stats in (False, True):
+                kernel = lambda: fvb._launch_attention(qkv, true_len, H, with_stats=with_stats)
+                got, again = kernel(), kernel()
+                torch.cuda.synchronize()
+                want = fvb.block_attention_ref(qkv, true_len=true_len, num_heads=H,
+                                               with_stats=with_stats)
+                got, again, want = ((t,) if not with_stats else t for t in (got, again, want))
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                err = (got[0].float() - want[0].float()).abs().max().item()
+                ok = (bitwise and bool(torch.isfinite(got[0]).all())
+                      and err <= ATTN_OUT_TOL[dtype] * v_max)
+                row = dict(shape=label, dtype=str(dtype).replace("torch.", ""), stats=with_stats,
+                           qkv=[B, Lp, 3 * D], true_len=true_len, max_abs_err=err,
+                           limit=ATTN_OUT_TOL[dtype] * v_max, run_to_run_bitwise=bitwise)
+                if with_stats:
+                    row.update(row_max_err=(got[1] - want[1]).abs().max().item(),
+                               row_sum_rel_err=((got[2] - want[2]).abs() / want[2]).max().item())
+                    ok = ok and (row["row_max_err"] <= ATTN_MAX_ATOL
+                                 and row["row_sum_rel_err"] <= ATTN_SUM_RTOL)
+                bound, bound_by = attention_block_bound_ms(B, Lp, dtype, with_stats)
+                row.update(ms=time_ms(kernel), plain_ms=time_ms(lambda: fvb.block_attention_ref(
+                               qkv, true_len=true_len, num_heads=H, with_stats=with_stats)),
+                           library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by,
+                           device_ms=device_profile(kernel)[0],
+                           library_device_ms=device_profile(library)[0])
+                log("kernel check (fused block attention):", json.dumps(row))
+                rows.append(row)
+                if not ok:
+                    raise SystemExit(f"fused_vit_block_attention disagrees with its twin: {row}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1052,7 +1165,7 @@ def run_vqa(fa, fvb, device):
     step = make_vqa_train_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
     n = vit_cfg.num_layers
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
-            "fused_vit_block_fwd": n, "fused_vit_block_bwd": n}
+            "fused_vit_block_fwd": n, "fused_vit_block_bwd": n, "fused_vit_block_attention": 0}
     out = train_loop("vqa training", step, state, batch, VQA_STEPS, fa, fvb, want, VQA_QUESTIONS)
     out.update(questions=VQA_QUESTIONS, frames=VQA_FRAMES, answers=int(batch["weights"].shape[0]),
                question_tokens=VQA_Q_TOKENS, answer_tokens=VQA_A_TOKENS)
@@ -1134,7 +1247,7 @@ def in_situ_fused_block(fvb, device):
     before = dict(fvb.launch_counts)
     got = grads()
     if {k: fvb.launch_counts[k] - before[k] for k in before} != {
-            "fused_vit_block_fwd": 1, "fused_vit_block_bwd": 1}:
+            "fused_vit_block_fwd": 1, "fused_vit_block_bwd": 1, "fused_vit_block_attention": 0}:
         raise SystemExit("in-situ fused block: the kernels did not run")
     launch_fwd, launch_bwd = fvb._launch_fwd, fvb._launch_bwd
     fvb._launch_fwd = lambda args, tl, nh, eps: fvb.fused_block_ref(
@@ -1547,6 +1660,7 @@ def main():
     lse_rows = check_fwd_lse(fa, device)
     bwd_rows = check_bwd(fa, device)
     block_fwd_rows, block_bwd_rows = check_fused_block(fvb, device)
+    attn_rows = check_block_attention(fvb, device)
 
     trains = {}
     for schedule, steps in (("classic", CLASSIC_STEPS), ("fused", TRAIN_STEPS)):
@@ -1597,9 +1711,16 @@ def main():
                 "min_HGMMA": min(c["HGMMA"] for c in sass[lib].values()),
                 "min_UTMALDG": min(c["UTMALDG"] for c in sass[lib].values())}
 
-    def device(rs, shape):
+    def device(rs, shape, keys=("device_ms", "library_device_ms", "gemm_tflops")):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x["shape"] == shape)
-        return {k: r[k] for k in ("device_ms", "library_device_ms", "gemm_tflops")}
+        return {k: r[k] for k in keys}
+
+    def attention(stats):
+        """The bf16 block attention launch alone at the trainer block."""
+        r = next(x for x in attn_rows if x["dtype"] == "bfloat16" and x["shape"] == "train_224"
+                 and x["stats"] == stats)
+        return {k: r[k] for k in ("ms", "device_ms", "library_ms", "library_device_ms",
+                                  "bound_ms", "max_abs_err")}
 
     fwd_src = "vidil_tpu_torch/csrc/flash_attention_fwd.cu"
     fused = trains["fused"]["launches"]
@@ -1619,14 +1740,19 @@ def main():
               "vidil_tpu/ops/flash_attention.py:242", situ_launches["flash_attention_bwd"],
               bwd_rows, "train_384",
               "q,k,v,o,g (32, 12, 577, 64) bf16 views; the classic schedule's ViT-B/384 block "
-              "(phase 11)"),
+              "(phase 11)",
+              **device(bwd_rows, "train_384", ("device_ms", "library_device_ms",
+                                               "tflops_7_products", "tflops_5_products")),
+              sass={k: v for k, v in sass.items() if k.startswith("flash_attention_bwd:")}),
         entry("fused_vit_block_fwd", "vidil_tpu_torch/csrc/fused_vit_block_fwd.cu",
               "vidil_tpu/ops/fused_vit_block.py:139", fused["fused_vit_block_fwd"],
               block_fwd_rows, "train_224",
               "x (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
               "path (the trainers' default)",
               launches_vqa=vqa["launches"]["fused_vit_block_fwd"],
-              **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd")),
+              **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd"),
+              attention=attention(False), attention_with_stats=attention(True),
+              sass_attention=sass["fused_vit_block_fwd:attn_fwd_wgmma"]),
         entry("fused_vit_block_bwd", "vidil_tpu_torch/csrc/fused_vit_block_bwd.cu",
               "vidil_tpu/ops/fused_vit_block.py:345", fused["fused_vit_block_bwd"],
               block_bwd_rows, "train_224",

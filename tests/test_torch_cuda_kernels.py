@@ -108,6 +108,28 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
         fa.flash_attention(h, h, h)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 128])
+def test_bf16_kernels_reject_head_dim_other_than_64(cuda_device, D):
+    """K1, K2 and the fused block's attention (K4, K5's recompute) take head
+    dim 64 only: in bf16 each wrapper raises on another, with no launch."""
+    q = torch.randn((1, 2, 130, D), device=cuda_device).to(torch.bfloat16)
+    lse = torch.zeros((1, 2, 130), device=cuda_device)
+    before = {**fa.launch_counts, **fvb.launch_counts}
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch(q, q, q, with_lse=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch_bwd(q, q, q, q, lse, q)
+    H = 256 // D
+    qkv = torch.zeros((1, 128, 3 * 256), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fvb._launch_attention(qkv, 100, H, with_stats=True)
+    args, _ = _block_args(1, 128, 256, 4, torch.bfloat16, cuda_device, 17)
+    with pytest.raises(ValueError, match="head dim"):
+        fvb._launch_fwd(args, 100, H, 1e-6)
+    assert {**fa.launch_counts, **fvb.launch_counts} == before
+
+
 def _rel_err(got, want, scale=None):
     """max |got - want| over `scale` (default max |want|), in fp32."""
     want = want.float()
@@ -129,7 +151,11 @@ BWD_RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 LSE_SHAPES = [(1, 2, 96, 200, 64), (4, 3, 197, 197, 64), (1, 2, 65, 64, 64)]
 LSE_SHAPES += [(1, 2, lq, lk, 64) for lq in EDGE_LQ for lk in EDGE_LK
                if (1, 2, lq, lk, 64) not in LSE_SHAPES]
-BWD_SHAPES = [(2, 3, 197, 197, 64), (1, 2, 577, 577, 64), (1, 2, 65, 130, 64), (1, 1, 1, 1, 64)]
+# the bf16 kernels' items are 128 rows (q rows in the dq pass, keys in the
+# dk/dv pass) over 64-row tiles: (2, 3, 130, 577, 64) is ragged in both
+# axes at once (a 2-row q item, a 1-key last tile, a 65-key last item)
+BWD_SHAPES = [(2, 3, 197, 197, 64), (1, 2, 577, 577, 64), (1, 2, 65, 130, 64), (1, 1, 1, 1, 64),
+              (2, 3, 130, 577, 64), (1, 2, 577, 130, 64)]
 
 
 @pytest.mark.cuda
@@ -237,8 +263,10 @@ FWD_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
 # gradient's max |twin|: as for K4, plus the roundings of dhh, dy, do, dsb
 # and dqkv that feed the weight-gradient sums over all rows.
 BLOCK_BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# (B, Lp, D, H, true_len): a padded 197-token axis, an unpadded one, 577 -> 640
-BLOCK_SHAPES = [(2, 256, 128, 2, 197), (3, 128, 256, 4, 128), (1, 640, 128, 2, 577)]
+# (B, Lp, D, H, true_len): a padded 197-token axis, an unpadded one, 577 -> 640,
+# and a ragged 128-token axis (one key chunk of the attention)
+BLOCK_SHAPES = [(2, 256, 128, 2, 197), (3, 128, 256, 4, 128), (1, 640, 128, 2, 577),
+                (2, 128, 128, 2, 100)]
 
 
 def _block_args(B, Lp, D, H, dtype, device, seed):
@@ -259,6 +287,52 @@ def _block_args(B, Lp, D, H, dtype, device, seed):
             t((D, Dm), D ** -0.5), t((Dm,), 0.02),
             t((Dm, D), Dm ** -0.5), t((D,), 0.02))
     return args, t((B, Lp, D), 1.0)
+
+
+# (tolerance) the block's attention launch vs its twin. out: a flip of the
+# bf16 rounding of one p (the fp32 sums run in another order) moves it by at
+# most 2**-7 p |v|, at most 2**-7 max |v| over a row's flips (p sums to 1),
+# and the output's own rounding one ulp more: 2**-6 max |v| in bf16; fp32
+# differs in order alone. Row max: the fp32 sum of 64 products in another
+# order, a few ulps of sum |q k| / 8; row sum: that in each exp plus the
+# order of up to 640 terms (and the fp32 kernel's running rescale)
+ATTN_OUT_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+ATTN_MAX_ATOL, ATTN_SUM_RTOL = 1e-4, 2e-4
+# (B, Lp, D, H, true_len): one 128-key chunk, the trainers' one-pass 256, the
+# three-pass 640, each with a ragged true_len; the unpadded 256
+ATTN_SHAPES = [(3, 128, 128, 2, 100), (2, 256, 256, 4, 197), (1, 640, 128, 2, 577),
+               (2, 256, 128, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Lp,D,H,true_len", ATTN_SHAPES)
+def test_fused_block_attention_matches_twin(cuda_device, dtype, with_stats, B, Lp, D, H,
+                                            true_len):
+    """The attention launch of K4 (and, with statistics, of K5's recompute)
+    alone on a QKV workspace: its twin's output and statistics, bitwise
+    run to run."""
+    rng = np.random.default_rng(18)
+    qkv = torch.from_numpy(rng.standard_normal((B, Lp, 3 * D), dtype=np.float32)).to(
+        cuda_device, dtype)
+    before = fvb.launch_counts["fused_vit_block_attention"]
+    got = fvb._launch_attention(qkv, true_len, H, with_stats=with_stats)
+    again = fvb._launch_attention(qkv, true_len, H, with_stats=with_stats)
+    torch.cuda.synchronize()
+    assert fvb.launch_counts["fused_vit_block_attention"] == before + 2
+    want = fvb.block_attention_ref(qkv, true_len=true_len, num_heads=H, with_stats=with_stats)
+    if not with_stats:
+        got, again, want = (got,), (again,), (want,)
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    out, ref = got[0], want[0]
+    assert out.shape == (B, Lp, D) and out.dtype == dtype and bool(torch.isfinite(out).all())
+    v_max = qkv[..., 2 * D:].float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= ATTN_OUT_TOL[dtype] * v_max
+    if with_stats:
+        torch.testing.assert_close(got[1], want[1], atol=ATTN_MAX_ATOL, rtol=0)
+        torch.testing.assert_close(got[2], want[2], atol=0, rtol=ATTN_SUM_RTOL)
 
 
 @pytest.mark.cuda

@@ -129,6 +129,38 @@ def test_fwd_args_follow_the_c_entry(with_lse):
     assert args[24:] == (0.125, 1234)
 
 
+def test_bwd_args_follow_the_c_entry():
+    """The backward C entry's arguments: ten pointers (q, k, v, o, g, lse,
+    the stats scratch, dq, dk, dv), dtype code, device, B, H, Lq, Lk, D,
+    eight (batch, head, seq) stride triples, scale, stream; one per argtype
+    that `_kernel_fns` declares."""
+    x = torch.zeros((2, 7, 3, 4, 64), dtype=torch.bfloat16)  # a fused-QKV output
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    q = q[:, :, :5]
+    o = fa._heads_last_empty(2, 4, 5, 64, q)
+    g = split_heads(torch.zeros((2, 5, 4 * 64), dtype=torch.bfloat16), 4)
+    lse = torch.empty((2, 4, 5))
+    stats = fa._bwd_stats_empty(2, 4, 5, q.device)
+    dq = fa._heads_last_empty(2, 4, 5, 64, q)
+    dk, dv = (fa._heads_last_empty(2, 4, 7, 64, k) for _ in range(2))
+    args = fa._bwd_args(q, k, v, o, lse, g, stats, dq, dk, dv, 1234)
+    assert len(args) == 10 + 7 + 24 + 2
+    assert args[:10] == tuple(t.data_ptr() for t in (q, k, v, o, g, lse, stats, dq, dk, dv))
+    assert args[10:17] == (fa._DTYPE_CODE[torch.bfloat16], None, 2, 4, 5, 7, 64)
+    assert args[17:41] == tuple(st for t in (q, k, v, o, g, dq, dk, dv) for st in t.stride()[:3])
+    assert args[41:] == (0.125, 1234)
+
+
+@pytest.mark.parametrize("Lq,rows", [(1, 64), (64, 64), (65, 128), (197, 256), (577, 640)])
+def test_bwd_stats_scratch_rounds_rows_up_to_the_tile(Lq, rows):
+    """The backward's scratch holds a copy of the lse rows and Delta per
+    (batch*head), each Lq rounded up to the dk/dv kernel's 64-row q tile
+    (its padded rows get lse = +inf: p = 0 there)."""
+    stats = fa._bwd_stats_empty(3, 2, Lq, torch.device("cpu"))
+    assert stats.shape == (6, 2, rows) and stats.dtype == torch.float32
+    assert rows % fa.KERNEL_STATS_ALIGN == 0 and rows - fa.KERNEL_STATS_ALIGN < Lq <= rows
+
+
 def test_cpu_wrapper_runs_twin_without_counting():
     q, k, v = map(torch.from_numpy, _qkv(1, 2, 33, 70, 64, seed=3))
     fa.reset_launch_counts()

@@ -153,6 +153,62 @@ def test_bwd_twin_is_the_gradient_fp64():
     assert _rel(ref.numpy(), out.detach().numpy()) <= 1e-12
 
 
+# (B, Lp, D, H, true_len): one key chunk of the attention kernel, the
+# trainers' padded 256, the 384-px 640 (three passes on the card)
+ATTN_SHAPES = [(2, 128, 128, 2, 100), (2, 256, 128, 2, 197), (1, 640, 128, 2, 577)]
+
+
+@pytest.mark.parametrize("B,Lp,D,H,true_len", ATTN_SHAPES)
+def test_attention_twin_matches_jax_attention_with_key_bias(B, Lp, D, H, true_len):
+    """(tolerance) The block attention's twin in fp32 against the JAX
+    package's dot_product_attention with the block's key bias (0, or -1e30
+    past true_len): the same softmax attention, fp32 order only (1e-5); its
+    statistics are the max of the scaled, biased logits and the sum of
+    exp(logits - max), which is >= 1 (the kernels divide by it)."""
+    from vidil_tpu.models.layers import dot_product_attention as j_attention
+
+    rng = np.random.default_rng(20)
+    qkv = rng.standard_normal((B, Lp, 3 * D), dtype=np.float32)
+    got, row_max, row_sum = F.block_attention_ref(torch.from_numpy(qkv), true_len=true_len,
+                                                  num_heads=H, with_stats=True)
+    q, k, v = (jnp.asarray(t).reshape(B, Lp, H, D // H).transpose(0, 2, 1, 3)
+               for t in np.split(qkv, 3, axis=-1))
+    bias = jnp.where(jnp.arange(Lp) < true_len, 0.0, -1e30)
+    want = j_attention(q, k, v, bias=bias).transpose(0, 2, 1, 3).reshape(B, Lp, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    logits = np.einsum("bhqd,bhkd->bhqk", np.asarray(q), np.asarray(k)) / np.sqrt(D // H)
+    logits = (logits + np.asarray(bias)).reshape(B * H, Lp, Lp)
+    np.testing.assert_allclose(row_max.numpy(), logits.max(-1), atol=1e-5, rtol=0)
+    want_sum = np.exp(logits - logits.max(-1, keepdims=True)).sum(-1)
+    np.testing.assert_allclose(row_sum.numpy(), want_sum, atol=0, rtol=1e-5)
+    assert (row_sum.numpy() >= 1).all()
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_attn_args_follow_the_c_entry(with_stats):
+    """The attention C entry's arguments: qkv, out, row max and row sum
+    (null without statistics), dtype code, device, B, Lp, D, H, true_len,
+    stream; one per argtype that `_kernel_fns` declares."""
+    qkv = torch.zeros((3, 256, 3 * 128), dtype=torch.bfloat16)
+    out = torch.empty((3, 256, 128), dtype=torch.bfloat16)
+    stats = torch.empty((2, 6, 256)) if with_stats else (None, None)
+    args = F._attn_args(qkv, out, stats[0], stats[1], 197, 2, 1234)
+    assert len(args) == 4 + 7 + 1
+    want = (stats[0].data_ptr(), stats[1].data_ptr()) if with_stats else (None, None)
+    assert args == (qkv.data_ptr(), out.data_ptr(), *want, 0, None, 3, 256, 128, 2, 197, 1234)
+
+
+@pytest.mark.parametrize("D,H", [(128, 4), (256, 2)])
+def test_attention_launch_rejects_head_dims_other_than_64(D, H):
+    """The attention wrapper checks the head dim (64 only) before it builds
+    or launches anything, and counts no launch."""
+    qkv = torch.zeros((1, 128, 3 * D), dtype=torch.bfloat16)
+    before = dict(F.launch_counts)
+    with pytest.raises(ValueError, match="head dim"):
+        F._launch_attention(qkv, 100, H, with_stats=True)
+    assert F.launch_counts == before
+
+
 def test_function_on_cpu_runs_the_twins_without_counting():
     p = convert.from_jax_params(_block(128, 10))
     x, _ = _x(1, 128, 128, 11)

@@ -17,26 +17,54 @@
 //   * dq accumulates in fp32, is rounded to the dtype, and is then
 //     multiplied by the dtype-rounded scale in that dtype;
 //   * keys past Lk have p = 0 (the TPU kernel's -1e30 score); query rows past
-//     Lq contribute nothing. Bounds mask both tails: nothing is padded in
-//     device memory.
+//     Lq contribute nothing. Nothing is padded in device memory.
+// The bf16 kernels apply the scale to the fp32 scores, and to the fp32 dk
+// sums, instead of to q: at D = 64 it is 0.125, a power of two, so
+// (q * 0.125) k^T = 0.125 (q k^T) and ds^T (q * 0.125) = 0.125 (ds^T q) bit
+// for bit, short of subnormal q (as K1 does since its redesign).
+//
+// p = exp(s - lse) is computed as 2^(s c - lse log2(e)), c = scale log2(e):
+// one FMA and the SFU's ex2 (K1's way), which can differ from expf in the
+// last fp32 bits and so move a bf16 rounding of p or ds by one ulp.
 //
 // Design. The TPU kernel held the whole padded query axis in one VMEM block
 // so that dk/dv needed no accumulation across programs. On Hopper the
-// blocks run in parallel and in no order, so the work is split into two
-// kernels that need no atomics (results are identical run to run):
-//   1. dq: one block per (batch*head, 64-row q tile), looping over 64-key
-//      tiles. It first computes Delta for its rows once and writes it to a
-//      scratch (B*H, Lq) array for kernel 2.
-//   2. dk/dv: one block per (batch*head, 64-key tile), looping over q tiles;
-//      it recomputes s and p from lse.
-//   bf16: 4 warps, each owning 16 rows (q rows in kernel 1, keys in kernel 2);
-//         every product is mma.sync m16n8k16 (bf16 in, fp32 accumulate). The
-//         fp32 score/probability fragments turn into bf16 A operands in
-//         registers. Operands needed as "col" B fragments in both
-//         orientations (k in kernel 1; q and g in kernel 2) are staged in
-//         shared memory twice, once transposed.
+// blocks run in parallel and in no order, so the work is two kernels that
+// need no atomics (results are identical run to run; an atomic dq, which
+// would save the two recomputed products, is not):
+//   1. dq: work items of (batch*head, 128 query rows), walking 128-key
+//      tiles: s = q k^T, dp = g v^T, ds, dq += ds k. It computes Delta for
+//      its rows and writes it, with lse log2(e), into a (B*H, 2, Lq rounded
+//      up to 64) fp32 scratch for kernel 2; past Lq the copy holds +inf and
+//      Delta 0, so that a padded query row gets p = 2^-inf = 0 there with no
+//      mask.
+//   2. dk/dv: work items of (batch*head, 128 keys), walking 64-row query
+//      tiles: s^T = k q^T, dp^T = v g^T, p^T, ds^T, dv += p^T g,
+//      dk += ds^T q; 7 products in all where one pass with an atomic dq
+//      would run 5.
+//   bf16: persistent blocks (one per SM, walking the items) of three
+//     warpgroups, as K1's (flash_attention_fwd.cu): a producer whose one
+//     thread issues TMA loads on 4-D tensor maps (sm90.cuh:make_map_4d,
+//     the strided views need no copy; rows past L read as zeros) and gives
+//     its registers away (setmaxnreg), and two consumer warpgroups that own
+//     64 of the item's rows each. The item's own operands (q and g in
+//     kernel 1, k and v in kernel 2, 128 rows each) are double-buffered
+//     across items; the walked tiles (k and v, or q and g with their 64
+//     lse and Delta values, the latter by 1-D bulk copies) stream through
+//     a ring of kStages stages on full/empty mbarriers, shared by both
+//     consumers. Every product is a wgmma: s and dp (or their transposes)
+//     are SS (m64n128k16 in kernel 1, m64n64k16 in kernel 2) from K-major
+//     tiles; ds k, p^T g and ds^T q are RS m64n64k16 whose A operand is the
+//     bf16 p or ds packed in registers straight from the fp32 accumulator
+//     fragment (it is already the A fragment: no transposed copy in shared
+//     memory), and whose B operand (k, g or q in its natural (row, D)
+//     layout) is read MN-major. Turn j of an item issues tile j's two SS
+//     products with tile j-1's RS ones as one wgmma group, and the two
+//     consumers take turns on named barriers (ping-pong), so that one's
+//     exponentials overlap the other's products. Ragged tails are masked
+//     in registers.
 //   fp32: one thread per row (q rows in kernel 1, keys in kernel 2), plain
-//         fp32 FMAs (no TF32).
+//     fp32 FMAs (no TF32): fp32 is not a main-path dtype.
 // Inputs take batch/head/sequence strides with unit stride over D: q, k, v
 // arrive as head-split views of the QKV projection, g as a view of the
 // merge_heads gradient, o as the forward's (B, Lq, H, D) allocation.
@@ -44,22 +72,48 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the 224-px
 // trainer shape (48, 12, 197, 64) bf16 it reads q, k, v, o, g and lse and
 // writes dq, dk, dv (~117 MB) -> ~35 us by bytes, against 14.3 GFLOP of
-// the five products (q k^T, g v^T, p^T g, ds^T q, ds k) -> ~14.5 us; at the
-// 384-px shape (32, 12, 577, 64) ~228 MB -> 68 us and 81.8 GFLOP -> ~83 us.
-// This kernel recomputes q k^T and g v^T in both passes (7 products, not 5)
-// and stages single-buffered tiles through shared memory; wgmma, TMA and
-// double buffering are later work.
+// the five products -> ~14.5 us; at the 384-px shape (32, 12, 577, 64)
+// ~228 MB -> 68 us and 81.8 GFLOP -> ~83 us (the 7 products run here: 114.5
+// GFLOP, 116 us at the dense peak).
+// Measured (chip_smoke.py phase 7b, one H100 80GB HBM3 at 700 W): at
+// (32, 12, 577, 64) bf16 views, 0.346 ms of device time (dq kernel 0.154,
+// dk/dv 0.192: 331 TFLOP/s over the 7 products, 236 over the bound's 5)
+// against SDPA backward's 0.360; at (48, 12, 197, 64) 0.131 (0.068 +
+// 0.064) against 0.133; by single launch 0.426 and 0.226 ms. What holds it:
+// at 197 the padded tiles (197 rows and keys each run as 256: 59% of the
+// (q, k) work is real) and each item's loads; at 577 the two recomputed
+// products and the m64n64 shapes of kernel 2.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "sm90.cuh"
+
 namespace {
 
+using namespace sm90;
+
 constexpr int kD = 64;        // head dim
-constexpr int kBlock = 64;    // rows per tile (q rows or keys)
-constexpr int kPad = 8;       // shared-memory row padding (bf16 elements)
+constexpr int kBlock = 64;    // fp32 kernels: rows per tile (q rows or keys)
 constexpr int kBlockQ32 = 16; // q rows per tile in the fp32 dk/dv kernel
+constexpr int kStatAlign = 64;  // the scratch's rows are Lq rounded up to this
+
+// bf16 (wgmma) tiling
+constexpr int kRows = 128;    // an item's rows: q rows (kernel 1) or keys (kernel 2)
+constexpr int kDqTile = 128;  // kernel 1's walked tiles: 128 keys
+constexpr int kDkTile = 64;   // kernel 2's walked tiles: 64 q rows
+constexpr int kStages = 4;    // ring depth of walked tiles
+constexpr int kThreads = 384; // producer warpgroup + two consumer warpgroups
+constexpr int kBoxRows = 64;  // rows of one TMA box (8 KB of bf16 over D = 64)
+constexpr int kBoxBytes = kBoxRows * kD * 2;
+constexpr int kResBytes = kRows * kD * 2;           // one 128-row item operand, 16 KB
+constexpr int kStatBytes = kDkTile * 4;             // 64 fp32 lse or Delta values
+constexpr int kBarTurn = 1;   // named barriers 1, 2: each consumer's wgmma turn
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -68,7 +122,7 @@ struct Params {
   const void* o;
   const void* g;
   const float* lse;   // (B*H, Lq), contiguous
-  float* delta;       // (B*H, Lq) scratch: written by the dq kernel
+  float* stats;       // (B*H, 2, Lq_pad) scratch: lse copy, Delta (kernel 1 writes)
   void* dq;
   void* dk;
   void* dv;
@@ -80,325 +134,400 @@ struct Params {
   long long dq_sb, dq_sh, dq_ss;
   long long dk_sb, dk_sh, dk_ss;
   long long dv_sb, dv_sh, dv_ss;
-  int H, Lq, Lk;
+  int B, H, Lq, Lk, Lq_pad;
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float* lse_row(const Params& p, int bh) {
+  return p.stats + static_cast<long long>(2 * bh) * p.Lq_pad;
+}
+__device__ __forceinline__ float* delta_row(const Params& p, int bh) {
+  return p.stats + static_cast<long long>(2 * bh + 1) * p.Lq_pad;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-typedef __nv_bfloat16 Tile[kBlock][kD + kPad];
-
-// Stage rows [r0, r0 + 64) of a (rows, 64) bf16 matrix into `s` (and its
-// transpose into `t` when given), scaled by `scale` and rounded to bf16 when
-// `scale` is not 1; rows at or past `n` are zero.
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* src, long long stride, int r0,
-                                           int n, float scale, Tile* s, Tile* t) {
-  for (int i = threadIdx.x; i < kBlock * kD / 8; i += blockDim.x) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-    if (scale != 1.f) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-    }
-    if (s != nullptr) *reinterpret_cast<uint4*>(&(*s)[r][c]) = val;
-    if (t != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) (*t)[c + j][r] = e[j];
-    }
+// Shared memory of a bf16 block whose walked tiles have kWalk rows:
+// barriers and buffers at fixed offsets from a 1 KB-aligned base (128-byte
+// swizzle atoms are 1 KB): two item buffers of two 128-row operands, the
+// ring of walked tiles (two operands a stage), 64 lse and Delta values a
+// stage (kernel 2).
+template <int kWalk>
+struct Smem {
+  static constexpr int kWalkBytes = kWalk * kD * 2;
+  static constexpr int kOffStage = 2 * 2 * kResBytes;
+  static constexpr int kOffStat = kOffStage + kStages * 2 * kWalkBytes;
+  static constexpr int kOffBar = kOffStat + kStages * 2 * kStatBytes;
+  static constexpr int kBytes = kOffBar + 8 * (4 + 2 * kStages) + 1024;  // + alignment slack
+  uint32_t base;
+  uint8_t* ptr;
+  // item buffer r (0, 1), operand i (0, 1): 128 rows
+  __device__ uint32_t res(int r, int i) const { return base + (2 * r + i) * kResBytes; }
+  // stage s, operand i: kWalk rows
+  __device__ uint32_t tile(int s, int i) const {
+    return base + kOffStage + (2 * s + i) * kWalkBytes;
   }
-}
-
-// A fragments (m16 x k16, 4 chunks over D = 64) of rows [r0, r0 + 16) of `s`.
-__device__ __forceinline__ void load_a_frags(const Tile& s, int r0, int g, int t4,
-                                             uint32_t a[kD / 16][4]) {
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    a[kc][0] = ld_u32(&s[r0 + g][c]);
-    a[kc][1] = ld_u32(&s[r0 + g + 8][c]);
-    a[kc][2] = ld_u32(&s[r0 + g][c + 8]);
-    a[kc][3] = ld_u32(&s[r0 + g + 8][c + 8]);
+  // stage s, stat i (0: lse log2(e), 1: Delta): 64 floats
+  __device__ uint32_t stat(int s, int i) const {
+    return base + kOffStat + (2 * s + i) * kStatBytes;
   }
-}
-
-// c[j] = a (16 x 64) times rows [8j, 8j + 8) of `b` (the B operand stored
-// [n][k], k over D), for the 8 n-tiles of a 64-wide tile.
-__device__ __forceinline__ void mma_rows(const uint32_t a[kD / 16][4], const Tile& b, int g,
-                                         int t4, float c[kBlock / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < kBlock / 8; ++j) {
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc) {
-      const __nv_bfloat16* br = &b[j * 8 + g][kc * 16 + t4 * 2];
-      mma_bf16_16816(c[j], a[kc], ld_u32(br), ld_u32(br + 8));
-    }
+  __device__ const float* stat_ptr(int s, int i) const {
+    return reinterpret_cast<const float*>(ptr + kOffStat + (2 * s + i) * kStatBytes);
   }
-}
+  __device__ uint32_t res_full(int r) const { return base + kOffBar + 8 * r; }
+  __device__ uint32_t res_empty(int r) const { return base + kOffBar + 8 * (2 + r); }
+  __device__ uint32_t full(int s) const { return base + kOffBar + 8 * (4 + s); }
+  __device__ uint32_t empty(int s) const { return base + kOffBar + 8 * (4 + kStages + s); }
 
-// acc (16 x 64 over D) += a (16 x 64, A fragments over the tile's 64 rows)
-// times `bt` (the B operand stored [d][row]).
-__device__ __forceinline__ void mma_acc(const uint32_t a[kBlock / 16][4], const Tile& bt, int g,
-                                        int t4, float acc[kD / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      const __nv_bfloat16* br = &bt[dn * 8 + g][kk * 16 + t4 * 2];
-      mma_bf16_16816(acc[dn], a[kk], ld_u32(br), ld_u32(br + 8));
-    }
-  }
-}
-
-// C fragments of n-tiles 2kk and 2kk + 1 form the A fragment of columns
-// [16kk, 16kk + 16): rounds c to bf16 and packs it.
-__device__ __forceinline__ void c_to_a(const float c[kBlock / 8][4], uint32_t a[kBlock / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < kBlock / 8; ++j) {
-    const int kk = j >> 1;
-    const int hi = (j & 1) * 2;
-    a[kk][hi + 0] = pack_bf16(__float2bfloat16_rn(c[j][0]), __float2bfloat16_rn(c[j][1]));
-    a[kk][hi + 1] = pack_bf16(__float2bfloat16_rn(c[j][2]), __float2bfloat16_rn(c[j][3]));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 kernel 1: dq (and Delta), one block per (batch*head, 64 q rows)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const Params p) {
-  __shared__ __align__(16) Tile q_s;   // pre-scaled q tile
-  __shared__ __align__(16) Tile g_s;   // g tile
-  __shared__ __align__(16) Tile k_s;   // k tile [key][d]
-  __shared__ __align__(16) Tile v_s;   // v tile [key][d]
-  __shared__ __align__(16) Tile kt_s;  // k tile transposed [d][key]
-  __shared__ float delta_s[kBlock];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int m0 = blockIdx.y * kBlock;
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const __nv_bfloat16* gr = static_cast<const __nv_bfloat16*>(p.g) + b * p.g_sb + h * p.g_sh;
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.Lq;
-  float* delta = p.delta + static_cast<long long>(bh) * p.Lq;
-
-  stage_tile(q, p.q_ss, m0, p.Lq, p.scale, &q_s, nullptr);
-  stage_tile(gr, p.g_ss, m0, p.Lq, 1.f, &g_s, nullptr);
-  __syncthreads();
-  // Delta = rowsum(g * o) in fp32, once per q row
-  if (tid < kBlock) {
-    float d = 0.f;
-    if (m0 + tid < p.Lq) {
-      const __nv_bfloat16* orow = o + (m0 + tid) * p.o_ss;
-#pragma unroll
-      for (int c = 0; c < kD; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) d = fmaf(__bfloat162float(g_s[tid][c + j]), __bfloat162float(oe[j]), d);
+  __device__ static Smem init() {
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t aligned = (raw + 1023u) & ~1023u;
+    Smem sm{aligned, smem_raw + (aligned - raw)};
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < 2; ++r) {
+        bar_init(sm.res_full(r), 1);
+        bar_init(sm.res_empty(r), 8);  // one arrival per consumer warp
       }
-      delta[m0 + tid] = d;
-    }
-    delta_s[tid] = d;
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16;
-  uint32_t qa[kD / 16][4];
-  uint32_t ga[kD / 16][4];
-  load_a_frags(q_s, r0, g, t4, qa);
-  load_a_frags(g_s, r0, g, t4, ga);
-  float lse_r[2], delta_r[2];
-  bool valid_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + r0 + g + 8 * r;
-    valid_r[r] = row < p.Lq;
-    lse_r[r] = valid_r[r] ? lse[row] : 0.f;
-    delta_r[r] = delta_s[r0 + g + 8 * r];
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  for (int n0 = 0; n0 < p.Lk; n0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(k, p.k_ss, n0, p.Lk, 1.f, &k_s, &kt_s);
-    stage_tile(v, p.v_ss, n0, p.Lk, 1.f, &v_s, nullptr);
-    __syncthreads();
-
-    float s[kBlock / 8][4];
-    float dp[kBlock / 8][4];
-    mma_rows(qa, k_s, g, t4, s);   // s = q_scaled k^T
-    mma_rows(ga, v_s, g, t4, dp);  // dp = g v^T
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool ok = valid_r[r] && (n0 + j * 8 + t4 * 2 + (e & 1) < p.Lk);
-        const float pr = ok ? expf(s[j][e] - lse_r[r]) : 0.f;
-        s[j][e] = pr * (dp[j][e] - delta_r[r]);  // ds, fp32
+      for (int s = 0; s < kStages; ++s) {
+        bar_init(sm.full(s), 1);
+        bar_init(sm.empty(s), 8);
       }
-    }
-    uint32_t dsa[kBlock / 16][4];
-    c_to_a(s, dsa);                  // ds rounded to bf16
-    mma_acc(dsa, kt_s, g, t4, acc);  // dq += ds k
-  }
-
-  const __nv_bfloat16 scale_b = __float2bfloat16_rn(p.scale);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + r0 + g + 8 * r;
-    if (row < p.Lq) {
-      __nv_bfloat16* out = dq + row * p.dq_ss;
-#pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
-        const __nv_bfloat16 lo = __hmul(__float2bfloat16_rn(acc[dn][2 * r]), scale_b);
-        const __nv_bfloat16 hi = __hmul(__float2bfloat16_rn(acc[dn][2 * r + 1]), scale_b);
-        *reinterpret_cast<uint32_t*>(out + dn * 8 + t4 * 2) = pack_bf16(lo, hi);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 kernel 2: dk, dv, one block per (batch*head, 64 keys)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(128) flash_bwd_dkdv_bf16(const Params p) {
-  __shared__ __align__(16) Tile q_s;   // pre-scaled q tile [q][d]; first the k tile
-  __shared__ __align__(16) Tile g_s;   // g tile [q][d]; first the v tile
-  __shared__ __align__(16) Tile qt_s;  // q tile transposed [d][q]
-  __shared__ __align__(16) Tile gt_s;  // g tile transposed [d][q]
-  __shared__ float lse_s[kBlock];
-  __shared__ float delta_s[kBlock];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int n0 = blockIdx.y * kBlock;
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* gr = static_cast<const __nv_bfloat16*>(p.g) + b * p.g_sb + h * p.g_sh;
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.Lq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.Lq;
-
-  // this warp's 16 keys of k and v, as A fragments
-  stage_tile(k, p.k_ss, n0, p.Lk, 1.f, &q_s, nullptr);
-  stage_tile(v, p.v_ss, n0, p.Lk, 1.f, &g_s, nullptr);
-  __syncthreads();
-  const int r0 = warp * 16;
-  uint32_t ka[kD / 16][4];
-  uint32_t va[kD / 16][4];
-  load_a_frags(q_s, r0, g, t4, ka);
-  load_a_frags(g_s, r0, g, t4, va);
-  bool key_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) key_ok[r] = n0 + r0 + g + 8 * r < p.Lk;
-
-  float dk_acc[kD / 8][4];
-  float dv_acc[kD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    dk_acc[dn][0] = dk_acc[dn][1] = dk_acc[dn][2] = dk_acc[dn][3] = 0.f;
-    dv_acc[dn][0] = dv_acc[dn][1] = dv_acc[dn][2] = dv_acc[dn][3] = 0.f;
-  }
-
-  for (int m0 = 0; m0 < p.Lq; m0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(q, p.q_ss, m0, p.Lq, p.scale, &q_s, &qt_s);
-    stage_tile(gr, p.g_ss, m0, p.Lq, 1.f, &g_s, &gt_s);
-    if (tid < kBlock) {
-      const bool ok = m0 + tid < p.Lq;
-      lse_s[tid] = ok ? lse[m0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[m0 + tid] : 0.f;
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-
-    // transposed scores: rows = this warp's keys, columns = the tile's q rows
-    float pt[kBlock / 8][4];
-    mma_rows(ka, q_s, g, t4, pt);  // s^T = k q_scaled^T
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t4 * 2 + (e & 1);
-        const bool ok = key_ok[e >> 1] && (m0 + col < p.Lq);
-        pt[j][e] = ok ? expf(pt[j][e] - lse_s[col]) : 0.f;  // p^T, fp32
-      }
-    }
-    uint32_t pa[kBlock / 16][4];
-    c_to_a(pt, pa);                    // p rounded to v's dtype
-    mma_acc(pa, gt_s, g, t4, dv_acc);  // dv += p^T g
-
-    float dst[kBlock / 8][4];
-    mma_rows(va, g_s, g, t4, dst);  // dp^T = v g^T
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t4 * 2 + (e & 1);
-        dst[j][e] = pt[j][e] * (dst[j][e] - delta_s[col]);  // ds^T, fp32
-      }
-    }
-    uint32_t dsa[kBlock / 16][4];
-    c_to_a(dst, dsa);                   // ds rounded to bf16
-    mma_acc(dsa, qt_s, g, t4, dk_acc);  // dk += ds^T q_scaled
+    return sm;
   }
 
+  // The producer thread's loads for item n: its two 128-row operands (maps
+  // ma, mb at rows row0) into item buffer n & 1, then `tiles` walked tiles
+  // of maps ta, tb (with 64 lse and Delta values each when `lse`) into the
+  // ring, in 64-row TMA boxes. `it` counts the walked tiles loaded so far:
+  // the ring's stage and phase.
+  __device__ void produce_item(int n, const CUtensorMap* ma, const CUtensorMap* mb, int row0,
+                               const CUtensorMap* ta, const CUtensorMap* tb, int tiles,
+                               const float* lse, const float* delta, int h, int b,
+                               int& it) const {
+    const int r = n & 1;
+    if (n >= 2) bar_wait(res_empty(r), ((n >> 1) - 1) & 1);  // item n - 2 is done with it
+    bar_expect_tx(res_full(r), 2 * kResBytes);
+    for (int box = 0; box < kRows / kBoxRows; ++box) {
+      tma_load(res(r, 0) + box * kBoxBytes, ma, res_full(r), row0 + box * kBoxRows, h, b);
+      tma_load(res(r, 1) + box * kBoxBytes, mb, res_full(r), row0 + box * kBoxRows, h, b);
+    }
+    for (int j = 0; j < tiles; ++j, ++it) {
+      const int s = it % kStages;
+      bar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+      bar_expect_tx(full(s), 2 * kWalkBytes + (lse != nullptr ? 2 * kStatBytes : 0));
+      for (int box = 0; box < kWalk / kBoxRows; ++box) {
+        tma_load(tile(s, 0) + box * kBoxBytes, ta, full(s), j * kWalk + box * kBoxRows, h, b);
+        tma_load(tile(s, 1) + box * kBoxBytes, tb, full(s), j * kWalk + box * kBoxRows, h, b);
+      }
+      if (lse != nullptr) {
+        bulk_load(stat(s, 0), lse + j * kWalk, kStatBytes, full(s));
+        bulk_load(stat(s, 1), delta + j * kWalk, kStatBytes, full(s));
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16 kernel 1: dq (and Delta), items of (batch*head, 128 q rows)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_bf16(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+    const Params p) {
+  using Sm = Smem<kDqTile>;
+  const Sm sm = Sm::init();
+  const int q_tiles = (p.Lq + kRows - 1) / kRows;
+  const int items = p.B * p.H * q_tiles;
+  const int k_tiles = (p.Lk + kDqTile - 1) / kDqTile;
+  // broadcast, so that the compiler sees a warp-uniform value
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const int bh = w / q_tiles;
+        sm.produce_item(n, &tm_q, &tm_g, (w % q_tiles) * kRows, &tm_k, &tm_v, k_tiles, nullptr,
+                        nullptr, bh % p.H, bh / p.H, it);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;  // consumer warpgroup: rows 64 cw .. 64 cw + 63 of the item
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // accumulator row group: rows g and g + 8 of the warp's 16
+  const int t4 = lane % 4;  // thread within the quad
+  const float c = p.scale * kLog2e;
+  if (cw == 1) named_arrive(kBarTurn, 256);  // consumer 0 takes the first turn
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n, it += k_tiles) {
+    const bool last_item = w + static_cast<int>(gridDim.x) >= items;
+    const int bh = w / q_tiles;
+    const int b = bh / p.H;
+    const int h = bh % p.H;
+    const int r = n & 1;
+    // this thread's two q rows
+    int rows[2];
+    bool valid[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = n0 + r0 + g + 8 * r;
-    if (row < p.Lk) {
-      __nv_bfloat16* dkr = dk + row * p.dk_ss;
-      __nv_bfloat16* dvr = dv + row * p.dv_ss;
+    for (int i = 0; i < 2; ++i) {
+      rows[i] = (w % q_tiles) * kRows + cw * 64 + warp * 16 + g + 8 * i;
+      valid[i] = rows[i] < p.Lq;
+    }
+    // Delta = rowsum(g * o) in fp32: the quad shares its two rows, 16
+    // columns a thread; written with lse log2(e) for kernel 2
+    float lse_l2[2], delta_r[2];
+    const __nv_bfloat16* gp = static_cast<const __nv_bfloat16*>(p.g) + b * p.g_sb + h * p.g_sh;
+    const __nv_bfloat16* op = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(dkr + dn * 8 + t4 * 2) =
-            pack_bf16(__float2bfloat16_rn(dk_acc[dn][2 * r]), __float2bfloat16_rn(dk_acc[dn][2 * r + 1]));
-        *reinterpret_cast<uint32_t*>(dvr + dn * 8 + t4 * 2) =
-            pack_bf16(__float2bfloat16_rn(dv_acc[dn][2 * r]), __float2bfloat16_rn(dv_acc[dn][2 * r + 1]));
+    for (int i = 0; i < 2; ++i) {
+      float d = 0.f;
+      if (valid[i]) {
+        const uint4* gv = reinterpret_cast<const uint4*>(gp + rows[i] * p.g_ss + 16 * t4);
+        const uint4* ov = reinterpret_cast<const uint4*>(op + rows[i] * p.o_ss + 16 * t4);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const uint4 ga = gv[q], oa = ov[q];
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&ga);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&oa);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 gf = __bfloat1622float2(g2[e]), of = __bfloat1622float2(o2[e]);
+            d = fmaf(gf.x, of.x, d);
+            d = fmaf(gf.y, of.y, d);
+          }
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      delta_r[i] = d;
+      lse_l2[i] = valid[i] ? p.lse[static_cast<long long>(bh) * p.Lq + rows[i]] * kLog2e : 0.f;
+      if (t4 == 0 && rows[i] < p.Lq_pad) {
+        lse_row(p, bh)[rows[i]] = valid[i] ? lse_l2[i] : INFINITY;
+        delta_row(p, bh)[rows[i]] = d;
+      }
+    }
+
+    bar_wait(sm.res_full(r), (n >> 1) & 1);
+    const uint64_t desc_q = smem_desc(sm.res(r, 0) + cw * kBoxBytes, 16, 1024);
+    const uint64_t desc_g = smem_desc(sm.res(r, 1) + cw * kBoxBytes, 16, 1024);
+    float acc[32];  // dq: n-tile j = i / 4 holds head dims 8j + 2 t4 + (i & 1), rows g, g + 8
+    uint32_t dsa[32];  // the last tile's ds as the A operand of ds k
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc[i] = 0.f;
+      dsa[i] = 0u;
+    }
+    // Turn j issues tile j's s = q k^T and dp = g v^T (j < k_tiles) and tile
+    // j-1's dq += ds k (j > 0) as one wgmma group; the consumers take turns
+    // (named barriers), so that one's exponentials overlap the other's
+    // products
+    for (int j = 0; j <= k_tiles; ++j) {
+      const bool ss = j < k_tiles;
+      const bool rs = j > 0;
+      const int s_cur = (it + j) % kStages;
+      const int s_prev = (it + j - 1) % kStages;
+      if (ss) bar_wait(sm.full(s_cur), ((it + j) / kStages) & 1);
+      float sc[64], dp[64];  // fresh arrays, written by the wgmmas alone
+      named_sync(kBarTurn + cw, 256);
+      fence_regs(acc);
+      fence_regs(dsa);
+      wgmma_fence();
+      if (ss) {
+        const uint64_t desc_k = smem_desc(sm.tile(s_cur, 0), 16, 1024);
+        const uint64_t desc_v = smem_desc(sm.tile(s_cur, 1), 16, 1024);
+#pragma unroll
+        for (int kc = 0; kc < kD / 16; ++kc) wgmma_m64n128_ss(sc, desc_q + 2 * kc, desc_k + 2 * kc, kc > 0);
+#pragma unroll
+        for (int kc = 0; kc < kD / 16; ++kc) wgmma_m64n128_ss(dp, desc_g + 2 * kc, desc_v + 2 * kc, kc > 0);
+      }
+      if (rs) {  // k read MN-major (its natural (key, D) layout)
+        const uint64_t desc_k = smem_desc(sm.tile(s_prev, 0), 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < kDqTile / 16; ++kk) {
+          wgmma_m64n64_rs(acc, dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2], dsa[4 * kk + 3],
+                          desc_k + 128 * kk);
+        }
+      }
+      wgmma_commit();
+      if (cw == 0 || ss || !last_item) named_arrive(kBarTurn + 1 - cw, 256);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(dsa);
+      if (rs) warp_arrive(sm.empty(s_prev));
+      if (j == k_tiles - 1) warp_arrive(sm.res_empty(r));  // the last q and g read
+      if (!ss) continue;
+      fence_regs(sc);
+      fence_regs(dp);
+      // ds = p (dp - Delta), p = exp(s * scale - lse) = 2^(s c - lse log2(e)),
+      // 0 past Lk; packed in pairs as the A operand of ds k (pair i: n-tile
+      // i / 2, row g + 8 (i & 1))
+      const int key0 = j * kDqTile + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int rr = i & 1;
+        const int key = key0 + 8 * (i / 2);
+        const float p0 = key < p.Lk ? ex2(fmaf(sc[2 * i], c, -lse_l2[rr])) : 0.f;
+        const float p1 = key + 1 < p.Lk ? ex2(fmaf(sc[2 * i + 1], c, -lse_l2[rr])) : 0.f;
+        dsa[i] = pack_bf16x2(p0 * (dp[2 * i] - delta_r[rr]), p1 * (dp[2 * i + 1] - delta_r[rr]));
+      }
+    }
+
+    // dq = round(acc) * round(scale), in bf16
+    const __nv_bfloat162 scale_b = __bfloat162bfloat162(__float2bfloat16_rn(p.scale));
+    __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!valid[i]) continue;
+      __nv_bfloat16* out = dq + rows[i] * p.dq_ss + 2 * t4;
+#pragma unroll
+      for (int jn = 0; jn < kD / 8; ++jn) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * jn + 2 * i], acc[4 * jn + 2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * jn) = __hmul2(v, scale_b);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 kernel 2: dk, dv, items of (batch*head, 128 keys)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_bf16(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+    const Params p) {
+  using Sm = Smem<kDkTile>;
+  const Sm sm = Sm::init();
+  const int k_items = (p.Lk + kRows - 1) / kRows;
+  const int items = p.B * p.H * k_items;
+  const int q_tiles = p.Lq_pad / kDkTile;
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const int bh = w / k_items;
+        sm.produce_item(n, &tm_k, &tm_v, (w % k_items) * kRows, &tm_q, &tm_g, q_tiles,
+                        lse_row(p, bh), delta_row(p, bh), bh % p.H, bh / p.H, it);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;  // consumer warpgroup: keys 64 cw .. 64 cw + 63 of the item
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const float c = p.scale * kLog2e;
+  if (cw == 1) named_arrive(kBarTurn, 256);  // consumer 0 takes the first turn
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n, it += q_tiles) {
+    const bool last_item = w + static_cast<int>(gridDim.x) >= items;
+    const int bh = w / k_items;
+    const int b = bh / p.H;
+    const int h = bh % p.H;
+    const int r = n & 1;
+    bar_wait(sm.res_full(r), (n >> 1) & 1);
+    const uint64_t desc_k = smem_desc(sm.res(r, 0) + cw * kBoxBytes, 16, 1024);
+    const uint64_t desc_v = smem_desc(sm.res(r, 1) + cw * kBoxBytes, 16, 1024);
+    // dk, dv: n-tile j = i / 4 holds head dims 8j + 2 t4 + (i & 1), keys g, g + 8
+    float dk[32], dv[32];
+    uint32_t pa[16], dsa[16];  // the last tile's p^T and ds^T as A operands
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = dsa[i] = 0u;
+    // Turn j issues tile j's s^T = k q^T and dp^T = v g^T (j < q_tiles) and
+    // tile j-1's dv += p^T g and dk += ds^T q (j > 0) as one wgmma group, the
+    // consumers taking turns as in kernel 1
+    for (int j = 0; j <= q_tiles; ++j) {
+      const bool ss = j < q_tiles;
+      const bool rs = j > 0;
+      const int s_cur = (it + j) % kStages;
+      const int s_prev = (it + j - 1) % kStages;
+      if (ss) bar_wait(sm.full(s_cur), ((it + j) / kStages) & 1);
+      float st[32], dpt[32];  // rows: this warpgroup's keys; columns: the tile's q rows
+      named_sync(kBarTurn + cw, 256);
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(dsa);
+      wgmma_fence();
+      if (ss) {
+        const uint64_t desc_q = smem_desc(sm.tile(s_cur, 0), 16, 1024);
+        const uint64_t desc_g = smem_desc(sm.tile(s_cur, 1), 16, 1024);
+#pragma unroll
+        for (int kc = 0; kc < kD / 16; ++kc) wgmma_m64n64_ss(st, desc_k + 2 * kc, desc_q + 2 * kc, kc > 0);
+#pragma unroll
+        for (int kc = 0; kc < kD / 16; ++kc) wgmma_m64n64_ss(dpt, desc_v + 2 * kc, desc_g + 2 * kc, kc > 0);
+      }
+      if (rs) {  // g and q read MN-major
+        const uint64_t desc_q = smem_desc(sm.tile(s_prev, 0), 16, 1024);
+        const uint64_t desc_g = smem_desc(sm.tile(s_prev, 1), 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < kDkTile / 16; ++kk) {
+          wgmma_m64n64_rs(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                          desc_g + 128 * kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kDkTile / 16; ++kk) {
+          wgmma_m64n64_rs(dk, dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2], dsa[4 * kk + 3],
+                          desc_q + 128 * kk);
+        }
+      }
+      wgmma_commit();
+      if (cw == 0 || ss || !last_item) named_arrive(kBarTurn + 1 - cw, 256);
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(dsa);
+      if (rs) warp_arrive(sm.empty(s_prev));
+      if (j == q_tiles - 1) warp_arrive(sm.res_empty(r));  // the last k and v read
+      if (!ss) continue;
+      fence_regs(st);
+      fence_regs(dpt);
+      // p^T = exp(s^T * scale - lse) = 2^(s^T c - lse log2(e)) (0 on query
+      // rows past Lq, whose copy is +inf), ds^T = p^T (dp^T - Delta); pair i
+      // holds the tile's q rows 8 (i / 2) + 2 t4 + {0, 1}
+      const float* lse_s = sm.stat_ptr(s_cur, 0);
+      const float* delta_s = sm.stat_ptr(s_cur, 1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = 8 * (i / 2) + 2 * t4;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
+        const float p0 = ex2(fmaf(st[2 * i], c, -l2.x));
+        const float p1 = ex2(fmaf(st[2 * i + 1], c, -l2.y));
+        pa[i] = pack_bf16x2(p0, p1);
+        dsa[i] = pack_bf16x2(p0 * (dpt[2 * i] - d2.x), p1 * (dpt[2 * i + 1] - d2.y));
+      }
+    }
+
+    // dk = round(acc * scale) (exact: a power of two), dv = round(acc)
+    __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+    __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = (w % k_items) * kRows + cw * 64 + warp * 16 + g + 8 * i;
+      if (key >= p.Lk) continue;
+#pragma unroll
+      for (int jn = 0; jn < kD / 8; ++jn) {
+        const int col = 8 * jn + 2 * t4;
+        *reinterpret_cast<uint32_t*>(dkp + key * p.dk_ss + col) =
+            pack_bf16x2(dk[4 * jn + 2 * i] * p.scale, dk[4 * jn + 2 * i + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvp + key * p.dv_ss + col) =
+            pack_bf16x2(dv[4 * jn + 2 * i], dv[4 * jn + 2 * i + 1]);
       }
     }
   }
@@ -436,7 +565,7 @@ __global__ void __launch_bounds__(64) flash_bwd_dq_f32(const Params p) {
     acc[d] = 0.f;
   }
   const float lse = valid ? p.lse[static_cast<long long>(bh) * p.Lq + row] : 0.f;
-  if (valid) p.delta[static_cast<long long>(bh) * p.Lq + row] = delta;
+  if (valid) delta_row(p, bh)[row] = delta;
 
   for (int n0 = 0; n0 < p.Lk; n0 += kBlock) {
     __syncthreads();
@@ -500,7 +629,7 @@ __global__ void __launch_bounds__(64) flash_bwd_dkdv_f32(const Params p) {
   float* dk = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
   float* dv = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.Lq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.Lq;
+  const float* delta = delta_row(p, bh);
 
   float dk_acc[kD], dv_acc[kD];
 #pragma unroll
@@ -563,12 +692,13 @@ __global__ void __launch_bounds__(64) flash_bwd_dkdv_f32(const Params p) {
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32. Strides are in elements; the last dim has unit
-// stride. lse and delta are contiguous (B*H, Lq) fp32; delta is scratch.
-// Launches the dq kernel, then the dk/dv kernel, on `stream`; returns
-// cudaGetLastError() after the launches (0 on success).
+// stride. lse is a contiguous (B*H, Lq) fp32 input; stats a contiguous
+// (B*H, 2, round_up(Lq, 64)) fp32 scratch. Launches the dq kernel, then the
+// dk/dv kernel, on `stream`; returns cudaGetLastError() after the launches
+// (0 on success).
 extern "C" int vidil_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* g,
-    const float* lse, float* delta, void* dq, void* dk, void* dv,
+    const float* lse, float* stats, void* dq, void* dk, void* dv,
     int dtype, int device, int B, int H, int Lq, int Lk, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -582,20 +712,45 @@ extern "C" int vidil_flash_attention_bwd(
   if (D != kD || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Params p{q, k, v, o, g, lse, delta, dq, dk, dv,
+  const int Lq_pad = (Lq + kStatAlign - 1) / kStatAlign * kStatAlign;
+  Params p{q, k, v, o, g, lse, stats, dq, dk, dv,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, g_sb, g_sh, g_ss,
            dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
-           H, Lq, Lk, scale};
-  const dim3 grid_q(B * H, (Lq + kBlock - 1) / kBlock);
-  const dim3 grid_k(B * H, (Lk + kBlock - 1) / kBlock);
+           B, H, Lq, Lk, Lq_pad, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    flash_bwd_dq_bf16<<<grid_q, 128, 0, s>>>(p);
+    CUtensorMap tq, tk, tv, tg;
+    if (!make_map_4d(&tq, q, B, H, Lq, q_sb, q_sh, q_ss, kBoxRows) ||
+        !make_map_4d(&tk, k, B, H, Lk, k_sb, k_sh, k_ss, kBoxRows) ||
+        !make_map_4d(&tv, v, B, H, Lk, v_sb, v_sh, v_ss, kBoxRows) ||
+        !make_map_4d(&tg, g, B, H, Lq, g_sb, g_sh, g_ss, kBoxRows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    int sms = 0;
+    err = sm_count(&sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long dq_items = static_cast<long long>(B) * H * ((Lq + kRows - 1) / kRows);
+    const long long dkdv_items = static_cast<long long>(B) * H * ((Lk + kRows - 1) / kRows);
+    if (std::max(dq_items, dkdv_items) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    constexpr int kDqSmem = Smem<kDqTile>::kBytes;
+    constexpr int kDkSmem = Smem<kDkTile>::kBytes;
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDqSmem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kDkSmem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_bf16<<<static_cast<int>(std::min<long long>(dq_items, sms)), kThreads, kDqSmem,
+                        s>>>(tq, tk, tv, tg, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkdv_bf16<<<grid_k, 128, 0, s>>>(p);
+    flash_bwd_dkdv_bf16<<<static_cast<int>(std::min<long long>(dkdv_items, sms)), kThreads,
+                          kDkSmem, s>>>(tq, tk, tv, tg, p);
   } else if (dtype == 1) {
+    const dim3 grid_q(B * H, (Lq + kBlock - 1) / kBlock);
+    const dim3 grid_k(B * H, (Lk + kBlock - 1) / kBlock);
     flash_bwd_dq_f32<<<grid_q, kBlock, 0, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -44,11 +44,13 @@
 // comes from its tile plan (3-4 partials for dwproj, dw1 and dw2 at 12,288
 // rows, none for dwqkv). Device time per call at that shape, by part
 // (chip_smoke.py phase 8, torch.profiler; H100 80GB HBM3, 700 W): GEMMs
-// 0.99 ms (11 launches, 469 TFLOP/s), attention 1.12 ms (the recompute's
-// forward and the dq and dk/dv passes, mma.sync), column sums 0.22 ms (12),
-// LayerNorm rows 0.16 ms (4), split sums 0.06 ms (3): 2.54 ms. What is left:
-// the attention passes on K1's TMA and wgmma tiles, and the column sums and
-// LayerNorm rows folded into the GEMMs' epilogues.
+// 0.99 ms (11 launches, 469 TFLOP/s), attention 0.93 ms (the recompute's
+// forward on the block's wgmma + TMA attention, ~0.045 of it, and the dq
+// and dk/dv passes, mma.sync), column sums 0.22 ms (12), LayerNorm rows
+// 0.16 ms (4), split sums 0.06 ms (3): 2.37 ms. What is left: the dq and
+// dk/dv passes on the structure of flash_attention_bwd.cu's wgmma + TMA
+// kernels, and the column sums and LayerNorm rows folded into the GEMMs'
+// epilogues.
 
 #include "fused_vit_block.cuh"
 

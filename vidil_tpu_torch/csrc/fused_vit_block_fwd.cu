@@ -28,10 +28,18 @@
 // 2*12288*768*(4*768 + 2*3072 + 2*256) = 183 GFLOP against ~45 MB of x, out
 // and weights, so it is bound by operations (~0.19 ms). Its four products
 // (174 GFLOP) run on the wgmma + TMA GEMM of gemm_sm90.cuh, shared with K3
-// and K5. Left for this kernel's own redesign: the two-pass attention
-// (mma.sync on 64 x 64 tiles staged by plain loads, with the key mask), the
-// LayerNorm rows, and the seven launches with every intermediate in device
-// memory.
+// and K5. The attention (attn_fwd_wgmma) reads q, k and v from the 56.6 MB
+// QKV workspace and writes the 18.9 MB output: bound by bytes, ~0.023 ms,
+// against 9.7 GFLOP (~0.010 ms). It runs on K1's TMA + wgmma machinery: one
+// pass with the whole 256-key score row in registers at Lp <= 256, three
+// passes (max, sum, p v) with the scores recomputed at Lp = 640.
+// Measured (chip_smoke.py phase 8, one H100 80GB HBM3 at 700 W): the
+// attention launch alone takes 0.044 ms of device time at the trainer block
+// (SDPA with the key mask 0.053) and 0.228 at (32, 640, 768) (SDPA 0.165);
+// the whole chain 0.464 ms of device time at the trainer block (the library
+// block 0.477), 0.893 at the 384-px block.
+// Left: the LayerNorm rows and the seven launches with every intermediate in
+// device memory.
 
 #include "fused_vit_block.cuh"
 
@@ -68,6 +76,26 @@ extern "C" long long vidil_fused_block_fwd_workspace(int dtype, int B, int Lp, i
   if (!dims_ok(d)) return -1;
   return static_cast<long long>(dtype == 0 ? fwd_workspace<bf16>(d, nullptr, nullptr)
                                            : fwd_workspace<float>(d, nullptr, nullptr));
+}
+
+// The block's attention alone (the chain's third launch), on a (B, Lp, 3D)
+// QKV workspace: out (B, Lp, D), and with non-null row_max and row_sum the
+// (B*H, Lp) fp32 statistics K5's recompute keeps. dtype as below; every
+// tensor contiguous. Returns cudaGetLastError() after the launch.
+extern "C" int vidil_fused_block_attention(const void* qkv, void* out, float* row_max,
+                                           float* row_sum, int dtype, int device, int B, int Lp,
+                                           int D, int H, int true_len, void* stream) {
+  const Dims d = make_dims(B, Lp, D, 128, H, true_len, 0.f);
+  if (!dims_ok(d) || (dtype != 0 && dtype != 1) || (row_max == nullptr) != (row_sum == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const AttnArgs a{qkv, out, row_max, row_sum, H, Lp, D, true_len,
+                   1.f / sqrtf(static_cast<float>(kDh))};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = dtype == 0 ? attention_forward<bf16>(a, B, s) : attention_forward<float>(a, B, s);
+  return static_cast<int>(err);
 }
 
 // dtype: 0 = bf16, 1 = fp32 (x, the linears' weights and biases, out);

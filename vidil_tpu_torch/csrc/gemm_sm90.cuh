@@ -445,9 +445,8 @@ cudaError_t launch_bn(const void* a, long long lda, const void* b, long long ldb
       !make_map_2d(&tb, b, kTB ? sh.N : sh.K, kTB ? sh.K : sh.N, ldb, kTB ? 64 : BN)) {
     return cudaErrorInvalidValue;
   }
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>((sh.M + kBM - 1) / kBM) * (sh.N / BN) * sh.splits;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;

@@ -8,7 +8,8 @@ and k, v (B, H, Lk, D), with no mask, and is differentiable through
 in ``csrc/flash_attention_fwd.cu`` (the counterpart of the TPU kernel
 ``vidil_tpu/ops/flash_attention.py:_flash_forward``; with its logsumexp rows
 when a gradient will be taken) and the backward launches
-``csrc/flash_attention_bwd.cu`` (the counterpart of ``_flash_backward``).
+``csrc/flash_attention_bwd.cu`` (the counterpart of ``_flash_backward``;
+a dq kernel, then a dk/dv kernel).
 On CPU tensors the same Function runs the plain twins,
 `flash_attention_ref` and `flash_attention_bwd_ref`, which keep the
 kernels' rounding points. Nothing falls back: a CUDA launch that cannot run
@@ -211,8 +212,9 @@ def _heads_last_empty(B, H, L, D, like):
 
 
 def _tma_operand(t):
-    """The bf16 kernel reads q, k and v through TMA tensor maps, whose
-    strides must be non-zero: an expanded (stride-0) dim is copied out."""
+    """The bf16 kernels read q, k, v (and the backward g) through TMA tensor
+    maps, whose strides must be non-zero: an expanded (stride-0) dim is
+    copied out."""
     st = t.stride()
     if 0 in st and t.dtype == torch.bfloat16 and any(
             s == 0 and n > 1 for s, n in zip(st, t.shape)):
@@ -247,8 +249,30 @@ def _launch(q, k, v, with_lse: bool = False):
     return (o, lse) if with_lse else o
 
 
+# the backward kernels' (B*H, 2, Lq rounded up to this) fp32 scratch: a copy
+# of the lse rows and Delta = rowsum(g * o), written by the dq kernel and
+# read by the dk/dv kernel in 64-row tiles (csrc/flash_attention_bwd.cu)
+KERNEL_STATS_ALIGN = 64
+
+
+def _bwd_stats_empty(B, H, Lq, device):
+    return torch.empty((B * H, 2, _round_up(Lq, KERNEL_STATS_ALIGN)), dtype=torch.float32,
+                       device=device)
+
+
+def _bwd_args(q, k, v, o, lse, g, stats, dq, dk, dv, stream):
+    """The backward C entry's arguments, in its order."""
+    B, H, Lq, D = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODE[q.dtype], q.device.index, B, H, Lq, k.shape[2], D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            _scale_value(D, q.dtype), stream)
+
+
 def _launch_bwd(q, k, v, o, lse, g):
-    """Run the backward kernel on CUDA tensors: (dq, dk, dv), each a
+    """Run the backward kernels on CUDA tensors: (dq, dk, dv), each a
     (B, H, L, D) view of a (B, L, H, D) allocation."""
     if g.dtype != q.dtype:
         g = g.to(q.dtype)
@@ -258,21 +282,16 @@ def _launch_bwd(q, k, v, o, lse, g):
         g = g.contiguous()  # e.g. an expanded gradient of a sum
         named = named[:4] + (("g", g),)
     _check_kernel_operands(named)
+    q, k, v, g = _tma_operand(q), _tma_operand(k), _tma_operand(v), _tma_operand(g)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     lse = lse.contiguous()
-    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    stats = _bwd_stats_empty(B, H, Lq, q.device)
     dq = _heads_last_empty(B, H, Lq, D, q)
     dk = _heads_last_empty(B, H, Lk, D, k)
     dv = _heads_last_empty(B, H, Lk, D, v)
-    scale = _scale_value(D, q.dtype)
-    fn = _kernel_fns()["bwd"]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             _DTYPE_CODE[q.dtype], q.device.index, B, H, Lq, Lk, D,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-             *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-             scale, torch.cuda.current_stream(q.device).cuda_stream)
+    err = _kernel_fns()["bwd"](*_bwd_args(q, k, v, o, lse, g, stats, dq, dk, dv,
+                                          torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
     launch_counts["flash_attention_bwd"] += 1

@@ -47,9 +47,11 @@ KERNEL_HEAD_DIM = 64
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-# launches of the CUDA kernels by this process, one per layer call, for
+# launches of the CUDA kernels by this process, one per layer call (or, for
+# fused_vit_block_attention, per call of the block's attention alone), for
 # showing that a run went through them; `reset_launch_counts` sets them to 0
-launch_counts = {"fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0}
+launch_counts = {"fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0,
+                 "fused_vit_block_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -117,31 +119,55 @@ def _dense(a, w, b, acc):
     return torch.matmul(a.to(acc), w.to(acc)) + b.to(acc)
 
 
+def _attention(qkv, true_len, num_heads):
+    """The block's attention on its (B, Lp, 3D) QKV output, at the kernels'
+    rounding points: q, k, v (B, H, Lp, Dh), the fp32 probabilities, the
+    merged-head output (B, Lp, D) and the softmax statistics, row max and
+    row sum of e = exp(s - max), (B, H, Lp)."""
+    dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
+    B, Lp, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * (1.0 / math.sqrt(D // num_heads))
+    bias = _key_bias(Lp, true_len, acc, qkv.device)
+    if bias is not None:
+        s = s + bias
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    p32 = e / l
+    attn = _merge(torch.matmul(p32.to(dt).to(acc), v.to(acc)).to(dt))
+    return dict(q=q, k=k, v=v, p32=p32, attn=attn, row_max=m[..., 0], row_sum=l[..., 0])
+
+
+def block_attention_ref(qkv, *, true_len: int, num_heads: int, with_stats: bool = False):
+    """Plain PyTorch version of the block's attention launch: qkv (B, Lp,
+    3D) -> (B, Lp, D) in qkv's dtype, and with `with_stats` the row max and
+    row sum, (B*H, Lp) in the accumulation dtype (fp32 for bf16/fp32)."""
+    f = _attention(qkv, true_len, num_heads)
+    if not with_stats:
+        return f["attn"]
+    B, H, Lp = f["row_max"].shape
+    return f["attn"], f["row_max"].reshape(B * H, Lp), f["row_sum"].reshape(B * H, Lp)
+
+
 def _recompute(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1,
                *, true_len, num_heads, eps):
     """The block's forward up to the GELU, at the kernels' rounding points;
     returns every intermediate the backward reads."""
     dt, acc = x.dtype, _acc_dtype(x.dtype)
-    B, Lp, D = x.shape
-    scale = 1.0 / math.sqrt(D // num_heads)
+    scale = 1.0 / math.sqrt(x.shape[-1] // num_heads)
     xhat1, r1 = _ln_stats(x.to(acc), eps)
     h1 = (xhat1 * ln1s.to(acc) + ln1b.to(acc)).to(dt)
     qkv = _dense(h1, wqkv, bqkv, acc).to(dt)
-    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
-    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    bias = _key_bias(Lp, true_len, acc, x.device)
-    if bias is not None:
-        s = s + bias
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p32 = e / e.sum(dim=-1, keepdim=True)
-    attn = _merge(torch.matmul(p32.to(dt).to(acc), v.to(acc)).to(dt))
-    y = x + _dense(attn, wproj, bproj, acc).to(dt)
+    at = _attention(qkv, true_len, num_heads)
+    y = x + _dense(at["attn"], wproj, bproj, acc).to(dt)
     xhat2, r2 = _ln_stats(y.to(acc), eps)
     h2 = (xhat2 * ln2s.to(acc) + ln2b.to(acc)).to(dt)
     hh = _dense(h2, w1, b1, acc).to(dt)
     a = _gelu_exact_f32(hh.to(acc)).to(dt)
-    return dict(xhat1=xhat1, r1=r1, h1=h1, q=q, k=k, v=v, p32=p32, attn=attn, y=y,
-                xhat2=xhat2, r2=r2, h2=h2, hh=hh, a=a, scale=scale)
+    return dict(xhat1=xhat1, r1=r1, h1=h1, q=at["q"], k=at["k"], v=at["v"], p32=at["p32"],
+                attn=at["attn"], y=y, xhat2=xhat2, r2=r2, h2=h2, hh=hh, a=a, scale=scale)
 
 
 def fused_block_ref(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
@@ -355,6 +381,42 @@ def _launch_bwd(args, g, true_len, num_heads, eps):
     return (dx,) + grads
 
 
+def _attn_args(qkv, out, row_max, row_sum, true_len, num_heads, stream):
+    """The attention C entry's arguments, in its order (row_max and row_sum
+    None: no statistics)."""
+    B, Lp, D3 = qkv.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return (qkv.data_ptr(), out.data_ptr(), ptr(row_max), ptr(row_sum), _DTYPE_CODE[qkv.dtype],
+            qkv.device.index, B, Lp, D3 // 3, num_heads, true_len, stream)
+
+
+def _launch_attention(qkv, true_len, num_heads, with_stats=False):
+    """Run the block's attention launch alone on a CUDA (B, Lp, 3D) QKV
+    workspace: (B, Lp, D) out, and with `with_stats` the (B*H, Lp) fp32 row
+    max and row sum that the backward's recompute keeps."""
+    if qkv.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_vit_block attention takes bf16 or fp32, got {qkv.dtype}")
+    B, Lp, D3 = qkv.shape
+    D = D3 // 3
+    if D3 % 3 or D % num_heads or D // num_heads != KERNEL_HEAD_DIM:
+        raise ValueError(f"fused_vit_block attention takes head dim {KERNEL_HEAD_DIM}, "
+                         f"got {D3} = 3 x {D} over {num_heads} heads")
+    if D % 128 or Lp % 128 or not 0 < true_len <= Lp:
+        raise ValueError(f"fused_vit_block attention wants D and the token axis in multiples "
+                         f"of 128 and 0 < true_len <= Lp, got D={D}, Lp={Lp}, true_len={true_len}")
+    qkv = qkv.contiguous()
+    out = torch.empty((B, Lp, D), dtype=qkv.dtype, device=qkv.device)
+    stats = (torch.empty((2, B * num_heads, Lp), dtype=torch.float32, device=qkv.device)
+             if with_stats else (None, None))
+    err = _kernel_fns()["attention"](*_attn_args(
+        qkv, out, stats[0], stats[1], true_len, num_heads,
+        torch.cuda.current_stream(qkv.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"fused_vit_block_attention launch failed: cudaError {err}")
+    launch_counts["fused_vit_block_attention"] += 1
+    return (out, stats[0], stats[1]) if with_stats else out
+
+
 _fns: dict = {}
 
 
@@ -377,10 +439,14 @@ def _kernel_fns():
         for fn in (fwd_ws, bwd_ws):
             fn.restype = ctypes.c_longlong
             fn.argtypes = [ctypes.c_int] * 6
+        attention = fwd_lib.vidil_fused_block_attention
+        attention.restype = ctypes.c_int
+        attention.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         splits = bwd_lib.vidil_fused_block_bwd_wgrad_splits
         splits.restype = ctypes.c_int
         splits.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        _fns.update(fwd=fwd, bwd=bwd, fwd_ws=fwd_ws, bwd_ws=bwd_ws, wgrad_splits=splits)
+        _fns.update(fwd=fwd, bwd=bwd, fwd_ws=fwd_ws, bwd_ws=bwd_ws, wgrad_splits=splits,
+                    attention=attention)
     return _fns
 
 
