@@ -2,8 +2,9 @@
 kernels, holds each against its plain PyTorch version at the main paths'
 shapes, and drives the main paths at full BLIP-base width: CapFilt
 (384 px), the caption fine-tuning step (224 px) on both ViT schedules, the
-video-QA fine-tuning step with its two answer decoders, and visual
-tokenization with its BLIP and CLIP encoders.
+video-QA fine-tuning step with its two answer decoders, visual
+tokenization with its BLIP and CLIP encoders, and the prompt side on the
+SBERT MPNet encoder (all-mpnet-base-v2 width).
 
     python3 chip_smoke.py
 
@@ -94,6 +95,25 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      frames/s, ontology-embedding and rerank seconds, peak memory. Reported
      with it (phase 6's engine): the CapFilt captioner encode with
      use_fused_mlp against the encode without, after one block and twelve.
+ 14. the prompt side at full width: a synthetic all-mpnet-base-v2 snapshot
+     (sin-fill weights as an HF-keyed pytorch_model.bin, config.json, the
+     30527-line vocab) read by the in-context CLI's own route
+     (generate_prompts_random_prefix_in_context_selection.main, bf16, on
+     the card): caption selection (SHOT 10, N 5, --comparing_target
+     caption) over 1000 synthetic query videos of 8 frames, QA selection
+     (SHOT 5, N 5, --comparing_target question) over 1000 questions, the QA
+     answer mapping of 4096 predictions onto 1500 answers in batches of 64,
+     VLEP multichoice over 500 examples of 2 events; every embedding finite,
+     768 wide and of norm 1 within 1e-3, one prompt per query holding the
+     instruction, the N examples and the query, the idx map the queries',
+     no launch of a TPU kernel's port (MPNet's biased attention and FFN
+     are plain, as in the reference), and the card's fp32 encode of one 64 x
+     128 batch within 4x the CPU's own fp32 error (against an fp64 forward)
+     of the CPU's fp32 encode; reported: the 64 x 128 batch's ms,
+     sentences/s, device ms and launches, the single-sentence encode's ms,
+     host enqueue ms, device ms and launches, per-query selection ms,
+     answer-mapping and VLEP seconds, peak memory, and the bf16 top-N
+     selection's agreement with the fp32 one.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold). Kernel times ("ms", "plain_ms", "library_ms") are the median
 of single calls between CUDA events on an idle card: device time plus the
@@ -1589,6 +1609,374 @@ def run_visual_tokenization(fa, fm, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the prompt side: SBERT (all-mpnet-base-v2 at full width), in-context
+# selection, QA answer mapping, VLEP (phase 14)
+# ---------------------------------------------------------------------------
+
+# pipeline/README.md's paper recipe: caption selection with SHOT 10 and N 5
+# over MSR-VTT 1k-A's 1000 test videos; QA selection with SHOT 5 and N 5 over
+# 1000 questions; the QA answer mapping of 4096 predictions onto a
+# 1500-answer list; VLEP multichoice over 500 examples of 2 events each. The
+# encoder's defaults (make_torch_sbert_encoder): 64 texts of 128 tokens a
+# batch, bf16
+SB_QUERIES, SB_FRAMES, SB_TRAIN_VIDEOS = 1000, 8, 100
+SB_CAPTION_SHOT, SB_QA_SHOT, SB_N = 10, 5, 5
+SB_ANSWERS, SB_PREDICTIONS, SB_VLEP = 1500, 4096, 500
+SB_BATCH, SB_LEN = 64, 128
+SB_NORM_TOL = 1e-3  # |norm - 1| of every embedding
+SB_INSTRUCTION = "Instruction: write a one-sentence caption of the video."
+# the card's fp32 encode against the CPU's: only the summation order
+# differs, so each errs from the exact (fp64) result by about as much as the
+# other; their difference is at most the sum of the two errors, and the
+# factor 4 over the CPU's own error leaves 2x for the spread between the two
+# orders' errors. An encode with another rounding (TF32 products, bf16)
+# errs by orders of magnitude more
+SB_F32_FACTOR = 4.0
+SB_CATEGORIES = ("objects", "attributes", "scenes", "verbs")
+
+
+def _sb_words(rng, lo, hi):
+    """lo..hi words of the synthetic vocab (tokenizer.write_mpnet_vocab)."""
+    return " ".join(f"word{rng.randrange(200, 30000)}" for _ in range(rng.randint(lo, hi)))
+
+
+def _sb_stage(root, name, vids, rng):
+    """A visual-tokenization output (8 frames, VT_TOPK terms per category per
+    frame) and a CapFilt pair (8 frame captions) for `vids`, as the CLIs
+    write them."""
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    vt = {v: {"frame_tokens": [{k: [_sb_words(rng, 1, 2) for _ in range(VT_TOPK)]
+                                for k in SB_CATEGORIES} for _ in range(SB_FRAMES)],
+              "caption": _sb_words(rng, 8, 14)} for v in vids}
+    caps = {v: [_sb_words(rng, 6, 12) for _ in range(SB_FRAMES)] for v in vids}
+    for fname, obj in (("visual_tokens.json", vt), ("video_text_CapFilt.json", caps),
+                       ("video_text_Cap.json", caps)):
+        with open(os.path.join(d, fname), "w") as f:
+            json.dump(obj, f)
+    return d, vt, caps
+
+
+def _sb_snapshot(root, device):
+    """A full-width all-mpnet-base-v2 snapshot of synthetic sin-fill weights
+    (utils/synth.py), as make_sbert_encoder reads one: config.json, the
+    full-width vocab.txt, an HF-keyed pytorch_model.bin."""
+    from vidil_tpu_torch.models import convert, mpnet
+    from vidil_tpu_torch.tokenizer import write_mpnet_vocab
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    cfg = mpnet.MPNetConfig()
+    params = convert.from_jax_params(synth_tree(mpnet.mpnet_shapes(cfg), device, salt=6.0))
+    snap = os.path.join(root, "sbert")
+    os.makedirs(snap)
+    torch.save(mpnet.to_hf_state_dict(params), os.path.join(snap, "pytorch_model.bin"))
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump({"model_type": "mpnet", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "relative_attention_num_buckets": cfg.relative_attention_num_buckets,
+                   "layer_norm_eps": cfg.layer_norm_eps, "pad_token_id": cfg.pad_token_id}, f)
+    write_mpnet_vocab(os.path.join(snap, "vocab.txt"))
+    return snap, cfg, params
+
+
+def _sb_checked(encoder, stats):
+    """`encoder` with every call timed (it ends in a copy to the host) and
+    every embedding checked: finite, stats["width"] wide, norm 1 within
+    SB_NORM_TOL."""
+    def encode(texts):
+        t0 = time.perf_counter()
+        out = encoder(texts)
+        stats["calls"].append((len(texts), time.perf_counter() - t0))
+        err = float(np.abs(np.linalg.norm(out, axis=-1) - 1.0).max())
+        if (out.shape != (len(texts), stats["width"]) or not np.isfinite(out).all()
+                or err > SB_NORM_TOL):
+            raise SystemExit(f"sbert: bad embeddings {out.shape}, |norm - 1| {err}")
+        stats["max_norm_err"] = max(stats["max_norm_err"], err)
+        return out
+    return encode
+
+
+def _sb_run_cli(argv, stats):
+    """The in-context CLI's main (vidil_tpu_torch.generate_prompts_random_
+    prefix_in_context_selection) on `argv`: its encoder, made by its own
+    route from the snapshot, checked by _sb_checked; its selection stage
+    timed. Returns the encoder and the selection seconds."""
+    from vidil_tpu_torch import generate_prompts_random_prefix_in_context_selection as cli
+
+    made, sel_s = [], []
+    make, select = cli.make_sbert_encoder, cli.save_prompt_lines_with_in_context_selection
+
+    def make_checked(*a, **kw):
+        made.append(make(*a, **kw))
+        return _sb_checked(made[-1], stats)
+
+    def timed_select(*a, **kw):
+        t0 = time.perf_counter()
+        select(*a, **kw)
+        sel_s.append(time.perf_counter() - t0)
+
+    cli.make_sbert_encoder, cli.save_prompt_lines_with_in_context_selection = \
+        make_checked, timed_select
+    try:
+        args = cli.parse_args(argv)
+        cli.main(args)
+    finally:
+        cli.make_sbert_encoder, cli.save_prompt_lines_with_in_context_selection = make, select
+    return made[0], sel_s[0], args
+
+
+def _sb_check_prompts(args, vt, caps, queries, count_key):
+    """The CLI's jsonl and idx map: one prompt per query, each the
+    instruction, the N selected examples and the query's own prompt, in
+    that order; the idx map the queries'. Returns the queries' comparing
+    strings."""
+    from vidil_tpu_torch.pipeline.generate_prompts import (
+        _extract_compare_str,
+        base_config_from_args,
+    )
+    from vidil_tpu_torch.pipeline.prompts import Prompt
+
+    out = os.path.join(args.output_dir, f"temp_{args.gpt3_temperature}_gpt3_queries")
+    with open(out + ".jsonl") as f:
+        prompts = [json.loads(line)["prompt"] for line in f]
+    with open(out + "__idx_2_videoid.json") as f:
+        idx = json.load(f)
+    if len(prompts) != len(queries) or idx != {str(i): q for i, (q, _) in enumerate(queries)}:
+        raise SystemExit(f"prompts: {len(prompts)} lines, idx map of {len(idx)}, want "
+                         f"{len(queries)} queries in order")
+    config = base_config_from_args(args, out + ".jsonl", {})
+    dummy = Prompt("", seed=42)
+    compare = []
+    for prompt, (key, qa) in zip(prompts, queries):
+        vid = key if isinstance(key, str) else key[0]
+        query = dummy.construct_prompt(vid, vt[vid], caps, config, *(qa or (None, None)), None)
+        if not (prompt.startswith(args.instruction_line + "\n\n") and prompt.endswith(query)
+                and prompt.count(count_key) == args.N + 1):
+            raise SystemExit(f"prompt for {key} lacks the instruction, the {args.N} examples or "
+                             f"the query: {prompt!r}")
+        compare.append(_extract_compare_str(query, args.comparing_target))
+    return compare
+
+
+def _sb_bound_ms(cfg, B, L):
+    """Least time of one encode: its products at the bf16 peak (4 D^2 + 2 D F
+    weights per token, 2 flops each, and the attention's 4 L^2 Dh per head),
+    above the bytes of its weights (bf16) and activations."""
+    D, F_, N = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    flops = N * (2 * B * L * (4 * D * D + 2 * D * F_)
+                 + 4 * B * cfg.num_heads * L * L * (D // cfg.num_heads))
+    # bf16 weights, the ids and mask (int64), the embedding rows gathered
+    # (fp32, word and position), the fp32 embeddings written
+    nbytes = N * 2 * (4 * D * D + 2 * D * F_) + 2 * B * L * 8 + 2 * B * L * D * 4 + B * D * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return flops, (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _mpnet_f64(params, ids, mask, cfg):
+    """A plain float64 MPNet forward with SBERT pooling, written apart from
+    models/mpnet.py: the exact result the fp32 encodes are held to."""
+    from vidil_tpu_torch.models.mpnet import compute_position_bias
+
+    def p(t):
+        return t.double()
+
+    def ln(n, x):
+        return F.layer_norm(x, (x.shape[-1],), p(n["scale"]), p(n["bias"]), cfg.layer_norm_eps)
+
+    def lin(n, x):
+        return x @ p(n["kernel"]) + p(n["bias"])
+
+    B, L = ids.shape
+    H, Dh = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    nonpad = (ids != cfg.pad_token_id).long()
+    pos = torch.cumsum(nonpad, 1) * nonpad + cfg.pad_token_id
+    x = ln(params["emb_norm"], p(params["word_embeddings"]["embedding"])[ids]
+           + p(params["position_embeddings"]["embedding"])[pos])
+    bias = (compute_position_bias(p(params["relative_attention_bias"]), L)
+            + (1.0 - mask[:, None, None, :].double()) * -10000.0)
+    for layer in params["layers"]:
+        q, k, v = (lin(layer[n], x).view(B, L, H, Dh).transpose(1, 2) for n in ("q", "k", "v"))
+        a = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(Dh) + bias, dim=-1) @ v
+        x = ln(layer["attn_norm"], lin(layer["o"], a.transpose(1, 2).reshape(B, L, -1)) + x)
+        x = ln(layer["out_norm"], lin(layer["fc2"], F.gelu(lin(layer["fc1"], x))) + x)
+    m = mask[:, :, None].double()
+    pooled = (x * m).sum(1) / m.sum(1).clamp(min=1e-9)
+    return pooled / pooled.norm(dim=-1, keepdim=True)
+
+
+def run_prompt_side(fa, fm, fvb, device, card):
+    """Phase 14: the prompt side at full width on the card (see the module
+    docstring). Runs no kernel of the TPU's: every count must stay 0."""
+    import random
+
+    from vidil_tpu_torch.evals import qa as qa_eval
+    from vidil_tpu_torch.evals import vlep
+    from vidil_tpu_torch.models.convert import to_device
+    from vidil_tpu_torch.models.layers import cast_linears
+    from vidil_tpu_torch.models.mpnet import make_torch_sbert_encoder, sbert_embed
+    from vidil_tpu_torch.pipeline.generate_prompts import _extract_compare_str, get_prompt_prefix
+    from vidil_tpu_torch.tokenizer import MPNetTokenizer
+
+    t_phase = time.time()
+    rng = random.Random(14)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        snap, cfg, params = _sb_snapshot(tmp, device)
+        queries = [f"q{i}" for i in range(SB_QUERIES)]
+        train = [f"t{i}" for i in range(SB_TRAIN_VIDEOS)]
+        qdir, qvt, qcaps = _sb_stage(tmp, "query", queries, rng)
+        tdir, tvt, tcaps = _sb_stage(tmp, "train", train, rng)
+        with open(os.path.join(tmp, "train_ann.json"), "w") as f:
+            json.dump({v: [tvt[v]["caption"]] for v in train}, f)
+        qa = {v: [{"question": f"what is the {_sb_words(rng, 1, 2)} doing with "
+                               f"{_sb_words(rng, 1, 3)}?", "answer": _sb_words(rng, 1, 2)}]
+              for v in queries + train}
+        with open(os.path.join(tmp, "qa.json"), "w") as f:
+            json.dump(qa, f)
+
+        def argv(task, shot, target, extra=()):
+            return ["--prompt_task", task, "--visual_tokens_dir", qdir,
+                    "--frame_captions_dir", qdir, "--train_dataset_visual_tokens_dir", tdir,
+                    "--train_dataset_frame_captions_dir", tdir,
+                    "--trainset_json_ann", os.path.join(tmp, "train_ann.json"),
+                    "--output_dir", os.path.join(tmp, f"out_{task}"),
+                    "--instruction_line", SB_INSTRUCTION, "--shot", str(shot),
+                    "--N", str(SB_N), "--comparing_target", target, "--sbert_model", snap,
+                    "--device", device.type, *extra]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in (fa, fm, fvb):
+            m.reset_launch_counts()
+        stats = {"calls": [], "max_norm_err": 0.0, "width": cfg.hidden_size}
+        # caption selection
+        enc16, cap_s, cap_args = _sb_run_cli(argv("caption", SB_CAPTION_SHOT, "caption"), stats)
+        single = [s for n, s in stats["calls"] if n == 1]
+        qtexts = _sb_check_prompts(cap_args, qvt, qcaps, [(v, None) for v in queries],
+                                   "Video Caption:")
+        # QA selection
+        n_calls = len(stats["calls"])
+        _, qa_s, qa_args = _sb_run_cli(
+            argv("qa", SB_QA_SHOT, "question",
+                 ("--question_answer_path", os.path.join(tmp, "qa.json"))), stats)
+        _sb_check_prompts(qa_args, qvt, qcaps,
+                                 [([v, 0], (qa[v][0]["question"], qa[v][0]["answer"]))
+                                  for v in queries], "Answer:")
+        single_qa = [s for n, s in stats["calls"][n_calls:] if n == 1]
+        checked = _sb_checked(enc16, stats)
+        # QA answer mapping
+        answers = [_sb_words(rng, 1, 3) for _ in range(SB_ANSWERS)]
+        gt = os.path.join(tmp, "qa_gt.jsonl")
+        with open(gt, "w") as f:
+            for _ in range(SB_PREDICTIONS):
+                f.write(json.dumps({"question": "q?", "answer": rng.choice(answers)}) + "\n")
+        preds = [{"question_id": i, "answer": _sb_words(rng, 1, 4)}
+                 for i in range(SB_PREDICTIONS)]
+        t0 = time.perf_counter()
+        acc = qa_eval.evaluate_generation_result(preds, gt, answers, encoder=checked)
+        map_s = time.perf_counter() - t0
+        if not 0.0 <= acc <= 1.0:
+            raise SystemExit(f"qa answer mapping: accuracy {acc}")
+        # VLEP multichoice
+        data = {str(i): {"video_id": f"v{i}", "events": [_sb_words(rng, 4, 9),
+                                                          _sb_words(rng, 4, 9)],
+                         "answer": i % 2} for i in range(SB_VLEP)}
+        results = {k: _sb_words(rng, 4, 9) for k in data}
+        t0 = time.perf_counter()
+        lines = vlep.eval_multichoice(results, data, os.path.join(tmp, "vlep.jsonl"),
+                                      encoder=checked)
+        vlep_s = time.perf_counter() - t0
+        if len(lines) != SB_VLEP or any(line["pred_ans"] not in (0, 1) for line in lines):
+            raise SystemExit(f"vlep: {len(lines)} lines, want {SB_VLEP} with 0/1 answers")
+        path_s = time.time() - t_phase
+        peak = torch.cuda.max_memory_allocated()
+        launches = {**fa.launch_counts, **fm.launch_counts, **fvb.launch_counts}
+        if any(launches.values()):
+            raise SystemExit(f"prompt side: a TPU kernel's port launched: {launches} (MPNet's "
+                             "biased attention and FFN are plain, as in the reference)")
+
+        # the encoder alone: one 64 x 128 batch and one sentence, as the
+        # reference calls it per query; bf16, the encoder's own cast weights
+        tok = MPNetTokenizer(os.path.join(snap, "vocab.txt"))
+        p16 = cast_linears(params, torch.bfloat16)
+        enc = tok(qtexts[:SB_BATCH], padding="max_length", truncation=True, max_length=SB_LEN)
+        ids, mask = (torch.from_numpy(a).to(device) for a in (enc.input_ids, enc.attention_mask))
+        ids1, mask1 = ids[:1].clone(), mask[:1].clone()
+        with torch.no_grad():
+            batch_ms = time_ms(lambda: sbert_embed(p16, ids, mask, cfg, dtype=torch.bfloat16))
+            batch_dev, batch_kernels = device_profile(
+                lambda: sbert_embed(p16, ids, mask, cfg, dtype=torch.bfloat16))
+            one_ms = time_ms(lambda: sbert_embed(p16, ids1, mask1, cfg, dtype=torch.bfloat16))
+            one_host = host_us(lambda: sbert_embed(p16, ids1, mask1, cfg,
+                                                   dtype=torch.bfloat16)) / 1e3
+            one_dev, one_kernels = device_profile(
+                lambda: sbert_embed(p16, ids1, mask1, cfg, dtype=torch.bfloat16))
+            if not batch_kernels or not one_kernels:
+                raise SystemExit("sbert: the encode ran no CUDA kernel")
+            flops, (bound, bound_by) = _sb_bound_ms(cfg, SB_BATCH, SB_LEN)
+            _, (bound1, bound1_by) = _sb_bound_ms(cfg, 1, SB_LEN)
+            # fp32 on the card against fp32 on the CPU, both against fp64
+            gpu32 = sbert_embed(params, ids, mask, cfg).double()
+            ref64 = _mpnet_f64(params, ids, mask, cfg)
+            cpu32 = sbert_embed(to_device(params, "cpu"), ids.cpu(), mask.cpu(), cfg)
+            cpu32 = cpu32.double().to(device)
+        diff = float((gpu32 - cpu32).abs().max())
+        err_cpu, err_gpu = (float((x - ref64).abs().max()) for x in (cpu32, gpu32))
+        if not diff <= SB_F32_FACTOR * err_cpu:
+            raise SystemExit(f"sbert fp32: card vs CPU max |diff| {diff:.3g} over the bar "
+                             f"{SB_F32_FACTOR} x the CPU's own fp32 error {err_cpu:.3g} (card's "
+                             f"{err_gpu:.3g})")
+        # reported: the bf16 top-N selection against the fp32 one on the card
+        cfg_prefix = {"prompt_task": "caption", "add_objects": True, "add_events": False,
+                      "add_attributes": True, "add_scenes": False,
+                      "add_original_caption": True, "add_frame_captions": True,
+                      "add_ASR": False, "add_answer": True,
+                      "prompt_temporal_template": "temporal_natural",
+                      "visual_token_aggregation_version": "v2", "topk": 4,
+                      "caption_all_video": True, "permutate": -1,
+                      "output_path": os.path.join(tmp, "agree.jsonl")}
+        _, examples, _ = get_prompt_prefix(tvt, tcaps, tcaps, sorted(train), SB_INSTRUCTION,
+                                           cfg_prefix, None, None, SB_CAPTION_SHOT, 42)
+        support = [_extract_compare_str(e, "caption") for e in examples]
+        enc32 = make_torch_sbert_encoder(params, cfg, tok, dtype=torch.float32, device=device)
+        tops = []
+        for e in (enc16, enc32):
+            s, q = e(support), e(qtexts)
+            tops.append(np.argsort(q @ s.T, axis=1)[:, -SB_N:])
+        agree = float((tops[0] == tops[1]).all(axis=1).mean())
+
+    out.update(
+        queries=SB_QUERIES,
+        caption_selection_s=cap_s, caption_selection_ms_per_query=cap_s / SB_QUERIES * 1e3,
+        caption_queries_per_s=SB_QUERIES / cap_s,
+        qa_selection_s=qa_s, qa_selection_ms_per_query=qa_s / SB_QUERIES * 1e3,
+        qa_queries_per_s=SB_QUERIES / qa_s,
+        single_encode_call_ms_median=statistics.median(single + single_qa) * 1e3,
+        single_encode_calls=len(single) + len(single_qa),
+        answer_mapping_s=map_s, answer_mapping_accuracy=acc, vlep_s=vlep_s,
+        vlep_examples=SB_VLEP, path_s=path_s, peak_memory_gib=peak / 2**30,
+        launches=launches, max_norm_err=stats["max_norm_err"],
+        batch={"shape": [SB_BATCH, SB_LEN], "ms": batch_ms,
+               "sentences_per_s": SB_BATCH / batch_ms * 1e3,
+               "device_ms": batch_dev, "launches": sum(n for _, n in batch_kernels.values()),
+               "tflops": flops / batch_dev / 1e9, "bound_ms": bound, "bound_by": bound_by,
+               "top": sorted(([k[:60], ms, n] for k, (ms, n) in batch_kernels.items()),
+                             key=lambda r: -r[1])[:5]},
+        single={"shape": [1, SB_LEN], "ms": one_ms, "host_enqueue_ms": one_host,
+                "device_ms": one_dev, "launches": sum(n for _, n in one_kernels.values()),
+                "bound_ms": bound1, "bound_by": bound1_by},
+        fp32_check={"max_abs_diff_card_vs_cpu": diff, "cpu_err_vs_f64": err_cpu,
+                    "card_err_vs_f64": err_gpu, "bar": SB_F32_FACTOR * err_cpu},
+        bf16_vs_fp32_topn_agreement=agree, phase_s=time.time() - t_phase)
+    del params, p16, enc16, enc32
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1693,6 +2081,19 @@ def main():
             f"x {VT_FRAMES} frames, second chunk), ontology embedding "
             f"{r['ontology_embedding_s']:.2f} s, rerank {r['rerank_s']:.3f} s, peak memory "
             f"{r['peak_memory_gib']:.2f} GiB, card {card}")
+    sb = run_prompt_side(fa, fm, fvb, device, card)
+    log(f"prompt side (SBERT all-mpnet-base-v2, bf16): caption selection "
+        f"{sb['caption_selection_ms_per_query']:.3f} ms/query ({sb['caption_queries_per_s']:.1f} "
+        f"queries/s), QA selection {sb['qa_selection_ms_per_query']:.3f} ms/query "
+        f"({sb['qa_queries_per_s']:.1f} queries/s), single-sentence encode "
+        f"{sb['single']['ms']:.3f} ms (host enqueue {sb['single']['host_enqueue_ms']:.3f} ms, "
+        f"device {sb['single']['device_ms']:.4f} ms, {sb['single']['launches']} launches); "
+        f"64 x 128 batch {sb['batch']['ms']:.3f} ms ({sb['batch']['sentences_per_s']:.0f} "
+        f"sentences/s; device {sb['batch']['device_ms']:.3f} ms, {sb['batch']['launches']} "
+        f"launches); answer mapping {sb['answer_mapping_s']:.2f} s, VLEP "
+        f"{sb['vlep_s']:.2f} s; peak memory {sb['peak_memory_gib']:.2f} GiB; phase "
+        f"{sb['phase_s']:.1f} s; card {card}")
+    log("prompt side:", json.dumps(sb))
 
     def entry(name, source, replaces, n, rs, shape, desc, **extra):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"

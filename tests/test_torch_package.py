@@ -35,7 +35,13 @@ def test_port_imports_no_jax_and_no_vidil_tpu():
                  "utils.logging", "utils.schedules", "data.datasets", "data.transforms",
                  "data.text_utils", "evals.caption", "evals.caption_metrics",
                  "run_visual_tokenization", "pipeline.visual_tokenization", "models.clip",
-                 "ops.fused_mlp"):
+                 "ops.fused_mlp", "models.mpnet", "pipeline.prompts", "pipeline.generate_prompts",
+                 "pipeline.gpt3", "evals.qa", "evals.vlep", "generate_prompts_fixed_prefix",
+                 "generate_prompts_random_prefix",
+                 "generate_prompts_random_prefix_in_context_selection",
+                 "generate_prompts_random_prefix_vlep_multichoice",
+                 "utils_gpt3.process_gpt3_response", "utils_gpt3.gpt3_response_to_jsonl",
+                 "eval_video_qa_result", "eval_vlep", "eval_video_captioning_results"):
         assert f"vidil_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"

@@ -3,8 +3,9 @@
 A package beside ``vidil_tpu`` (the JAX reference, which it never
 imports): plain tensor code in PyTorch, and a hand-written CUDA kernel
 (``csrc/``) for each Pallas kernel of the JAX package on the ported
-paths. Entry points run on CUDA unless the caller passes
-``device="cpu"``.
+paths. Entry points that run a model run on CUDA unless the caller
+passes ``device="cpu"``; the prompt-side CLIs without a model (prompt
+generators, GPT-3 processing, caption eval) are host code.
 
 fp32 means fp32: TF32 and reduced-precision bf16 GEMM reductions are
 turned off at import, so fp32 and bf16 products accumulate in full fp32

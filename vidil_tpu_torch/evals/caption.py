@@ -1,18 +1,15 @@
 """Video captioning evaluation: the port's own copy of
-``vidil_tpu/evals/caption.py:video_caption_eval`` (reference:
+``vidil_tpu/evals/caption.py`` (reference:
 eval_video_captioning_results.py, data/utils.py:175-221)."""
 
 from __future__ import annotations
 
 import json
+import os
 from collections import defaultdict
 
 from vidil_tpu_torch.evals.caption_metrics import compute_caption_scores
-
-
-def load_jsonl(path: str) -> list:
-    with open(path) as f:
-        return [json.loads(line) for line in f]
+from vidil_tpu_torch.pipeline.gpt3 import load_jsonl, process_gpt3_response
 
 
 def video_caption_eval(gt_jsonl, results_file, output_path: str | None = None) -> dict:
@@ -61,3 +58,12 @@ def video_caption_eval(gt_jsonl, results_file, output_path: str | None = None) -
         with open(output_path, "w") as out:
             json.dump(eval_dict, out, indent=4)
     return eval_dict
+
+
+def eval_captioning_from_gpt3_response(gpt3_response_file, idx_2_videoid_json,
+                                       gt_jsonl, output_dir) -> dict:
+    """reference :146-159 — process the raw response then score it."""
+    processed = os.path.join(output_dir, "processed_" + os.path.basename(gpt3_response_file)[:-1])
+    metric_output_path = os.path.join(output_dir, "metric.json")
+    process_gpt3_response(idx_2_videoid_json, gpt3_response_file, output_path=processed)
+    return video_caption_eval(gt_jsonl, processed, output_path=metric_output_path)

@@ -202,7 +202,41 @@ def convert_med(sd: dict, cfg: MedConfig, prefix: str = "",
     return params
 
 
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def load_safetensors(path: str) -> dict:
+    """A ``.safetensors`` file -> {name: CPU tensor}, without the
+    safetensors package: an 8-byte little-endian header length, a JSON
+    header of {name: {dtype, shape, data_offsets}} (and ``__metadata__``),
+    then the raw little-endian buffers, offsets relative to the header's
+    end."""
+    import json
+    import struct
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    sd = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        t = torch.frombuffer(data, dtype=dtype, count=(end - begin) // dtype.itemsize,
+                             offset=begin) if end > begin else torch.empty(0, dtype=dtype)
+        sd[name] = t.reshape(info["shape"]).clone()
+    return sd
+
+
 def load_torch_state_dict(path: str) -> dict:
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in sd.items()}

@@ -1,9 +1,10 @@
-"""Tokenizers for the BLIP and CLIP text sides (host code, no torch).
+"""Tokenizers for the BLIP, CLIP and SBERT text sides (host code, no torch).
 
 The port's own copy of the JAX package's tokenizer (``BasicTokenizer``,
-``WordPieceTokenizer``, ``Encoding``, ``BlipTokenizer``, the CLIP BPE
-``ClipBPETokenizer``, ``trimmed_pad_len`` and the vocab writers), so that
-``vidil_tpu_torch`` imports nothing of ``vidil_tpu``.
+``WordPieceTokenizer``, ``Encoding``, ``BlipTokenizer``, the SBERT
+``MPNetTokenizer``, the CLIP BPE ``ClipBPETokenizer``, ``trimmed_pad_len``
+and the vocab writers), so that ``vidil_tpu_torch`` imports nothing of
+``vidil_tpu``.
 Compatible with HF ``BertTokenizer``: bert-base-uncased vocab + '[DEC]'
 bos + '[ENC]' (vocab 30524), as in BLIP's ``init_tokenizer``.
 """
@@ -280,6 +281,40 @@ class BlipTokenizer:
         return [self.decode(row, skip_special_tokens) for row in np.asarray(batch_ids)]
 
 
+class MPNetTokenizer(BlipTokenizer):
+    """HF MPNetTokenizer-compatible WordPiece tokenizer.
+
+    Same WordPiece machinery as BERT but with roberta-style specials:
+    ``<s>`` (cls/bos), ``</s>`` (sep/eos), ``<pad>``, ``<mask>``; the unk
+    token is ``[UNK]`` when present in the vocab (the all-mpnet-base-v2
+    layout) else ``<unk>``. Used for the SBERT in-context-selection /
+    answer-mapping encoder (reference: SentenceTransformer
+    'all-mpnet-base-v2').
+    """
+
+    def __init__(self, vocab_file: str, do_lower_case: bool = True):
+        self.vocab = {}
+        with open(vocab_file, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                self.vocab[line.rstrip("\n")] = i
+        self.pad_token = "<pad>"
+        self.cls_token = "<s>"
+        self.sep_token = "</s>"
+        self.mask_token = "<mask>"
+        self.unk_token = "[UNK]" if "[UNK]" in self.vocab else "<unk>"
+        special = {self.pad_token, self.cls_token, self.sep_token,
+                   self.mask_token, self.unk_token, "<unk>"}
+        self.special_tokens = {t for t in special if t in self.vocab} | {self.unk_token}
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        self.pad_token_id = self.vocab[self.pad_token]
+        self.cls_token_id = self.vocab[self.cls_token]
+        self.sep_token_id = self.vocab[self.sep_token]
+        self.unk_token_id = self.vocab[self.unk_token]
+        self.bos_token_id = self.cls_token_id
+        self.basic = BasicTokenizer(do_lower_case=do_lower_case, never_split=self.special_tokens)
+        self.wordpiece = WordPieceTokenizer(self.vocab, self.unk_token)
+
+
 # ---------------------------------------------------------------------------
 # CLIP BPE
 # ---------------------------------------------------------------------------
@@ -510,3 +545,21 @@ def write_bench_vocab(path: str) -> None:
             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(base + [f"tok{i}" for i in range(30418)]) + "\n")
+
+
+MPNET_VOCAB_SIZE = 30527
+
+
+def write_mpnet_vocab(path: str) -> None:
+    """Full-width (30527) synthetic SBERT vocab.txt in all-mpnet-base-v2's
+    layout: ``<s>`` 0, ``<pad>`` 1, ``</s>`` 2, ``<unk>`` 3, then
+    bert-base-uncased's 30522 slots shifted by 4 (``[PAD]`` 4, ``[UNK]``
+    104, ``[CLS]`` 105, ``[SEP]`` 106, ``[MASK]`` 107) with a plain word
+    ``word{i}`` in every other slot, then ``<mask>`` 30526. The pad id 1 is
+    load-bearing: it anchors MPNet's RoBERTa-style position ids."""
+    bert = (["[PAD]"] + [f"word{i}" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+            + [f"word{i}" for i in range(99, 30418 + 99)])
+    tokens = ["<s>", "<pad>", "</s>", "<unk>"] + bert + ["<mask>"]
+    assert len(tokens) == MPNET_VOCAB_SIZE
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
