@@ -3,8 +3,9 @@ kernels, holds each against its plain PyTorch version at the main paths'
 shapes, and drives the main paths at full BLIP-base width: CapFilt
 (384 px), the caption fine-tuning step (224 px) on both ViT schedules, the
 video-QA fine-tuning step with its two answer decoders, visual
-tokenization with its BLIP and CLIP encoders, and the prompt side on the
-SBERT MPNet encoder (all-mpnet-base-v2 width).
+tokenization with its BLIP and CLIP encoders, the prompt side on the
+SBERT MPNet encoder (all-mpnet-base-v2 width), and the BLIP retrieval
+eval, retrieval fine-tuning and video pretraining.
 
     python3 chip_smoke.py
 
@@ -114,8 +115,29 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      host enqueue ms, device ms and launches, per-query selection ms,
      answer-mapping and VLEP seconds, peak memory, and the bf16 top-N
      selection's agreement with the fp32 one.
+ 15. retrieval and pretraining at full width (ViT-B/16 224 px, MED-base),
+     synthetic weights, bf16: the retrieval eval (RetrievalEvaluator at the
+     shipped yaml's k_test 64, 8 frames, 8 rows per block, 8 blocks per
+     dispatch, self_fold 8) over 1000 noise videos x 1 synthetic caption,
+     every rank row keeping exactly 64 finite scores above -100, K1
+     launched exactly 12 times per dispatched rerank block (v2t and the
+     t2v bucket plan) and nothing else; one dispatch profiled (host
+     enqueue, device ms), the eval's dispatch loop timed (wall, device
+     ms, busy share), K1 at the block's fold by device time (in the
+     dispatch, and back to back beside SDPA), and one block in situ (each
+     K1 launch against its twin on the same inputs, within ATOL x max(1,
+     max |o|); the block's ITM logits through K1 no further from the
+     twin's than WITNESS_FACTOR x those through SDPA or an fp32
+     attention); then 6 retrieval train steps
+     (batch 8 x 4 frames, 35 tokens, queues of 57600, vit_grad_ckpt: no
+     kernel launch, the queue pointer advancing by 8 a step) and 6
+     pretraining steps (30 tokens, bert_config.json's MED widened to the
+     tokenizer: 24 K4 + 12 K5 a step), with step ms, host enqueue ms,
+     busy share, samples/s and peak memory, and one pretraining block
+     through K4/K5 against the twins.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
-BLIP ITM fold). Kernel times ("ms", "plain_ms", "library_ms") are the median
+BLIP ITM fold) and at the retrieval rerank's fold (its text length from
+phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
 of single calls between CUDA events on an idle card: device time plus the
 host work before the launch; "device_ms" (phases 8, 12) is device time
 alone. The last two lines are the kernels' JSON record (each kernel at its main
@@ -152,6 +174,22 @@ REPS = 20
 # num_frm_visual_tokenization 8, k_test 128, topk_visualize 5); the BLIP
 # rerank scores VT_ITM_ROWS frames per call
 VT_VIDEOS, VT_FRAMES, VT_K_TEST, VT_TOPK, VT_ITM_ROWS = 8, 8, 128, 5, 4
+# retrieval eval (train_blip_video_retrieval_msrvtt_pseudo.yaml: num_frm_test
+# 8, k_test 64, 224 px; the evaluator's rows_per_batch 8 and
+# blocks_per_dispatch 8) over MSR-VTT 1k-A's size, 1000 videos x 1 caption
+RET_VIDEOS, RET_FRAMES, RET_K, RET_ROWS, RET_BLOCKS = 1000, 8, 64, 8, 8
+RET_REAL_DISPATCHES = 3  # the eval's dispatch loop, timed on its own
+# the in-situ rerank block's ITM logits: K1's distance from the twin's within
+# this factor of the farther of two bf16 witnesses' (SDPA; fp32 attention
+# rounded once). Their distances scatter with where the first differing
+# rounding falls, not with the kernel, so the bar leaves room for that
+# scatter; a fault in K1 moves its logits by more than any bf16 rounding
+WITNESS_FACTOR = 3.0
+# the retrieval fine-tune (the yaml's batch_size_train 8, num_frm_train 4,
+# queue_size 57600, vit_grad_ckpt) and pretraining (pretrain_video.yaml's
+# batch_size 8, num_frm_train 4, 30-token captions)
+RET_TRAIN_BATCH, RET_TRAIN_FRAMES, RET_QUEUE, RET_STEPS = 8, 4, 57600, 6
+PRE_TOKENS = 30
 
 
 def log(*a):
@@ -177,6 +215,20 @@ def time_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, n=50) -> float:
+    """CUDA-event ms per call over n calls issued back to back after warm-up:
+    the device time per call once the launches queue faster than they run."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def host_us(fn) -> float:
@@ -322,7 +374,7 @@ def attention_rates(fa, q, k, ms, bound):
             "tile_use": Lq * Lk / padded}
 
 
-def _main_path_views(label, gen, device, dtype):
+def _main_path_views(label, gen, device, dtype, text_len=None):
     """q, k, v as the main path hands them to the kernel: head-split views
     of projection outputs (no copies). vit: one fused QKV projection of 32
     frames x 577 tokens; itm: 4 texts x 24 tokens per frame, folded into 96
@@ -336,29 +388,37 @@ def _main_path_views(label, gen, device, dtype):
     if label == "vt_clip_vision":  # CLIP-L's separate q, k, v projections
         return tuple(split_heads(torch.randn((64, 257, 1024), generator=gen, device=device)
                                  .to(dtype), 16) for _ in range(3))
-    # the grouped ITM: G texts of T tokens per frame fold into G*T query rows
-    B, G, T = (32, 4, 24) if label == "itm_grouped_fold" else (VT_ITM_ROWS, VT_K_TEST, 16)
+    # the grouped ITM: G texts of T tokens per memory fold into G*T query
+    # rows; the retrieval rerank's memory is a video's 8 frames x 197
+    # tokens, its texts text_len tokens long
+    B, G, T, Lk = {"itm_grouped_fold": (32, 4, 24, 577),
+                   "vt_itm_fold": (VT_ITM_ROWS, VT_K_TEST, 16, 577),
+                   "retrieval_rerank_fold": (RET_ROWS, RET_K, text_len,
+                                             RET_FRAMES * 197)}[label]
     q = split_heads(torch.randn((B * G, T, 768), generator=gen, device=device).to(dtype), H)
     q = q.reshape(B, G, H, T, 64).transpose(1, 2).reshape(B, H, G * T, 64)
-    k = split_heads(torch.randn((B, 577, 768), generator=gen, device=device).to(dtype), H)
-    v = split_heads(torch.randn((B, 577, 768), generator=gen, device=device).to(dtype), H)
+    k = split_heads(torch.randn((B, Lk, 768), generator=gen, device=device).to(dtype), H)
+    v = split_heads(torch.randn((B, Lk, 768), generator=gen, device=device).to(dtype), H)
     return q, k, v
 
 
-def check_flash_kernel(fa, device):
-    """Phase 3: kernel vs twin at both main-path shapes, bf16 and fp32, on
-    contiguous tensors and on the strided views the main path passes."""
+def check_flash_kernel(fa, device, rerank_len):
+    """Phase 3: kernel vs twin at the main paths' shapes, bf16 and fp32, on
+    contiguous tensors and on the strided views the main path passes;
+    `rerank_len` is the retrieval corpus's text length."""
     rows = []
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = {"vit_self_attention": ((32, 12, 577, 64), (32, 12, 577, 64)),
               "itm_grouped_fold": ((32, 12, 96, 64), (32, 12, 577, 64)),
               "vt_clip_vision": ((64, 16, 257, 64), (64, 16, 257, 64)),
-              "vt_itm_fold": ((VT_ITM_ROWS, 12, VT_K_TEST * 16, 64), (VT_ITM_ROWS, 12, 577, 64))}
+              "vt_itm_fold": ((VT_ITM_ROWS, 12, VT_K_TEST * 16, 64), (VT_ITM_ROWS, 12, 577, 64)),
+              "retrieval_rerank_fold": ((RET_ROWS, 12, RET_K * rerank_len, 64),
+                                        (RET_ROWS, 12, RET_FRAMES * 197, 64))}
     for dtype in (torch.bfloat16, torch.float32):
         for label, (qs, ks) in shapes.items():
             for layout in ("contiguous", "views"):
                 if layout == "views":
-                    q, k, v = _main_path_views(label, gen, device, dtype)
+                    q, k, v = _main_path_views(label, gen, device, dtype, rerank_len)
                 else:
                     q = torch.randn(qs, generator=gen, device=device).to(dtype)
                     k = torch.randn(ks, generator=gen, device=device).to(dtype)
@@ -1238,20 +1298,29 @@ def _well_formed(row, tok) -> bool:
     return all(t == tok.pad_token_id for t in row[end + 1:])
 
 
-def in_situ_fused_block(fvb, device):
-    """Phase 11: one full-width ViT block at the trainers' shape through
-    fused_vit_block (K4 forward, K5 backward), bf16 compute over fp32
-    parameters, and through the twins: the input gradient and the qkv
-    weight gradient (reported)."""
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
+def in_situ_fused_block(fvb, device, blk=None, frames=None):
+    """Phases 11 and 15: one full-width ViT block at the trainers' shape
+    (or `blk` over `frames` frames) through fused_vit_block (K4 forward, K5
+    backward), bf16 compute over fp32 parameters, and through the twins:
+    the input gradient and the qkv weight gradient (reported)."""
     from vidil_tpu_torch.config import ViTConfig
     from vidil_tpu_torch.models import blip, convert
     from vidil_tpu_torch.utils.synth import synth_tree
 
     cfg = ViTConfig.from_name("base", 224)
-    blk = convert.from_jax_params(synth_tree({"blocks": blip.vit_shapes(cfg)["blocks"]},
-                                             device, salt=1.0))["blocks"][0]
+    if blk is None:
+        blk = convert.from_jax_params(synth_tree({"blocks": blip.vit_shapes(cfg)["blocks"]},
+                                                 device, salt=1.0))["blocks"][0]
+    blk = _detached(blk)
     gen = torch.Generator(device=device).manual_seed(7)
     B, Lp, true_len = BLOCK_SHAPES["train_224"]
+    B = frames or B
     x0 = torch.zeros((B, Lp, cfg.hidden_size), device=device)
     x0[:, :true_len] = torch.randn((B, true_len, cfg.hidden_size), generator=gen, device=device)
     r = torch.randn((B, true_len, cfg.hidden_size), generator=gen, device=device)
@@ -1977,6 +2046,426 @@ def run_prompt_side(fa, fm, fvb, device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# BLIP video retrieval (eval and fine-tune) and video pretraining (phase 15)
+# ---------------------------------------------------------------------------
+
+def bench_tokenizer():
+    """BLIP's tokenizer over the full-size bench vocab (30524 ids)."""
+    import os
+
+    from vidil_tpu_torch.tokenizer import BlipTokenizer, write_bench_vocab
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "vocab.txt")
+        write_bench_vocab(vocab)
+        return BlipTokenizer(vocab)
+
+
+def retrieval_corpus(tok):
+    """RET_VIDEOS captions (the bench vocab's tokN words, one token each):
+    5-20 words, MSR-VTT's run about 9, and one in a hundred of 33-40 words,
+    past the tokenizer's 35-token cap, so the trimmed length is the cap, as
+    in a corpus whose longest caption reaches it; and that trimmed text
+    length (`trimmed_pad_len`, as the evaluator computes it)."""
+    from vidil_tpu_torch.tokenizer import trimmed_pad_len
+
+    rng = np.random.default_rng(10)
+    lengths = np.where(rng.random(RET_VIDEOS) < 0.01, rng.integers(33, 41, RET_VIDEOS),
+                       rng.integers(5, 21, RET_VIDEOS))
+    texts = [" ".join(f"tok{i}" for i in rng.integers(0, 30000, int(n))) for n in lengths]
+    enc = tok(texts, padding="max_length", truncation=True, max_length=35)
+    return texts, trimmed_pad_len(enc.attention_mask)
+
+
+def _retrieval_params(vit_cfg, med_cfg, device, salt):
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    params = convert.from_jax_params(synth_tree(blip.blip_retrieval_shapes(vit_cfg, med_cfg),
+                                                device, salt=salt))
+    params["temp"].fill_(0.07)
+    return params
+
+
+def run_retrieval_eval(fa, fvb, device, tok, texts, text_len):
+    """Phase 15a: RetrievalEvaluator at the shipped yaml's settings over
+    RET_VIDEOS synthetic videos of 8 noise frames and `texts`, bf16: text
+    features, video features (kept on the device), then score_matrices'
+    v2t and bucketed t2v reranks. K1 must launch 12 times per dispatched
+    rerank block (each block's (8, 12, 64 L, 64) fold over (8, 12, 1576,
+    64) passes the reference's gate) and nothing else may launch; every
+    row keeps exactly k_test scores above -100, all finite. Then one
+    dispatch profiled, the eval's dispatch loop timed, K1's device ms at
+    the block's fold (in the dispatch, and back to back beside SDPA's), and
+    one rerank block in situ: each of its K1 launches against the twin on
+    the same inputs (the bar, ATOL x max(1, max |o|)), and its ITM logits
+    through K1, SDPA and an fp32 attention against those through the twin
+    (K1's within WITNESS_FACTOR x the farther witness's distance)."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.evals.retrieval import RetrievalEvaluator, itm_eval
+
+    vit_cfg = ViTConfig.from_name("base", 224)
+    med_cfg = _med_cfg(vit_cfg)
+    params = _retrieval_params(vit_cfg, med_cfg, device, salt=4.0)
+    kw = dict(k_test=RET_K, dtype=torch.bfloat16, rows_per_batch=RET_ROWS,
+              blocks_per_dispatch=RET_BLOCKS)
+    ev = RetrievalEvaluator(params, vit_cfg, med_cfg, tok, **kw)
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def video_batches():  # the yaml's batch_size_test 8, normalized noise
+        for _ in range(RET_VIDEOS // 8):
+            yield torch.randn((8, RET_FRAMES, 224, 224, 3), generator=gen, device=device)
+
+    times = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name] = time.time() - t
+            return out
+        return run
+
+    ev._rerank_rows = timed("v2t_rerank_s", ev._rerank_rows)
+    ev._rerank_t2v_bucketed = timed("t2v_rerank_s", ev._rerank_t2v_bucketed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fvb.reset_launch_counts()
+    t0 = time.time()
+    text_embeds, text_ids, text_atts = ev.compute_text_features(texts)
+    t1 = time.time()
+    vf, ve = ev.compute_video_features(video_batches())
+    torch.cuda.synchronize()
+    t2 = time.time()
+    v2t, t2v = ev.score_matrices(vf, ve, text_embeds, text_ids, text_atts)
+    t3 = time.time()
+    launches = _counts(fa, fvb)
+    peak = torch.cuda.max_memory_allocated()
+
+    L = text_ids.shape[1]
+    sims = ve @ text_embeds.T
+    v2t_blocks = math.ceil(RET_VIDEOS / RET_ROWS)
+    vids_b, txts_b, bucket_vid, bucket_txt, bucket_real = ev.t2v_plan(sims.T)
+    dispatched = {d: math.ceil(n / RET_BLOCKS) * RET_BLOCKS
+                  for d, n in (("v2t", v2t_blocks), ("t2v", len(vids_b)))}
+    # a block's k_test texts per video memory reach attention_auto's grouped
+    # cross-attention as one (8, 12, k_test L, 64) query axis (models/med.py)
+    q = torch.empty((RET_ROWS, 12, RET_K * L, 64), device="meta")
+    k = torch.empty((RET_ROWS, 12, RET_FRAMES * 197, 64), device="meta")
+    gate = fa._flash_profitable(q, k, None)
+    want = {name: 0 for name in launches}
+    want["flash_attention_fwd"] = med_cfg.num_layers * sum(dispatched.values()) * gate
+    if launches != want or L != text_len:
+        raise SystemExit(f"retrieval eval: launches {launches}, want {want} (text length {L}, "
+                         f"phase 3 checked {text_len})")
+    for name, m in (("v2t", v2t), ("t2v", t2v)):
+        kept = (m > -100).sum(axis=1)
+        if not (np.isfinite(m).all() and (kept == RET_K).all()):
+            raise SystemExit(f"retrieval eval: {name} rows keep {sorted(set(kept.tolist()))} "
+                             f"scores above -100 (want {RET_K}) or are not finite")
+    metrics = itm_eval(v2t, t2v, list(range(RET_VIDEOS)), list(range(RET_VIDEOS)))
+    computed = sum(dispatched.values()) * RET_ROWS * RET_K
+    scorings = 2 * RET_VIDEOS * RET_K
+    per_video = np.bincount(bucket_vid, minlength=RET_VIDEOS)
+    rerank_s = times["v2t_rerank_s"] + times["t2v_rerank_s"]
+    out = dict(videos=RET_VIDEOS, frames=RET_FRAMES, k_test=RET_K, text_len=int(L),
+               text_features_s=t1 - t0, video_features_s=t2 - t1, score_matrices_s=t3 - t2,
+               **times, scorings=scorings, scorings_per_s=scorings / rerank_s,
+               v2t_blocks=v2t_blocks, t2v_blocks=len(vids_b), dispatched_blocks=dispatched,
+               t2v_buckets=len(bucket_vid), t2v_buckets_per_video_max=int(per_video.max()),
+               t2v_videos_with_buckets=int((per_video > 0).sum()),
+               padding_share=1 - scorings / computed, gate_passes=bool(gate),
+               launches=launches, peak_memory_gib=peak / 2**30,
+               metrics={k: float(v) for k, v in metrics.items()})
+    log("retrieval eval (main path):", json.dumps(out))
+
+    # one dispatch (RET_BLOCKS v2t blocks): host enqueue, wall, device time
+    rows_b = np.arange(RET_BLOCKS * RET_ROWS).reshape(RET_BLOCKS, RET_ROWS)
+    topk_b = np.ascontiguousarray(np.argsort(sims[rows_b.reshape(-1)], axis=1)[:, ::-1][:, :RET_K]
+                                  .reshape(RET_BLOCKS, RET_ROWS, RET_K))
+    tids, tatts = ev._put(text_ids).long(), ev._put(text_atts).long()
+    rb, tb = ev._put(rows_b), ev._put(topk_b)
+    blocks = ev._blocks(vf, tids, tatts)
+    blocks(rb, tb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    blocks(rb, tb)
+    enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    prof = profile_run(lambda: blocks(rb, tb))
+    prof["device_busy_share"] = prof["device_ms"] / (wall * 1e3)
+    out["dispatch"] = dict(blocks=RET_BLOCKS, host_enqueue_ms=enqueue * 1e3, wall_ms=wall * 1e3,
+                           profile=prof)
+    # the eval's own dispatch loop (_dispatch_blocks: indices from the host,
+    # one dispatch in flight) over the first RET_REAL_DISPATCHES v2t
+    # dispatches: wall time, and device time from a profiled repeat; and the
+    # whole v2t rerank's busy share, its dispatches at that device time
+    n_real = RET_REAL_DISPATCHES * RET_BLOCKS
+    rows_r = np.arange(n_real * RET_ROWS).reshape(n_real, RET_ROWS)
+    topk_r = np.ascontiguousarray(np.argsort(sims[rows_r.reshape(-1)], axis=1)[:, ::-1][:, :RET_K]
+                                  .reshape(n_real, RET_ROWS, RET_K))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ev._dispatch_blocks(blocks, rows_r, topk_r)
+    loop_wall = time.perf_counter() - t
+    loop_prof = profile_run(lambda: ev._dispatch_blocks(blocks, rows_r, topk_r))
+    per_dispatch = loop_prof["device_ms"] / RET_REAL_DISPATCHES
+    out["dispatch_loop"] = dict(
+        dispatches=RET_REAL_DISPATCHES, wall_ms=loop_wall * 1e3,
+        device_ms=loop_prof["device_ms"], device_busy_share=loop_prof["device_ms"] / (loop_wall * 1e3),
+        v2t_rerank_busy_share=per_dispatch * dispatched["v2t"] / RET_BLOCKS
+        / (times["v2t_rerank_s"] * 1e3))
+
+    # K1 at the block's fold: its device ms per launch inside the profiled
+    # dispatch, and alone, back to back (CUDA events), beside SDPA's
+    qv, kv, vv = _main_path_views("retrieval_rerank_fold", gen, device, torch.bfloat16, L)
+    out["k1_fold_dispatch_device_ms"] = prof["flash_kernels_ms"] / (
+        med_cfg.num_layers * RET_BLOCKS)
+    out["k1_fold_back_to_back_ms"] = back_to_back_ms(lambda: fa.flash_attention(qv, kv, vv))
+    out["sdpa_fold_back_to_back_ms"] = back_to_back_ms(
+        lambda: F.scaled_dot_product_attention(qv, kv, vv))
+
+    # in situ, the first v2t block: each of its K1 launches held against the
+    # twin (at the kernel's tiling) on the same q, k, v (the bar: ATOL, set
+    # for |o| < 1 as a few bf16 ulps, scaled by max(1, max |o|) to keep the
+    # same ulps where the block's deeper layers give |o| > 1); then its ITM
+    # logits through K1 and through the twin after one MED layer and after
+    # twelve (reported: a bf16 rounding that differs in one call moves
+    # every later layer's input)
+    te = params["text_encoder"]
+    one = RetrievalEvaluator(dict(params, text_encoder=dict(te, layers=te["layers"][:1])),
+                             vit_cfg, med_cfg, tok, **kw)
+    forward = fa._forward
+    calls = []
+
+    def checked(q, k, v, with_lse):
+        o = forward(q, k, v, with_lse)
+        want = fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
+        calls.append(((o.float() - want.float()).abs().max().item(),
+                      want.float().abs().max().item()))
+        return o
+
+    def twin(q, k, v, with_lse):
+        return fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype],
+                                      return_lse=with_lse)
+
+    # witnesses: the same block with the library's bf16 attention (SDPA), and
+    # with the attention in fp32 rounded once to bf16, in K1's place; their
+    # logits' distance from the twin's is what any bf16 attention moves them
+    def sdpa(q, k, v, with_lse):
+        assert not with_lse
+        return F.scaled_dot_product_attention(q, k, v)
+
+    def fp32(q, k, v, with_lse):
+        assert not with_lse
+        return F.scaled_dot_product_attention(q.float(), k.float(), v.float()).to(q.dtype)
+
+    def itm_with(e, attention):
+        fa._forward = attention
+        try:
+            return e._itm_grouped(vf, tids, tatts, rb[0], tb[0])
+        finally:
+            fa._forward = forward
+
+    situ = {}
+    for label, e, n in (("one_layer", one, 1), ("twelve", ev, med_cfg.num_layers)):
+        calls.clear()
+        a = itm_with(e, checked)
+        b = itm_with(e, twin)
+        for name, attention in (("sdpa", sdpa), ("fp32", fp32)):
+            w = itm_with(e, attention)
+            situ[f"{label}_itm_logit_{name}_vs_twin_max_abs_diff"] = (w - b).abs().max().item()
+        if len(calls) != n or not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise SystemExit(f"in-situ rerank block ({label}): {len(calls)} K1 launches, want "
+                             f"{n}, or non-finite logits")
+        situ[f"{label}_k1_vs_twin_max_abs_err"] = max(err for err, _ in calls)
+        situ[f"{label}_k1_max_abs_out"] = max(out for _, out in calls)
+        situ[f"{label}_k1_over_bar"] = max(err / (ATOL[torch.bfloat16] * max(1.0, out))
+                                           for err, out in calls)
+        situ[f"{label}_itm_logit_max_abs_diff"] = (a - b).abs().max().item()
+        situ[f"{label}_itm_logit_max_abs"] = b.abs().max().item()
+    situ["atol"] = ATOL[torch.bfloat16]
+    out["in_situ"] = situ
+    if max(situ["one_layer_k1_over_bar"], situ["twelve_k1_over_bar"]) > 1.0:
+        raise SystemExit(f"in-situ rerank block: a K1 launch differs from its twin beyond "
+                         f"{ATOL[torch.bfloat16]} x max(1, max |o|): {situ}")
+    # K1's logits may sit no further from the twin's than WITNESS_FACTOR x the
+    # farther witness's: a kernel fault hidden by the scaled per-launch bar
+    # would put them well beyond any bf16 attention's
+    for label in ("one_layer", "twelve"):
+        reach = max(situ[f"{label}_itm_logit_{w}_vs_twin_max_abs_diff"] for w in ("sdpa", "fp32"))
+        if situ[f"{label}_itm_logit_max_abs_diff"] > WITNESS_FACTOR * reach:
+            raise SystemExit(f"in-situ rerank block ({label}): K1's ITM logits sit beyond "
+                             f"{WITNESS_FACTOR} x the bf16 witnesses' distance from the twin's: "
+                             f"{situ}")
+    del ev, one, vf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _momentum_batch(tok, device, tokens, pretrain):
+    """One fixed batch of RET_TRAIN_BATCH videos x RET_TRAIN_FRAMES noise
+    frames at 224 px and captions of 8 to `tokens` tokens ([CLS], words,
+    [SEP], pads), with the [ENC] ids (and for pretraining the [DEC] ids);
+    retrieval's idx are the videos' own ids."""
+    rng = np.random.default_rng(12)
+    B = RET_TRAIN_BATCH
+    ids = np.zeros((B, tokens), np.int64)
+    mask = np.zeros_like(ids)
+    for b in range(B):
+        n = int(rng.integers(8, tokens + 1))
+        ids[b, :n] = [tok.cls_token_id, *rng.integers(1000, 30000, n - 2), tok.sep_token_id]
+        mask[b, :n] = 1
+    enc, dec = ids.copy(), ids.copy()
+    enc[:, 0], dec[:, 0] = tok.enc_token_id, tok.bos_token_id
+    gen = torch.Generator(device=device).manual_seed(13)
+    batch = {"video": torch.randn((B, RET_TRAIN_FRAMES, 224, 224, 3), generator=gen,
+                                  device=device),
+             "text_ids": ids, "enc_ids": enc, "text_mask": mask}
+    if pretrain:
+        batch["dec_ids"] = dec
+    else:
+        batch["idx"] = np.arange(B)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def momentum_loop(label, step, state, batch, fa, fvb, want):
+    """RET_STEPS steps of a momentum-tower trainer on one fixed batch, each
+    with the generator of make_generator(0, step): finite losses, the
+    queue pointer advancing by the batch each step, exactly the launches
+    `want` in every step; the steady step ms (CUDA events, step 1
+    excluded), host enqueue ms, samples/s, peak memory and one profiled
+    step."""
+    from vidil_tpu_torch.utils.seeding import make_generator
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, enqueue_ms, per_step, ptrs = [], [], [], [], []
+    B, Q = RET_TRAIN_BATCH, state.queue.image.shape[1]
+    fa.reset_launch_counts()
+    fvb.reset_launch_counts()
+    for i in range(RET_STEPS):
+        before, ptr = _counts(fa, fvb), state.queue.ptr
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        state, m = step(state, batch, 0.4, make_generator(0, i, state.device))
+        end.record()
+        enqueue_ms.append((time.time() - t0) * 1e3)
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append({k: float(v) for k, v in m.items()})
+        per_step.append({k: v - before[k] for k, v in _counts(fa, fvb).items()})
+        ptrs.append(state.queue.ptr)
+        if state.queue.ptr != (ptr + B) % Q:
+            raise SystemExit(f"{label}: queue pointer {ptr} -> {state.queue.ptr}, batch {B}")
+    launches = _counts(fa, fvb)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: losses", json.dumps(losses))
+    log(f"{label}: launches per step", json.dumps(per_step[-1]), "in all", json.dumps(launches))
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise SystemExit(f"{label}: losses not finite: {losses}")
+    if any(s != want for s in per_step):
+        raise SystemExit(f"{label}: launches per step {per_step}, want {want} each")
+    steady = statistics.median(step_ms[1:])
+    prof = profile_run(lambda: step(state, batch, 0.4, make_generator(0, RET_STEPS,
+                                                                      state.device)))
+    prof["device_busy_share"] = prof["device_ms"] / steady
+    return state, dict(profile=prof, losses=losses, step_ms=step_ms, enqueue_ms=enqueue_ms,
+                       steady_step_ms=steady, steady_enqueue_ms=statistics.median(enqueue_ms[1:]),
+                       samples_per_s=B / (steady / 1e3), peak_memory_gib=peak / 2**30,
+                       launches=launches, launches_per_step=per_step[-1], queue_ptrs=ptrs,
+                       steps=RET_STEPS, batch=B, frames=RET_TRAIN_FRAMES, queue=Q)
+
+
+def run_retrieval_training(fa, fvb, device, tok):
+    """Phase 15b: make_retrieval_train_step at full width (ViT-B/16 224 px
+    with the yaml's vit_grad_ckpt, MED-base), synthetic weights, bf16, the
+    reference's batch 8 x 4 frames, 35-token captions, queues of 57600. The
+    JAX package keeps this step on the classic ViT schedule: at 224 px the
+    reference's gate sends the attention to the plain path, and the MED's
+    attention carries a bias, so no kernel launches."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.train.retrieval import create_train_state, make_retrieval_train_step
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=True)
+    med_cfg = _med_cfg(vit_cfg)
+    state = create_train_state(_retrieval_params(vit_cfg, med_cfg, device, salt=5.0), 1e-4, 0.05,
+                               queue_size=RET_QUEUE, seed=0, device=device)
+    step = make_retrieval_train_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
+    want = {name: 0 for name in _counts(fa, fvb)}
+    _, out = momentum_loop("retrieval training", step, state, _momentum_batch(tok, device, 35,
+                                                                            False), fa, fvb, want)
+    return out
+
+
+def run_pretraining(fa, fvb, device, tok):
+    """Phase 15c: make_pretrain_step at full width (ViT-B/16 224 px with the
+    yaml's vit_grad_ckpt, MED from configs/bert_config.json widened to the
+    tokenizer's 30524 ids, as pretrain_video does), synthetic weights, bf16,
+    batch 8 x 4 frames, 30-token captions, queues of 57600: the default
+    fused ViT schedule, 12 K4 + 12 K5 launches for the trained tower and 12
+    K4 for the momentum tower per step; then one block of the trained
+    tower through K4/K5 and through their twins at the step's 32 frames."""
+    import dataclasses
+    import os
+
+    from vidil_tpu_torch.config import MedConfig, ViTConfig
+    from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params
+    from vidil_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    med_cfg = MedConfig.from_json(os.path.join(repo, "configs", "bert_config.json"),
+                                  encoder_width=vit_cfg.hidden_size)
+    med_cfg = dataclasses.replace(med_cfg, vocab_size=tok.vocab_size)
+    state = create_pretrain_state(init_pretrain_params(vit_cfg, med_cfg, device=device, salt=6.0),
+                                  1e-4, 0.05, queue_size=RET_QUEUE, seed=0, device=device)
+    step = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
+    n = vit_cfg.num_layers
+    want = {name: 0 for name in _counts(fa, fvb)}
+    want.update(fused_vit_block_fwd=2 * n, fused_vit_block_bwd=n)
+    state, out = momentum_loop("pretraining", step, state,
+                               _momentum_batch(tok, device, PRE_TOKENS, True), fa, fvb, want)
+    out["in_situ_block"] = in_situ_fused_block(fvb, device,
+                                               state.params["visual_encoder"]["blocks"][0],
+                                               frames=RET_TRAIN_BATCH * RET_TRAIN_FRAMES)
+    return out
+
+
+def run_retrieval_phase(fa, fvb, device, card, tok, texts, text_len):
+    """Phase 15: the retrieval eval, the retrieval fine-tune, pretraining."""
+    t_phase = time.time()
+    ev = run_retrieval_eval(fa, fvb, device, tok, texts, text_len)
+    log(f"retrieval eval: {ev['videos']} videos x {ev['frames']} frames, k_test {ev['k_test']}, "
+        f"text length {ev['text_len']}: text features {ev['text_features_s']:.2f} s, video "
+        f"features {ev['video_features_s']:.2f} s, v2t rerank {ev['v2t_rerank_s']:.2f} s, t2v "
+        f"rerank {ev['t2v_rerank_s']:.2f} s ({ev['scorings_per_s']:.0f} scorings/s), "
+        f"{ev['t2v_buckets']} t2v buckets ({ev['t2v_blocks']} blocks, padding share "
+        f"{ev['padding_share']:.3f}), one dispatch: host enqueue "
+        f"{ev['dispatch']['host_enqueue_ms']:.1f} ms, device "
+        f"{ev['dispatch']['profile']['device_ms']:.1f} ms, wall {ev['dispatch']['wall_ms']:.1f} "
+        f"ms; peak memory {ev['peak_memory_gib']:.2f} GiB; card {card}")
+    log("retrieval eval:", json.dumps(ev))
+    out = {"eval": ev}
+    for name, fn in (("retrieval_training", run_retrieval_training),
+                     ("pretraining", run_pretraining)):
+        t = out[name] = fn(fa, fvb, device, tok)
+        log(f"{name}: steady step {t['steady_step_ms']:.2f} ms (CUDA events, step 1 excluded; "
+            f"host enqueue {t['steady_enqueue_ms']:.2f} ms), busy share "
+            f"{t['profile']['device_busy_share']:.3f}, {t['samples_per_s']:.2f} samples/s "
+            f"({t['batch']} videos x {t['frames']} frames), peak memory "
+            f"{t['peak_memory_gib']:.2f} GiB, card {card}")
+        log(f"{name}:", json.dumps(t))
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2000,7 +2489,9 @@ def main():
             line.strip() for line in open(f"{path}.log") if "registers" in line or "spill" in line))))
     sass = check_sass(libs)
 
-    rows = check_flash_kernel(fa, device)
+    tok = bench_tokenizer()
+    texts, rerank_len = retrieval_corpus(tok)  # phase 15's corpus, for phase 3's shape
+    rows = check_flash_kernel(fa, device, rerank_len)
 
     t0 = time.time()
     engine, vit_cfg, med_cfg = make_engine(device)
@@ -2094,6 +2585,8 @@ def main():
         f"{sb['vlep_s']:.2f} s; peak memory {sb['peak_memory_gib']:.2f} GiB; phase "
         f"{sb['phase_s']:.1f} s; card {card}")
     log("prompt side:", json.dumps(sb))
+    ret = run_retrieval_phase(fa, fvb, device, card, tok, texts, rerank_len)
+    del texts
 
     def entry(name, source, replaces, n, rs, shape, desc, **extra):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"
@@ -2131,6 +2624,15 @@ def main():
               "q,k,v (32, 12, 577, 64) bf16 views of the QKV projection; CapFilt path",
               launches_visual_tokenization_blip=vt["blip"]["launches"]["flash_attention_fwd"],
               launches_visual_tokenization_clip=vt["clip"]["launches"]["flash_attention_fwd"],
+              launches_retrieval_eval=ret["eval"]["launches"]["flash_attention_fwd"],
+              retrieval_rerank_fold=dict(
+                  dispatch_device_ms=ret["eval"]["k1_fold_dispatch_device_ms"],
+                  back_to_back_ms=ret["eval"]["k1_fold_back_to_back_ms"],
+                  library_back_to_back_ms=ret["eval"]["sdpa_fold_back_to_back_ms"],
+                  **{k: next(x for x in rows if x["shape"] == "retrieval_rerank_fold"
+                             and x["dtype"] == "bfloat16" and x["layout"] == "views")[k]
+                     for k in ("q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "max_abs_err")}),
               sass=sass["flash_attention_fwd"]),
         entry("flash_attention_fwd_lse", fwd_src, "vidil_tpu/ops/flash_attention.py:290",
               situ_launches["flash_attention_fwd_lse"], lse_rows, "vit_self_attention",
@@ -2151,6 +2653,7 @@ def main():
               "x (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
               "path (the trainers' default)",
               launches_vqa=vqa["launches"]["fused_vit_block_fwd"],
+              launches_pretrain_step=ret["pretraining"]["launches_per_step"]["fused_vit_block_fwd"],
               **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd"),
               attention=attention(False), attention_with_stats=attention(True),
               sass_attention=sass["fused_vit_block_fwd:attn_fwd_wgmma"]),
@@ -2160,6 +2663,7 @@ def main():
               "x, g (48, 256, 768) bf16, 197 true tokens, ViT-B/16 block; fused caption training "
               "path (the trainers' default)",
               launches_vqa=vqa["launches"]["fused_vit_block_bwd"],
+              launches_pretrain_step=ret["pretraining"]["launches_per_step"]["fused_vit_block_bwd"],
               **device(block_bwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_bwd")),
         entry("fused_mlp_fwd", "vidil_tpu_torch/csrc/fused_mlp_fwd.cu",
               "vidil_tpu/ops/fused_mlp.py:69", vt["blip"]["launches"]["fused_mlp_fwd"],

@@ -87,6 +87,32 @@ def test_flash_kernel_grouped_itm_fold(cuda_device, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("L", [16, 13, 35])
+def test_flash_kernel_retrieval_rerank_fold(cuda_device, dtype, atol, L):
+    """The retrieval rerank's block (evals/retrieval.py, k_test 64, 8 rows
+    of 8 frames at 224 px): 64 texts of L tokens per video fold into a
+    (8, 12, 64 L, 64) view over the video's (8, 12, 1576, 64) memory; L 13
+    and L 35 (the tokenizer's cap) leave the query axis off the kernel's
+    128-row tiles. The gate sends
+    the shape to the kernel, which agrees with its twin on the view."""
+    B, G, H, Lk = 8, 64, 12, 8 * 197
+    rng = np.random.default_rng(12 + L)
+    x = torch.from_numpy(rng.standard_normal((B * G, L, H * 64), dtype=np.float32))
+    q = split_heads(x.to(cuda_device, dtype), H)
+    qf = q.reshape(B, G, H, L, 64).transpose(1, 2).reshape(B, H, G * L, 64)
+    k, v = (split_heads(torch.from_numpy(rng.standard_normal((B, Lk, H * 64), dtype=np.float32))
+                        .to(cuda_device, dtype), H) for _ in range(2))
+    assert fa._flash_profitable(qf, k, None)
+    before = fa.launch_counts["flash_attention_fwd"]
+    got = fa.attention_auto(qf, k, v)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention_fwd"] == before + 1
+    want = fa.flash_attention_ref(qf, k, v, block_k=fa.KERNEL_BLOCK_K[dtype])
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_strided_views_bitwise(cuda_device, dtype):
     """Head-split views of a fused QKV projection give the same bits as

@@ -227,7 +227,12 @@ def test_unported_switches_raise(itm):
     _, _, tp = itm
     ids, mask = _text(2, 5, 21)
     with pytest.raises(NotImplementedError):
-        med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text", self_fold=2)
+        MedConfig(**MED_KW, remat_policy="dots")
+    # self_fold is accepted: the unfolded run is the fold's exact result
+    base = med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text")
+    folded = med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text",
+                             self_fold=2)
+    assert torch.equal(folded, base)
     # the fused MLP (K3) is ported: the config takes the switch
     assert ViTConfig(**VIT_KW, use_fused_mlp=True).use_fused_mlp
 

@@ -41,7 +41,10 @@ def test_port_imports_no_jax_and_no_vidil_tpu():
                  "generate_prompts_random_prefix_in_context_selection",
                  "generate_prompts_random_prefix_vlep_multichoice",
                  "utils_gpt3.process_gpt3_response", "utils_gpt3.gpt3_response_to_jsonl",
-                 "eval_video_qa_result", "eval_vlep", "eval_video_captioning_results"):
+                 "eval_video_qa_result", "eval_vlep", "eval_video_captioning_results",
+                 "models.blip_retrieval", "models.blip_pretrain", "evals.retrieval",
+                 "train.retrieval", "train.pretrain", "train.frame_selection",
+                 "train_retrieval_video", "eval_retrieval_video", "pretrain_video"):
         assert f"vidil_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"

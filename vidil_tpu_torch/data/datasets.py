@@ -1,9 +1,10 @@
-"""Caption and VQA training/eval datasets and a threaded prefetch loader:
-the port's own copy of the parts of ``vidil_tpu/data/datasets.py`` the
-caption and VQA trainers use (`RetrievalTrainDataset` as the base,
-`CaptionTrainDataset`, `CaptionEvalDataset`, `VQADataset`, `vqa_collate`,
-`PrefetchLoader`). Items are numpy arrays, batching
-is plain stacking, and a thread pool decodes video ahead of the device.
+"""Caption, VQA and retrieval training/eval datasets and a threaded
+prefetch loader: the port's own copy of the trainers' part of
+``vidil_tpu/data/datasets.py`` (`RetrievalTrainDataset`,
+`RetrievalEvalDataset`, `CaptionTrainDataset`, `CaptionEvalDataset`,
+`VQADataset`, `vqa_collate`, `PrefetchLoader`).
+Items are numpy arrays, batching is plain stacking, and a thread pool
+decodes video ahead of the device.
 
 Corrupt-video tolerance matches the reference: 3 decode retries, then a
 random substitute during training (video_pretrain_dataset.py:112-120) or
@@ -98,6 +99,40 @@ class RetrievalTrainDataset:
         video = np.stack([self.transform(f) for f in frames])
         caption = self.prompt + pre_caption(ann["caption"], self.max_words)
         return video, caption, self.video_id_2_index[i][ann["clip_name"]]
+
+
+class RetrievalEvalDataset:
+    """(frames, index), with .text / .txt2video / .video2txt: one caption
+    per video, the identity maps (reference: data/video_eval_dataset.py:35-130)."""
+
+    def __init__(self, video_root: str, ann_jsonl: str, num_frm: int = 8,
+                 frm_sampling_strategy: str = "uniform", max_img_size: int = 384,
+                 video_fmt: str = ".mp4"):
+        original = load_jsonl(ann_jsonl)
+        self.annotation = [a for a in original
+                           if os.path.exists(os.path.join(video_root, a["clip_name"] + video_fmt))]
+        print("original ann len:", len(original), "| skip non-exist:",
+              len(original) - len(self.annotation))
+        self.config = dict(frm_sampling_strategy=frm_sampling_strategy,
+                           num_frm_test=num_frm, height=None, width=None,
+                           start_time=None, end_time=None, fps=-1)
+        self.video_root = video_root
+        self.video_fmt = video_fmt
+        self.transform = TestTransform(max_img_size)
+        self.text = [pre_caption(a["caption"], 40) for a in self.annotation]
+        self.txt2video = list(range(len(self.annotation)))
+        self.video2txt = self.txt2video
+
+    def __len__(self):
+        return len(self.annotation)
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        path = os.path.join(self.video_root, ann["clip_name"] + self.video_fmt)
+        frames = _decode(path, self.config, num_frm_key="num_frm_test")
+        if frames is None:
+            raise IOError(f"cannot decode eval video {path}")
+        return np.stack([self.transform(f) for f in frames]), index
 
 
 class CaptionTrainDataset(RetrievalTrainDataset):

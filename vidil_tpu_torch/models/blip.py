@@ -192,3 +192,21 @@ def blip_itm_shapes(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256
             "vision_proj": _lin(vit_cfg.hidden_size, embed_dim),
             "text_proj": _lin(med_cfg.hidden_size, embed_dim),
             "itm_head": _lin(med_cfg.hidden_size, 2)}
+
+
+def blip_retrieval_shapes(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256) -> dict:
+    """The retrieval model: the ITM tree and the contrastive temperature
+    (a 0-d leaf; set it to 0.07 after a synthetic fill, as
+    `init_retrieval_params` does)."""
+    return {**blip_itm_shapes(vit_cfg, med_cfg, embed_dim), "temp": ()}
+
+
+def blip_pretrain_shapes(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256) -> dict:
+    """The pretraining model: the retrieval tree plus the decoder's own
+    attention blocks and LM head (its other weights are the text
+    encoder's, `blip_pretrain.tied_decoder_params`)."""
+    dec = med_shapes(med_cfg, with_lm_head=True)
+    return {**blip_retrieval_shapes(vit_cfg, med_cfg, embed_dim),
+            "decoder_attn": {"self_attn": dec["layers"]["self_attn"],
+                             "cross_attn": dec["layers"]["cross_attn"]},
+            "decoder_cls": dec["cls"]}

@@ -13,6 +13,10 @@ kernels ``(in, out)``, the ViT patch kernel ``(P*P*C, D)`` in patchify's
   (or tensors) with stacked layers -> port params.
 * `to_jax_params`: its inverse, port params -> the JAX layout as numpy
   arrays (checkpoints in the JAX package's format).
+* `from_jax_train_state`: the JAX package's ``RetrievalTrainState`` /
+  ``PretrainState`` -> the parts the port's retrieval and pretraining
+  states are built from (`train.retrieval.create_train_state`); the way
+  back is `utils.checkpoint.save_train_state`.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import torch
 
 from vidil_tpu_torch.config import CLIPConfig, MedConfig, ViTConfig
 
-STACKED_KEYS = ("blocks", "layers")
+# per-layer subtrees: the ViT's blocks, a MED tower's layers and the
+# pretraining decoder's own attention blocks (models/blip_pretrain.py)
+STACKED_KEYS = ("blocks", "layers", "decoder_attn")
 
 
 def _t(x):
@@ -38,7 +44,7 @@ def _t(x):
 
 def from_jax_params(tree):
     """JAX-layout params -> port params: every leaf becomes a tensor, and
-    the stacked per-layer subtrees (``blocks``, ``layers``) become lists of
+    the stacked per-layer subtrees (`STACKED_KEYS`) become lists of
     per-layer dicts."""
     def conv(node):
         if isinstance(node, dict):
@@ -64,6 +70,20 @@ def to_jax_params(tree):
         return node.detach().cpu().numpy()
 
     return conv(tree)
+
+
+def from_jax_train_state(jax_state) -> dict:
+    """A JAX ``RetrievalTrainState`` / ``PretrainState`` whose leaves are
+    numpy arrays (or anything np.asarray takes) -> {"params", "params_m",
+    "queue" (a `QueueState`, ptr an int), "step"}, port trees of CPU
+    tensors. The optax moments are not carried."""
+    from vidil_tpu_torch.models.blip_retrieval import QueueState
+
+    q = jax_state.queue
+    return {"params": from_jax_params(jax_state.params),
+            "params_m": from_jax_params(jax_state.params_m),
+            "queue": QueueState(_t(q.image), _t(q.text), _t(q.idx), int(np.asarray(q.ptr))),
+            "step": int(np.asarray(jax_state.step))}
 
 
 def _stack(nodes):

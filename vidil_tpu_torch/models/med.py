@@ -10,7 +10,8 @@ Generation uses a preallocated self-attention cache, heads folded into the
 feature axis: ``(layers, B, max_len, H*Dh)``, updated in place per step;
 the cross-attention K/V are projected once per generation.
 
-Not ported yet: ``self_fold`` (raises) and the int8 cross-K/V branches
+``self_fold`` is accepted and runs unfolded, which is the fold's exact
+result (see `med_forward`). Not ported yet: the int8 cross-K/V branches
 (`blip_generate_ids` raises for `cross_kv_int8`).
 """
 
@@ -202,9 +203,15 @@ def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=No
     """BertModel.forward equivalent. Returns the last hidden state (B, L, D).
 
     group_size > 1: input_ids has batch B*group_size while
-    encoder_hidden_states has batch B (grouped ITM scoring)."""
-    if self_fold > 1:
-        raise NotImplementedError("vidil_tpu_torch: self_fold is not ported yet")
+    encoder_hidden_states has batch B (grouped ITM scoring).
+
+    self_fold is accepted and ignored. The JAX package folds F consecutive
+    text rows into one block-diagonal self-attention sequence to feed its
+    matrix unit larger tiles; in fp32 the out-of-block weights underflow to
+    0.0, so the fold's result is the unfolded run's bit for bit. Everything
+    else in a layer is row-wise, and the grouped cross-attention hands
+    `attention_auto` the same (B, H, G*L, Dh) query axis either way, so the
+    port runs unfolded and gets the fold's exact result."""
     if inputs_embeds is None:
         x = med_embeddings(params, input_ids, cfg, dtype=dtype)
         B, L = input_ids.shape

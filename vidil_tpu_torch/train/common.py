@@ -54,6 +54,23 @@ def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: b
     return vit_cfg, med_cfg
 
 
+def model_cfgs(config: dict, med_json: str = "med_config.json"):
+    """(vit_cfg, med_cfg) of a trainer's yaml: ``vit_config`` (custom sizes)
+    or ``vit`` base/large with ``vit_grad_ckpt`` as the ViT remat; MED from
+    ``med_config`` or the repo's ``configs/<med_json>``, its cross-attention
+    as wide as the ViT."""
+    from vidil_tpu_torch.config import MedConfig, ViTConfig
+
+    if "vit_config" in config:
+        vit_cfg = ViTConfig(image_size=config["image_size"], **config["vit_config"])
+    else:
+        vit_cfg = ViTConfig.from_name(config["vit"], config["image_size"],
+                                      remat=config.get("vit_grad_ckpt", False))
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    med_path = config.get("med_config", os.path.join(repo, "configs", med_json))
+    return vit_cfg, MedConfig.from_json(med_path, encoder_width=vit_cfg.hidden_size)
+
+
 def resolve_train_batch(config: dict, key: str, default: int | None = None) -> int:
     """The reference's ``<key>`` batch. The JAX package prefers a
     ``<key>_tpu`` yaml key, a batch tuned for a TPU chip (PARITY.md

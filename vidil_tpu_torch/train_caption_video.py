@@ -29,18 +29,11 @@ import numpy as np
 import torch
 
 def build_model_and_tokenizer(config):
-    from vidil_tpu_torch.config import MedConfig, ViTConfig
     from vidil_tpu_torch.models import convert
     from vidil_tpu_torch.tokenizer import BlipTokenizer
+    from vidil_tpu_torch.train.common import model_cfgs
 
-    if "vit_config" in config:
-        vit_cfg = ViTConfig(image_size=config["image_size"], **config["vit_config"])
-    else:
-        vit_cfg = ViTConfig.from_name(config["vit"], config["image_size"],
-                                      remat=config.get("vit_grad_ckpt", False))
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    med_cfg_path = config.get("med_config", os.path.join(repo, "configs", "med_config.json"))
-    med_cfg = MedConfig.from_json(med_cfg_path, encoder_width=vit_cfg.hidden_size)
+    vit_cfg, med_cfg = model_cfgs(config)
     tokenizer = BlipTokenizer(config["bert_vocab"])
 
     pretrained = config.get("pretrained", "")

@@ -18,3 +18,15 @@ def seed_everything(seed: int, add_rank: bool = True) -> int:
     np.random.seed(s)
     torch.manual_seed(s)
     return s
+
+
+def make_generator(seed: int, step: int = 0, device="cpu") -> torch.Generator:
+    """The port's stand-in for the JAX package's per-step key
+    ``fold_in(PRNGKey(seed), step)``: a torch.Generator on `device` seeded
+    with ``(seed * 1000003 + step) mod 2**63``. The trainers draw their
+    hard negatives from ``make_generator(seed, step)`` and the feature
+    queues from ``make_generator(seed, -1)``. JAX's streams themselves
+    cannot be reproduced: the distributions are the same, the draws differ."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed * 1000003 + step) % 2**63)
+    return g
