@@ -5,7 +5,9 @@ shapes, and drives the main paths at full BLIP-base width: CapFilt
 video-QA fine-tuning step with its two answer decoders, visual
 tokenization with its BLIP and CLIP encoders, the prompt side on the
 SBERT MPNet encoder (all-mpnet-base-v2 width), and the BLIP retrieval
-eval, retrieval fine-tuning and video pretraining.
+eval, retrieval fine-tuning and video pretraining; then CapFilt's
+sampling, on-device resize and decode variants, NLVR2, the embedding
+extractor and the ViT's attention maps.
 
     python3 chip_smoke.py
 
@@ -135,6 +137,28 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      tokenizer: 24 K4 + 12 K5 a step), with step ms, host enqueue ms,
      busy share, samples/s and peak memory, and one pretraining block
      through K4/K5 against the twins.
+ 16. CapFilt's other modes and the remaining BLIP model functions at full
+     width (BLIP-base/384, synthetic weights, bf16, chunks of 8 videos x 4
+     frames), each path with every launch count zeroed just before it and
+     read just after (exactly 24 K1 a CapFilt chunk, 12 an encode, nothing
+     else): nucleus sampling (top_p 0.9, repetition penalty 1.1) through
+     dispatch_chunk / complete_chunk, well-formed, identical across two
+     runs with one seed and different with another, its decode seconds
+     beside the beam decode's; resize_on_device at 240x320 and 480x640, RGB
+     and YUV420: the card's resize within 1 uint8 level (on rounding ties,
+     counted) of the port's CPU resize, against the host PIL path and the
+     encode seconds both ways (reported), one native chunk through the
+     engine; cross_kv_int8 True and "dot": the int8 x int8 products equal
+     the integer product at Lk 577 and 2308, token agreement with the bf16
+     stock decode and decode seconds (reported); decode_layer_unroll and
+     decode_lazy_reorder, each and both: token-identical to the stock
+     decode in fp32, bf16 agreement and decode seconds (reported); NLVR2
+     forward and loss over 16 pairs (35-token texts, fusion_layer 6) and
+     blip_embedding_forward (itm, itc) over 32 images: finite, shaped, ITC
+     features of unit norm (fp32 within 1e-3, bf16 within 2**-7), and the
+     return_attn encode (no K1): 12 maps whose rows sum to 1 within 1e-3,
+     its embeddings beside the classic encode's after one block and twelve
+     (reported).
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold) and at the retrieval rerank's fold (its text length from
 phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
@@ -2466,6 +2490,438 @@ def run_retrieval_phase(fa, fvb, device, card, tok, texts, text_len):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: CapFilt's decode and ingest modes, the remaining BLIP model
+# functions
+# ---------------------------------------------------------------------------
+
+P16_CHUNKS = 2  # chunks per sampled CapFilt run
+P16_NATIVE = ((240, 320), (480, 640))  # native frame sizes: an upscale and a downscale to 384
+# timings of the compared calls: the median of this many synced calls of
+# each, taken in turns (A B .. B A), since the host's speed drifts
+P16_REPS = 5
+P16_INT8_LK = (577, 2308)  # the CapFilt memory (one frame) and a 4-frame video memory
+# NLVR2 over 16 pairs (32 images at 384 px), 35-token texts, fusion_layer 6;
+# the embedding extractor over 32 images
+P16_PAIRS, P16_TEXT, P16_FUSION = 16, 35, 6
+# |norm - 1| of an ITC feature: fp32 features 1e-3; bf16 features (the JAX
+# package's rounding: the norm and then every quotient rounded to bf16,
+# each within its unit roundoff 2**-8 relative) 2 * 2**-8
+P16_NORM_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -7}
+
+
+def _reset_counts(mods):
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def _read_counts(mods):
+    out = {}
+    for m in mods:
+        out.update(m.launch_counts)
+    return out
+
+
+def _expect_counts(label, counts, k1):
+    """Exactly `k1` K1 launches and no launch of any other kernel."""
+    want = {name: 0 for name in counts}
+    want["flash_attention_fwd"] = k1
+    if counts != want:
+        raise SystemExit(f"{label}: launches {counts}, want {want}")
+
+
+def _synced(fn):
+    """(result, host seconds to enqueue, host seconds to finish) of fn."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    r = fn()
+    t1 = time.time()
+    torch.cuda.synchronize()
+    return r, t1 - t0, time.time() - t0
+
+
+def _timed_in_turns(fns, reps=P16_REPS):
+    """{name: (median seconds, median enqueue seconds, last result)} of the
+    calls in `fns`, each synced, taken in turns, the order reversed every
+    other round."""
+    runs = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(reps):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            runs[name].append(_synced(fns[name]))
+    return {name: (statistics.median(x[2] for x in rs), statistics.median(x[1] for x in rs),
+                   rs[-1][0]) for name, rs in runs.items()}
+
+
+def _capfilt_run(engine, mods, chunks, config, seed=None):
+    """The CapFilt main path: dispatch_chunk / complete_chunk per chunk, each
+    chunk's sampling generator seeded afresh with `seed` (as the CLI does),
+    with every launch count zeroed just before and read just after. Returns
+    (results, the token rows of every chunk on the host, counts, seconds)."""
+    _reset_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    results, seqs = [], []
+    for chunk in chunks:
+        rng = (None if seed is None
+               else torch.Generator(device=engine.device).manual_seed(seed))
+        d = engine.dispatch_chunk(chunk, config, rng=rng)
+        results.extend(engine.complete_chunk(d))
+        seqs.append(d.seqs_dev.cpu())
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = _read_counts(mods)
+    for r in results:
+        if not (r.unfiltered_text and all(isinstance(t, str) and t for t in r.unfiltered_text)
+                and all(isinstance(t, str) for t in r.text)):
+            raise SystemExit(f"phase 16: bad CapFilt result {r}")
+    for s in seqs:
+        if not all(_well_formed(row, engine.tok) for row in s):
+            raise SystemExit(f"phase 16: malformed token rows {s[:4].tolist()}")
+    return results, torch.cat(seqs), counts, seconds
+
+
+def _engine(cap, fil, tok, vit_cfg, med_cfg, device, dtype=torch.bfloat16, **kw):
+    """A CapFilt engine as phase 4's (3 beams, 20 tokens, beam_group_kv, the
+    fused filter) over the given weights, with other decode options."""
+    from vidil_tpu_torch.pipeline.capfilt import CapFiltEngine
+
+    return CapFiltEngine(cap, fil, tok, vit_cfg, med_cfg, num_beams=3, max_length=20,
+                         min_length=5, dtype=dtype, beam_group_kv=True, fused_filter=True,
+                         device=device, **kw)
+
+
+def _variant(engine, vit_cfg, med_cfg, **kw):
+    """An engine over `engine`'s (bf16) weights with other decode options."""
+    return _engine(engine.captioner_params, engine.filterer_params, engine.tok, vit_cfg,
+                   med_cfg, engine.device, **kw)
+
+
+def _agreement(a, b, lp):
+    return (a[:, lp:] == b[:, lp:]).float().mean().item()
+
+
+def p16_sampling(engine, mods, chunks, embeds):
+    """16.1: sampled captions through dispatch/complete, twice with one seed
+    and once with another; decode seconds beside the beam decode's."""
+    cfg = dict(CONFIG, generation_mode="sample")
+    runs = [_capfilt_run(engine, mods, chunks, cfg, seed) for seed in (0, 0, 1)]
+    for _, _, counts, _ in runs:
+        _expect_counts("sampling", counts, 2 * 12 * len(chunks))
+    (res_a, seqs_a, _, s_a), (res_b, seqs_b, _, _), (_, seqs_c, _, _) = runs
+    if not (torch.equal(seqs_a, seqs_b) and [(r.unfiltered_text, r.text) for r in res_a]
+            == [(r.unfiltered_text, r.text) for r in res_b]):
+        raise SystemExit("sampling: two runs with one seed differ")
+    lp = engine.prompt_length
+    if torch.equal(seqs_a[:, lp:], seqs_c[:, lp:]):
+        raise SystemExit("sampling: another seed gave the same captions")
+    gen = torch.Generator(device=engine.device)
+    t = _timed_in_turns({"sample": lambda: engine.generate_sample(embeds, gen.manual_seed(0)),
+                         "beam": lambda: engine.generate_beam(embeds)})
+    (sample_s, sample_enq, _), (beam_s, beam_enq, _) = t["sample"], t["beam"]
+    return {"chunks": len(chunks), "k1_per_chunk": runs[0][2]["flash_attention_fwd"] // len(chunks),
+            "seconds_per_run": s_a, "sample_decode_s": sample_s,
+            "sample_decode_enqueue_s": sample_enq, "beam_decode_s": beam_s,
+            "beam_decode_enqueue_s": beam_enq,
+            "other_seed_token_agreement": _agreement(seqs_a, seqs_c, lp),
+            "caption": res_a[0].unfiltered_text[0]}
+
+
+def _smooth_frames(rng, n, H, W):
+    """n uint8 RGB frames of a camera's statistics rather than noise's: per
+    channel, four random plane waves of up to 6 cycles across the frame
+    around mid-grey, plus Gaussian noise of 3 levels (sensor grain); noise
+    frames would measure only the resize's response to aliasing."""
+    y = np.arange(H, dtype=np.float32)[:, None] / H
+    x = np.arange(W, dtype=np.float32)[None, :] / W
+    out = np.empty((n, H, W, 3), np.uint8)
+    for i in range(n):
+        for c in range(3):
+            img = np.full((H, W), 128.0, np.float32)
+            for _ in range(4):
+                fy, fx = rng.uniform(-6, 6, 2)
+                img += rng.uniform(10, 35) * np.sin(2 * np.pi * (fy * y + fx * x)
+                                                    + rng.uniform(0, 2 * np.pi))
+            img += rng.normal(0, 3, (H, W)).astype(np.float32)
+            out[i, :, :, c] = np.clip(np.round(img), 0, 255)
+    return out
+
+
+def p16_resize(engine, mods, device):
+    """16.2: resize_on_device at an upscale and a downscale, RGB and YUV420:
+    the card's resize against the port's CPU resize of the same frames (at
+    most 1 uint8 level, on rounding ties), against the host PIL path
+    (reported), the encode stage beside the host-resize path's, and one
+    CapFilt chunk of native frames through dispatch/complete."""
+    from vidil_tpu_torch.ops import image
+    from vidil_tpu_torch.pipeline.capfilt import preprocess_frames_pil
+
+    S = 384
+    rng = np.random.default_rng(16)
+    out = {}
+    for H, W in P16_NATIVE:
+        rgb = _smooth_frames(rng, N_VIDEOS * N_FRAMES, H, W)
+        for fmt in ("rgb", "yuv420"):
+            host = image.rgb_to_yuv420(rgb) if fmt == "yuv420" else rgb
+
+            def to_rgb(frames, dev):
+                if fmt == "yuv420":
+                    return image.yuv420_to_rgb(*(torch.from_numpy(p).to(dev) for p in frames))
+                return torch.from_numpy(frames).to(dev).float()
+
+            card = torch.clamp(torch.round(image.resize_bicubic(to_rgb(host, device), S)),
+                               0, 255).cpu()
+            cpu = torch.clamp(torch.round(image.resize_bicubic(to_rgb(host, "cpu"), S)), 0, 255)
+            diff = (card - cpu).abs()
+            flips = int((diff > 0).sum())
+            if diff.max().item() > 1:
+                raise SystemExit(f"resize {H}x{W} {fmt}: the card differs from the CPU by "
+                                 f"{diff.max().item()} levels")
+            # the host path: PIL resize of the RGB frames (then YUV420 for
+            # that transfer format), converted on the card as the encode does
+            t0 = time.time()
+            pil = preprocess_frames_pil(rgb, S)
+            pil_s = time.time() - t0
+            pil_in = image.rgb_to_yuv420(pil) if fmt == "yuv420" else pil
+            pil_rgb = to_rgb(pil_in, device).round().cpu()
+            host_diff = (card - pil_rgb).abs()
+            t = _timed_in_turns({"native": lambda: engine.encode_captioner(engine._put(host)),
+                                 "resized": lambda: engine.encode_captioner(engine._put(pil_in))})
+            dev_encode_s, host_encode_s = t["native"][0], t["resized"][0]
+            chunk = [{"video_id": f"r{v}", "text": [],
+                      "frames": (image.YUV420Frames(*(p[v * N_FRAMES:(v + 1) * N_FRAMES]
+                                                      for p in host))
+                                 if fmt == "yuv420" else host[v * N_FRAMES:(v + 1) * N_FRAMES])}
+                     for v in range(N_VIDEOS)]
+            _, _, counts, chunk_s = _capfilt_run(engine, mods, [chunk], CONFIG)
+            _expect_counts(f"resize_on_device {H}x{W} {fmt}", counts, 24)
+            out[f"{H}x{W}_{fmt}"] = {
+                "card_vs_cpu_tie_flips": flips, "card_vs_cpu_pixels": int(diff.numel()),
+                "vs_pil_max_levels": host_diff.max().item(),
+                "vs_pil_differing_share": (host_diff > 0).float().mean().item(),
+                "encode_native_s": dev_encode_s, "encode_host_resized_s": host_encode_s,
+                "pil_resize_host_s": pil_s, "chunk_s": chunk_s,
+                "k1_per_chunk": counts["flash_attention_fwd"]}
+    return out
+
+
+def p16_int8(engine, mods, chunk, embeds, vit_cfg, med_cfg, device):
+    """16.3: cross_kv_int8 True and "dot" (beam_group_kv): the int8 x int8
+    products exact against an integer product of the same values at the
+    CapFilt memory and a 4-frame one; each variant through dispatch/complete
+    (24 K1 a chunk), its token agreement with the bf16 stock decode and its
+    decode seconds."""
+    from vidil_tpu_torch.models import med
+
+    B, H, G, Dh = N_VIDEOS * N_FRAMES, med_cfg.num_heads, 3, med_cfg.hidden_size // med_cfg.num_heads
+    gen = torch.Generator(device=device).manual_seed(16)
+    exact = {}
+    for Lk in P16_INT8_LK:
+        p8 = torch.randint(-127, 128, (B, H, G, Lk), generator=gen, device=device,
+                           dtype=torch.int8)
+        v8 = torch.randint(-127, 128, (B, H, Lk, Dh), generator=gen, device=device,
+                           dtype=torch.int8)
+        q8 = torch.randint(-127, 128, (B, H, G, Dh), generator=gen, device=device,
+                           dtype=torch.int8)
+        full = torch.full((B, H, G, Lk), 127, dtype=torch.int8, device=device)
+        wrong = 0
+        for a, b in ((p8, v8), (q8, v8.transpose(-1, -2)), (full, v8.abs())):
+            got = med.int8_matmul(a, b).cpu()
+            want = torch.matmul(a.cpu().long(), b.cpu().long())
+            wrong += int((got.double() != want.double()).sum())
+        if wrong:
+            raise SystemExit(f"int8 products at Lk {Lk}: {wrong} entries differ from the "
+                             "integer product")
+        exact[str(Lk)] = {"products": 3, "wrong_entries": wrong,
+                          "route": "fp32" if Lk <= med._INT8_F32_EXACT_K else "fp64"}
+    lp = engine.prompt_length
+    engines = {"stock": engine}
+    out = {"exact": exact}
+    for name, mode in (("store", True), ("dot", "dot")):
+        engines[name] = var = _variant(engine, vit_cfg, med_cfg, cross_kv_int8=mode)
+        _, _, counts, chunk_s = _capfilt_run(var, mods, [chunk], CONFIG)
+        _expect_counts(f"cross_kv_int8={mode}", counts, 24)
+        out[name] = {"chunk_s": chunk_s, "k1_per_chunk": counts["flash_attention_fwd"]}
+    t = _timed_in_turns({name: (lambda e=e: e.generate_beam(embeds)) for name, e in engines.items()})
+    out["stock_decode_s"], out["stock_decode_enqueue_s"], stock = t["stock"]
+    for name in ("store", "dot"):
+        s, enq, seqs = t[name]
+        out[name].update(decode_s=s, decode_enqueue_s=enq,
+                         token_agreement_bf16=_agreement(seqs, stock, lp))
+    return out
+
+
+def p16_decode_structure(engine, mods, chunk, embeds, frames, vit_cfg, med_cfg, device):
+    """16.4: decode_layer_unroll and decode_lazy_reorder, each and both:
+    token-identical to the stock decode in fp32 on the card (an fp32 copy
+    of the same synthetic weights), agreement in bf16 (reported), decode
+    seconds, and each through dispatch/complete (24 K1 a chunk)."""
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    cap32 = convert.from_jax_params(synth_tree(blip.blip_decoder_shapes(vit_cfg, med_cfg),
+                                               device, salt=1.0))
+    fil32 = convert.from_jax_params(synth_tree(blip.blip_itm_shapes(vit_cfg, med_cfg),
+                                               device, salt=2.0))
+    base32 = _engine(cap32, fil32, engine.tok, vit_cfg, med_cfg, device, dtype=torch.float32)
+    with torch.no_grad():
+        embeds32 = base32.encode_captioner(frames)
+        stock32 = base32.generate_beam(embeds32)
+    lp = engine.prompt_length
+    engines = {"stock": engine}
+    out = {}
+    for name, kw in (("unroll", dict(decode_layer_unroll=True)),
+                     ("lazy", dict(decode_lazy_reorder=True)),
+                     ("both", dict(decode_layer_unroll=True, decode_lazy_reorder=True))):
+        var32 = _engine(cap32, fil32, engine.tok, vit_cfg, med_cfg, device,
+                        dtype=torch.float32, **kw)
+        seqs32 = var32.generate_beam(embeds32)
+        if not torch.equal(seqs32, stock32):
+            raise SystemExit(f"decode {name}: fp32 tokens differ from the stock decode "
+                             f"({_agreement(seqs32, stock32, lp):.4f} agree)")
+        engines[name] = var = _variant(engine, vit_cfg, med_cfg, **kw)
+        _, _, counts, chunk_s = _capfilt_run(var, mods, [chunk], CONFIG)
+        _expect_counts(f"decode {name}", counts, 24)
+        out[name] = {"fp32_token_identical": True, "chunk_s": chunk_s,
+                     "k1_per_chunk": counts["flash_attention_fwd"]}
+    t = _timed_in_turns({name: (lambda e=e: e.generate_beam(embeds)) for name, e in engines.items()})
+    out["stock_decode_s"], out["stock_decode_enqueue_s"], stock = t["stock"]
+    for name in ("unroll", "lazy", "both"):
+        s, enq, seqs = t[name]
+        out[name].update(decode_s=s, decode_enqueue_s=enq,
+                         token_agreement_bf16=_agreement(seqs, stock, lp))
+    return out
+
+
+def p16_nlvr_embedding(mods, device, tok, vit_cfg, med_cfg):
+    """16.5: NLVR2 forward and loss over 16 pairs and the embedding extractor
+    (itm, itc) over 32 images, bf16, 12 K1 launches per encode (one encode
+    each); itc features of unit norm (bf16, and fp32 within 1e-3); the
+    return_attn encode (no K1: its maps are the output) with rows summing
+    to 1 and its embeddings beside the classic encode's (reported)."""
+    from vidil_tpu_torch.models import blip, convert, vit
+    from vidil_tpu_torch.models.blip_embedding import blip_embedding_forward
+    from vidil_tpu_torch.models.blip_nlvr import nlvr_forward, nlvr_loss
+    from vidil_tpu_torch.ops.image import preprocess_any
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    n_img = 2 * P16_PAIRS
+    gen = torch.Generator(device=device).manual_seed(5)
+    frames = torch.randint(0, 256, (n_img, 384, 384, 3), generator=gen, device=device,
+                           dtype=torch.uint8)
+    images = preprocess_any(frames, vit_cfg.image_size)
+    rng = np.random.default_rng(5)
+    texts = [" ".join(f"tok{i}" for i in rng.integers(0, 30000, int(rng.integers(8, 40))))
+             for _ in range(n_img)]
+    enc = tok(texts, padding="max_length", truncation=True, max_length=P16_TEXT)
+    ids = torch.from_numpy(np.asarray(enc.input_ids)).to(device)
+    mask = torch.from_numpy(np.asarray(enc.attention_mask)).to(device)
+    bf16 = torch.bfloat16
+    out = {}
+    nlvr = convert.from_jax_params(synth_tree(blip.blip_nlvr_shapes(vit_cfg, med_cfg), device,
+                                              salt=4.0))
+    targets = torch.arange(P16_PAIRS, device=device) % 2
+
+    def run_nlvr():
+        logits = nlvr_forward(nlvr, images[:P16_PAIRS], images[P16_PAIRS:], ids[:P16_PAIRS],
+                              mask[:P16_PAIRS], vit_cfg, med_cfg, fusion_layer=P16_FUSION,
+                              dtype=bf16)
+        return logits, nlvr_loss(logits, targets)
+
+    with torch.no_grad():
+        _reset_counts(mods)
+        (logits, loss), enq, total = _synced(run_nlvr)
+        counts = _read_counts(mods)
+        _expect_counts("nlvr", counts, vit_cfg.num_layers)
+    if not (tuple(logits.shape) == (P16_PAIRS, 2) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()) and loss.dim() == 0
+            and bool(torch.isfinite(loss))):
+        raise SystemExit(f"nlvr: bad outputs {logits.shape} {loss}")
+    out["nlvr"] = {"pairs": P16_PAIRS, "s": total, "enqueue_s": enq, "loss": loss.item(),
+                   "k1": counts["flash_attention_fwd"]}
+    del nlvr
+
+    itm = convert.from_jax_params(synth_tree(blip.blip_itm_shapes(vit_cfg, med_cfg), device,
+                                             salt=2.0))
+    with torch.no_grad():
+        _reset_counts(mods)
+        scores, enq, total = _synced(lambda: blip_embedding_forward(
+            itm, images, ids, mask, vit_cfg, med_cfg, match_head="itm", dtype=bf16))
+        counts = _read_counts(mods)
+        _expect_counts("embedding itm", counts, vit_cfg.num_layers)
+        if not (tuple(scores.shape) == (n_img, 2) and bool(torch.isfinite(scores).all())):
+            raise SystemExit(f"embedding itm: bad logits {scores.shape}")
+        out["embedding_itm"] = {"s": total, "enqueue_s": enq,
+                                "k1": counts["flash_attention_fwd"]}
+        for dtype in (bf16, torch.float32):
+            _reset_counts(mods)
+            (img_f, txt_f, sim), enq, total = _synced(lambda: blip_embedding_forward(
+                itm, images, ids, mask, vit_cfg, med_cfg, match_head="itc",
+                dtype=None if dtype == torch.float32 else dtype))
+            _expect_counts(f"embedding itc {dtype}", _read_counts(mods), vit_cfg.num_layers)
+            norms = torch.cat([img_f.float().norm(dim=-1), txt_f.float().norm(dim=-1)])
+            dev = (norms - 1).abs().max().item()
+            if not (tuple(img_f.shape) == (n_img, 256) and tuple(txt_f.shape) == (n_img, 256)
+                    and tuple(sim.shape) == (n_img, n_img) and bool(torch.isfinite(sim).all())
+                    and dev <= P16_NORM_TOL[dtype]):
+                raise SystemExit(f"embedding itc {dtype}: shapes {img_f.shape} {txt_f.shape} "
+                                 f"{sim.shape}, |norm - 1| {dev}")
+            out[f"embedding_itc_{str(dtype).split('.')[-1]}"] = {
+                "s": total, "enqueue_s": enq, "max_norm_deviation": dev}
+
+        ve = itm["visual_encoder"]
+        for label, params in (("one_block", dict(ve, blocks=ve["blocks"][:1])), ("twelve", ve)):
+            _reset_counts(mods)
+            (emb, maps), enq, total = _synced(lambda: vit.vit_forward(
+                params, images, vit_cfg, dtype=bf16, return_attn=True))
+            _expect_counts(f"return_attn {label}", _read_counts(mods), 0)
+            classic = vit.vit_forward(params, images, vit_cfg, dtype=bf16)
+            L = vit_cfg.seq_len
+            if not (len(maps) == len(params["blocks"]) and all(
+                    tuple(m.shape) == (n_img, vit_cfg.num_heads, L, L) for m in maps)):
+                raise SystemExit(f"return_attn: {len(maps)} maps of {maps[0].shape}")
+            row_dev = max((m.sum(-1) - 1).abs().max().item() for m in maps)
+            if row_dev > 1e-3 or not bool(torch.isfinite(emb).all()):
+                raise SystemExit(f"return_attn: rows sum to 1 within {row_dev}")
+            out[f"return_attn_{label}"] = {
+                "maps": len(maps), "row_sum_max_deviation": row_dev, "s": total,
+                "embeddings_vs_classic_max_abs_diff": (emb.float() - classic.float()).abs()
+                .max().item(), "embeddings_max_abs": classic.float().abs().max().item()}
+            del maps
+    return out
+
+
+def run_phase16(fa, fm, fvb, device, card, tok):
+    """Phase 16: the slice's CapFilt modes and model functions at full width
+    (BLIP-base/384, synthetic weights, bf16, chunks of 8 videos x 4 frames)."""
+    from vidil_tpu_torch.pipeline.capfilt import _concat_frames
+
+    t_phase = time.time()
+    mods = (fa, fm, fvb)
+    engine, vit_cfg, med_cfg = make_engine(device)
+    chunks = make_chunks(yuv_chunks={1})[:P16_CHUNKS]
+    frames = engine._put(_concat_frames([c["frames"] for c in chunks[0]]))
+    with torch.no_grad():
+        embeds = engine.encode_captioner(frames)
+    out = {}
+
+    def part(name, fn, *args):
+        out[name] = fn(*args)
+        log(f"phase 16 {name}:", json.dumps(out[name]))
+
+    part("sampling", p16_sampling, engine, mods, chunks, embeds)
+    part("resize_on_device", p16_resize, engine, mods, device)
+    part("cross_kv_int8", p16_int8, engine, mods, chunks[0], embeds, vit_cfg, med_cfg, device)
+    part("decode_structure", p16_decode_structure, engine, mods, chunks[0], embeds, frames,
+         vit_cfg, med_cfg, device)
+    del engine, embeds, frames
+    torch.cuda.empty_cache()
+    part("models", p16_nlvr_embedding, mods, device, tok, vit_cfg, med_cfg)
+    out["phase_s"] = time.time() - t_phase
+    out["card"] = card
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2587,6 +3043,25 @@ def main():
     log("prompt side:", json.dumps(sb))
     ret = run_retrieval_phase(fa, fvb, device, card, tok, texts, rerank_len)
     del texts
+    p16 = run_phase16(fa, fm, fvb, device, card, tok)
+    smp, i8, ds = p16["sampling"], p16["cross_kv_int8"], p16["decode_structure"]
+    log(f"phase 16 (CapFilt modes, bf16, {N_VIDEOS} videos x {N_FRAMES} frames a chunk): "
+        f"sample decode {smp['sample_decode_s']:.3f} s a chunk (enqueue "
+        f"{smp['sample_decode_enqueue_s']:.3f}) beside the beam decode's "
+        f"{smp['beam_decode_s']:.3f} ({smp['beam_decode_enqueue_s']:.3f}); int8 store "
+        f"{i8['store']['decode_s']:.3f} s (agreement {i8['store']['token_agreement_bf16']:.3f}), "
+        f"dot {i8['dot']['decode_s']:.3f} s ({i8['dot']['token_agreement_bf16']:.3f}); unroll "
+        f"{ds['unroll']['decode_s']:.3f} s, lazy {ds['lazy']['decode_s']:.3f} s, both "
+        f"{ds['both']['decode_s']:.3f} s (fp32 token-identical; bf16 agreement "
+        f"{ds['unroll']['token_agreement_bf16']:.3f} / {ds['lazy']['token_agreement_bf16']:.3f}"
+        f" / {ds['both']['token_agreement_bf16']:.3f}); phase {p16['phase_s']:.1f} s; "
+        f"card {card}")
+    for name, r in p16["resize_on_device"].items():
+        log(f"phase 16 resize_on_device {name}: {r['card_vs_cpu_tie_flips']} tie flips of "
+            f"{r['card_vs_cpu_pixels']} against the CPU; against PIL max "
+            f"{r['vs_pil_max_levels']:.0f} levels, share {r['vs_pil_differing_share']:.4f}; "
+            f"encode {r['encode_native_s']:.4f} s native, {r['encode_host_resized_s']:.4f} s "
+            f"host-resized (+ {r['pil_resize_host_s']:.3f} s PIL)")
 
     def entry(name, source, replaces, n, rs, shape, desc, **extra):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"
@@ -2625,6 +3100,16 @@ def main():
               launches_visual_tokenization_blip=vt["blip"]["launches"]["flash_attention_fwd"],
               launches_visual_tokenization_clip=vt["clip"]["launches"]["flash_attention_fwd"],
               launches_retrieval_eval=ret["eval"]["launches"]["flash_attention_fwd"],
+              launches_phase16=dict(
+                  sampling_per_chunk=p16["sampling"]["k1_per_chunk"],
+                  resize_on_device_per_chunk=[r["k1_per_chunk"] for r in
+                                              p16["resize_on_device"].values()],
+                  cross_kv_int8_per_chunk=[p16["cross_kv_int8"][m]["k1_per_chunk"]
+                                           for m in ("store", "dot")],
+                  decode_structure_per_chunk=[p16["decode_structure"][m]["k1_per_chunk"]
+                                              for m in ("unroll", "lazy", "both")],
+                  nlvr_forward=p16["models"]["nlvr"]["k1"],
+                  embedding_itm=p16["models"]["embedding_itm"]["k1"], return_attn=0),
               retrieval_rerank_fold=dict(
                   dispatch_device_ms=ret["eval"]["k1_fold_dispatch_device_ms"],
                   back_to_back_ms=ret["eval"]["k1_fold_back_to_back_ms"],

@@ -1,8 +1,9 @@
 """The port's CapFilt CLI (python -m vidil_tpu_torch.run_video_CapFilt)
 against the JAX CLI (run_video_CapFilt.py) on one tiny fixture in fp32:
 the two output JSON files must be byte-identical, for RGB and for YUV420
-transfer. Also: the engine refuses CUDA on a host without it, and asks
-for an unported option raise instead of doing something else.
+transfer, and with resize_on_device. Also: sampling is seeded by --seed,
+the engine refuses CUDA on a host without it, and asking for an unported
+option raises instead of doing something else.
 """
 
 import json
@@ -149,12 +150,63 @@ def test_cli_outputs_byte_identical_to_jax_cli(workdir, transfer_format, vocab, 
 
 
 def test_cli_unported_options_raise(workdir):
+    """data_parallel (the SPMD mesh) is not ported: it raises. The options
+    ported since (resize_on_device, generation_mode 'sample') build an
+    engine."""
     from vidil_tpu_torch import run_video_CapFilt as torch_cli
 
-    for key, value in (("resize_on_device", True), ("data_parallel", True),
-                       ("generation_mode", "sample")):
-        with pytest.raises(NotImplementedError):
-            torch_cli.build_engine(dict(workdir.config, **{key: value}), device="cpu")
+    with pytest.raises(NotImplementedError):
+        torch_cli.build_engine(dict(workdir.config, data_parallel=True), device="cpu")
+    for key, value in (("resize_on_device", True), ("generation_mode", "sample")):
+        torch_cli.build_engine(dict(workdir.config, **{key: value}), device="cpu")
+
+
+@pytest.mark.parametrize("transfer_format,native", [("rgb", None), ("yuv420", None),
+                                                    ("rgb", (40, 56))])
+def test_cli_resize_on_device_byte_identical_to_jax_cli(workdir, transfer_format, native):
+    """resize_on_device: the frames go to the engine at their native 48x64
+    (or, with native_height/native_width 40x56, every video is an off-spec
+    one that the host resamples to it, with one warning) and the encode
+    resizes them to 32 px: the outputs equal the JAX CLI's byte for byte."""
+    import run_video_CapFilt as jax_cli
+    from vidil_tpu_torch import run_video_CapFilt as torch_cli
+
+    config = dict(workdir.config, transfer_format=transfer_format, threshold=THRESHOLD,
+                  resize_on_device=True, **workdir.models["words"])
+    if native is not None:
+        config.update(native_height=native[0], native_width=native[1])
+    tag = f"resize_{transfer_format}_{native}"
+    jax_dir = str(workdir.root / f"jax_{tag}")
+    torch_dir = str(workdir.root / f"torch_{tag}")
+    jax_cli.main(_args(jax_dir, "cpu"), dict(config))
+    torch_cli.main(_args(torch_dir, "cpu"), dict(config))
+    want, got = _read(jax_dir), _read(torch_dir)
+    assert got == want
+    cap = json.loads(got["video_text_Cap.json"])
+    assert set(cap) == {"video0", "video1", "video2"}
+    assert all(isinstance(t, str) and t for texts in cap.values() for t in texts)
+
+
+def test_cli_sample_mode_is_seeded(workdir):
+    """generation_mode 'sample': every chunk draws from a generator seeded
+    with --seed, so two runs with one seed write the same files, another
+    seed other captions."""
+    from vidil_tpu_torch import run_video_CapFilt as torch_cli
+
+    config = dict(workdir.config, generation_mode="sample", threshold=-1.0,
+                  **workdir.models["words"])
+    outs = []
+    for name, seed in (("a", 42), ("b", 42), ("c", 7)):
+        out_dir = str(workdir.root / f"torch_sample_{name}")
+        args = _args(out_dir, "cpu")
+        args.seed = seed
+        torch_cli.main(args, dict(config))
+        outs.append(_read(out_dir))
+    assert outs[0] == outs[1]
+    cap = json.loads(outs[0]["video_text_Cap.json"])
+    assert set(cap) == {"video0", "video1", "video2"}
+    assert all(isinstance(t, str) and t for texts in cap.values() for t in texts)
+    assert outs[2]["video_text_Cap.json"] != outs[0]["video_text_Cap.json"]
 
 
 def test_cli_parses_reference_flags():

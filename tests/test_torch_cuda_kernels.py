@@ -568,3 +568,99 @@ def test_fused_mlp_kernel_rejects_what_it_does_not_take(cuda_device):
     args = _mlp_args((4, 128), 128, 512, torch.float16, cuda_device, 23)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         fm._launch(*args)
+
+
+# ---------------------------------------------------------------------------
+# the decode's variants and the on-device resize (no kernel of their own:
+# plain torch ops, held on the card to their exact or CPU results)
+# ---------------------------------------------------------------------------
+
+def _tiny_decoder(device):
+    """A two-layer MED decoder with the LM head, 128 wide (2 heads of 64),
+    sin-fill weights on `device`."""
+    from vidil_tpu_torch.config import MedConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    cfg = MedConfig(vocab_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                    intermediate_size=256, max_position_embeddings=64, encoder_width=128)
+    params = convert.from_jax_params(synth_tree(blip.med_shapes(cfg, with_lm_head=True), device,
+                                                salt=5.0, amplitude=0.2))
+    return {"text_decoder": params}, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk", [577, 2308])
+def test_int8_matmul_is_exact_on_the_card(cuda_device, Lk):
+    """The int8 x int8 products of cross_kv_int8="dot" equal the integer
+    product: fp32 sums at Lk 577 (every partial sum below 2**24), fp64 at
+    2308, including the largest sums (127**2 * Lk)."""
+    from vidil_tpu_torch.models import med
+
+    g = torch.Generator().manual_seed(Lk)
+    a = torch.randint(-127, 128, (2, 3, 6, Lk), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (2, 3, Lk, 64), generator=g, dtype=torch.int8)
+    for x, y in ((a, b), (torch.full_like(a, 127), b.abs()), (a[..., :64], b.transpose(-1, -2))):
+        want = torch.matmul(x.long(), y.long()).double()
+        got = med.int8_matmul(x.to(cuda_device), y.to(cuda_device)).cpu().double()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [(240, 320), (480, 640)])
+def test_resize_on_the_card_matches_the_cpu(cuda_device, native):
+    """resize_on_device's resize on the card against the same function on
+    the CPU: the sums run in another order, so a uint8 rounding tie may
+    flip by one level, and only that."""
+    from vidil_tpu_torch.ops import image
+
+    g = torch.Generator().manual_seed(native[0])
+    frames = torch.randint(0, 256, (4,) + native + (3,), generator=g, dtype=torch.uint8)
+    want = image.resize_bicubic_uint8(frames, 384)
+    got = image.resize_bicubic_uint8(frames.to(cuda_device), 384).cpu()
+    diff = (got - want).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).sum().item() <= 1e-4 * diff.numel()
+
+
+@pytest.mark.cuda
+def test_sampling_on_the_card_follows_its_generator(cuda_device):
+    from vidil_tpu_torch.models import blip
+    from vidil_tpu_torch.ops.generation import GenerationConfig
+
+    params, cfg = _tiny_decoder(cuda_device)
+    embeds = torch.randn(6, 40, 128, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    prompt = torch.tensor([[30, 5, 6, 7]] * 6, dtype=torch.int32, device=cuda_device)
+    gen = GenerationConfig(max_length=16, min_length=5, num_beams=1, eos_token_id=13,
+                           pad_token_id=0, repetition_penalty=1.1, top_p=0.9)
+
+    def run(seed):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        return blip.blip_generate_ids(params, embeds, prompt, cfg, gen, sample=True,
+                                      generator=g).cpu()
+
+    a, b, c = run(0), run(0), run(1)
+    assert torch.equal(a, b) and not torch.equal(a[:, 4:], c[:, 4:])
+    assert torch.equal(a[:, :4], prompt.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True, "dot"])
+def test_decode_structure_variants_are_token_identical_on_the_card(cuda_device, int8):
+    """decode_layer_unroll and decode_lazy_reorder, each and both, give the
+    stock beam decode's tokens in fp32 on the card, with each cross_kv_int8
+    mode (the same products on the same values)."""
+    from vidil_tpu_torch.models import blip
+    from vidil_tpu_torch.ops.generation import GenerationConfig
+
+    params, cfg = _tiny_decoder(cuda_device)
+    embeds = torch.randn(4, 40, 128, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    prompt = torch.tensor([[30, 5, 6, 7]] * 4, dtype=torch.int32, device=cuda_device)
+    gen = GenerationConfig(max_length=16, min_length=5, num_beams=3, eos_token_id=13,
+                           pad_token_id=0)
+    kw = dict(beam_group_kv=True, cross_kv_int8=int8)
+    stock = blip.blip_generate_ids(params, embeds, prompt, cfg, gen, **kw)
+    for flags in (dict(decode_layer_unroll=True), dict(decode_lazy_reorder=True),
+                  dict(decode_layer_unroll=True, decode_lazy_reorder=True)):
+        got = blip.blip_generate_ids(params, embeds, prompt, cfg, gen, **kw, **flags)
+        assert torch.equal(got, stock), flags

@@ -1,6 +1,7 @@
-"""Beam search of the port against the JAX package, token for token in fp32
-on the CPU, through blip_generate_ids (cross-K/V grouped per item or
-replicated per beam), plus the fused filter's device-side ITM ids.
+"""Beam search (and nucleus sampling) of the port against the JAX package,
+token for token in fp32 on the CPU, through blip_generate_ids (cross-K/V
+grouped per item or replicated per beam), plus the fused filter's
+device-side ITM ids.
 """
 
 import numpy as np
@@ -89,10 +90,24 @@ def test_topk_tie_order_is_lower_index_first():
 
 
 def test_sampling_is_not_ported(model):
-    _, tp, embeds, prompt = model
-    with pytest.raises(NotImplementedError):
-        blip.blip_generate_ids(tp, torch.from_numpy(embeds), torch.from_numpy(prompt), PM,
-                               GenerationConfig(**GEN), sample=True)
+    """Nucleus sampling through blip_generate_ids, which the port once
+    refused: token-identical to the JAX package's when fed JAX's per-step
+    Gumbel noise (keys = split(key, T); tests/test_torch_sampling.py holds
+    the premise and the rest)."""
+    jp, tp, embeds, prompt = model
+    gen_kw = dict(GEN, num_beams=1, repetition_penalty=1.1, top_p=0.9)
+    key = jax.random.PRNGKey(2)
+    want = np.asarray(jblip.blip_generate_ids(
+        jp, jnp.asarray(embeds), jnp.asarray(prompt), JM, JGen(**gen_kw), sample=True,
+        rng_key=key))
+    steps = GEN["max_length"] - prompt.shape[1]
+    keys = jax.random.split(key, steps)
+    noise = torch.from_numpy(np.stack([
+        np.array(jax.random.gumbel(keys[t], (len(prompt), MED_KW["vocab_size"]), jnp.float32))
+        for t in range(steps)]))
+    got = blip.blip_generate_ids(tp, torch.from_numpy(embeds), torch.from_numpy(prompt), PM,
+                                 GenerationConfig(**gen_kw), sample=True, noise=noise)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_itm_ids_from_seqs_matches_jax_and_mirror():

@@ -252,5 +252,72 @@ def test_preprocess_rgb_and_yuv420_match_jax():
     want = np.asarray(jimage.preprocess_any(jimage.YUV420Frames(*map(jnp.asarray, jyuv)), 32))
     got = image.preprocess_any(image.YUV420Frames(*map(_t, yuv)), 32).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError):  # resize_on_device is not ported
-        image.preprocess_any(_t(frames[:, :16]), 32)
+    # frames at another size (resize_on_device) are resized on the device:
+    # RGB, and YUV420 converted at its native size first, as in JAX; the
+    # two libraries sum the resize in another order, so a uint8 rounding
+    # tie may flip by one level (test_resize_matches_jax_image_resize)
+    native = frames[:, :16, :24]
+    for x, jx in ((_t(native), jnp.asarray(native)),
+                  (image.YUV420Frames(*map(_t, image.rgb_to_yuv420(native))),
+                   jimage.YUV420Frames(*map(jnp.asarray, jimage.rgb_to_yuv420(native))))):
+        want = np.asarray(jimage.preprocess_any(jx, 32))
+        got = image.preprocess_any(x, 32).numpy()
+        assert got.shape == want.shape == (3, 32, 32, 3)
+        level = 1.0 / 255.0 / min(image.CLIP_STD)  # one uint8 level, normalized
+        np.testing.assert_allclose(got, want, atol=level + 1e-5, rtol=0)
+        assert np.mean(np.abs(got - want) > 1e-5) < 1e-3
+
+
+@pytest.mark.parametrize("native", [(240, 320), (480, 640), (48, 64)])
+@pytest.mark.parametrize("yuv", [False, True])
+def test_resize_matches_jax_image_resize(native, yuv, record_property):
+    """resize_on_device's resize against jax.image.resize(method="bicubic",
+    antialias=True) at an upscale (240x320 -> 384), a downscale (480x640
+    -> 384) and the CLI fixture's (48x64 -> 32), RGB and YUV420 (converted
+    to RGB at the native size first). The weights are JAX's operation for
+    operation; the products sum in another order, so the float outputs
+    agree to a few fp32 ulps of 255 and a uint8 rounding tie may flip by
+    one level: counted, and bounded at 1e-4 of the pixels."""
+    H, W = native
+    size = 32 if H < 100 else 384
+    rng = np.random.default_rng(H + W + yuv)
+    frames = rng.integers(0, 256, (2, H, W, 3)).astype(np.uint8)
+    if yuv:
+        planes = image.rgb_to_yuv420(frames)
+        x = image.yuv420_to_rgb(*map(_t, planes))
+        jx = jimage.yuv420_to_rgb(*map(jnp.asarray, planes))
+    else:
+        x, jx = _t(frames).float(), jnp.asarray(frames).astype(jnp.float32)
+    for (i, o) in ((H, size), (W, size)):
+        from jax._src.image import scale as jscale
+
+        want_w = np.asarray(jscale.compute_weight_mat(i, o, o / i, 0.0,
+                                                      jscale._fill_keys_cubic_kernel, True))
+        np.testing.assert_allclose(image.resize_weights(i, o).numpy(), want_w, atol=1.2e-7,
+                                   rtol=0)
+    want_f = np.asarray(jax.image.resize(jx, (2, size, size, 3), "bicubic", antialias=True))
+    got_f = image.resize_bicubic(x, size).numpy()
+    np.testing.assert_allclose(got_f, want_f, atol=3e-4, rtol=0)
+    want = np.asarray(jnp.clip(jnp.round(jnp.asarray(want_f)), 0, 255))
+    got = torch.clamp(torch.round(torch.from_numpy(got_f)), 0, 255).numpy()
+    flips = int((got != want).sum())
+    record_property("tie_flips", flips)
+    assert np.abs(got - want).max() <= 1
+    assert flips <= max(2, 1e-4 * got.size)
+    if not yuv:  # the uint8 entry points of both packages
+        got8 = image.resize_bicubic_uint8(_t(frames), size).numpy()
+        np.testing.assert_array_equal(got8, got)
+        want8 = np.asarray(jimage.resize_bicubic_uint8(jnp.asarray(frames), size))
+        assert np.abs(got8 - want8).max() <= 1
+        assert (got8 != want8).sum() <= max(2, 1e-4 * got.size)
+        # preprocess_frames and preprocess_video_batch: the same resize, then
+        # CLIP normalization, within one normalized level where a tie flipped
+        level = 1.0 / 255.0 / min(image.CLIP_STD) + 1e-5
+        want_n = np.asarray(jimage.preprocess_frames(jnp.asarray(frames), size))
+        got_n = image.preprocess_frames(_t(frames), size).numpy()
+        np.testing.assert_allclose(got_n, want_n, atol=level, rtol=0)
+        video = frames.reshape((1, 2) + frames.shape[1:])
+        want_v = np.asarray(jimage.preprocess_video_batch(jnp.asarray(video), size))
+        got_v = image.preprocess_video_batch(_t(video), size).numpy()
+        assert got_v.shape == want_v.shape == (1, 2, size, size, 3)
+        np.testing.assert_allclose(got_v, want_v, atol=level, rtol=0)

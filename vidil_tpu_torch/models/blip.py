@@ -12,7 +12,7 @@ from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.layers import linear
 from vidil_tpu_torch.models.vit import vit_forward
-from vidil_tpu_torch.ops.generation import GenerationConfig, beam_search
+from vidil_tpu_torch.ops.generation import GenerationConfig, beam_search, nucleus_sample
 
 
 def encode_images(params, images, vit_cfg: ViTConfig, dtype=None):
@@ -47,55 +47,64 @@ def blip_caption_loss(params, image_embeds, input_ids, attention_mask, med_cfg: 
 
 
 def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConfig,
-                          dtype=None, beam_size: int = 1):
+                          dtype=None, beam_size: int = 1, int8_dot: bool = False):
     dec = params["text_decoder"]
 
     def prefill_fn(ids, cache):
         h, cache = M.med_decode_prefill(dec, ids, cache, cross_k, cross_v, cross_bias,
-                                        med_cfg, dtype=dtype, beam_size=beam_size)
+                                        med_cfg, dtype=dtype, beam_size=beam_size,
+                                        int8_dot=int8_dot)
         return M.med_lm_logits(dec, h[:, -1], med_cfg, dtype=dtype).float(), cache
 
     def step_fn(tokens, idx, cache):
         return M.med_decode_step(dec, tokens, idx, cache, cross_k, cross_v, cross_bias,
-                                 med_cfg, dtype=dtype, beam_size=beam_size)
+                                 med_cfg, dtype=dtype, beam_size=beam_size, int8_dot=int8_dot)
 
-    def reorder_fn(cache, idx):
-        return {name: c[:, idx] for name, c in cache.items()}
-
-    return prefill_fn, step_fn, reorder_fn
+    return prefill_fn, step_fn, M.reorder_cache
 
 
 def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
-                      gen: GenerationConfig, sample: bool = False, dtype=None,
-                      beam_group_kv: bool = False,
+                      gen: GenerationConfig, sample: bool = False, generator=None,
+                      noise=None, dtype=None, beam_group_kv: bool = False,
                       cross_kv_int8: bool | str = False, decode_layer_unroll: bool = False,
                       decode_lazy_reorder: bool = False):
-    """Beam-search token ids from encoded images.
+    """Token ids from encoded images, by beam search or (``sample``) by
+    nucleus sampling from `generator` (or the given per-step `noise`, see
+    `nucleus_sample`).
 
     image_embeds: (B, Lk, D), not beam-expanded; prompt_ids: (B, Lp)
     starting with [DEC], without the trailing [SEP]. beam_group_kv=True
     keeps the cross K/V at batch B (the beams of one item share it);
     False replicates it per beam (the reference's repeat_interleave).
-    Token outputs are the same either way.
-    """
-    if sample:
-        raise NotImplementedError("vidil_tpu_torch: nucleus sampling is not ported yet")
-    if cross_kv_int8 or decode_layer_unroll or decode_lazy_reorder:
-        raise NotImplementedError(
-            "vidil_tpu_torch: cross_kv_int8 / decode_layer_unroll / decode_lazy_reorder "
-            "are not ported yet")
+    Token outputs are the same either way. Sampling runs one row per item
+    (no beams, so neither applies).
+
+    cross_kv_int8: False, True (the cross K/V stored as per-row int8) or
+    "dot" (also int8 x int8 attention products; with beam_size 1, i.e.
+    not beam_group_kv or sampling, it runs as True). decode_layer_unroll
+    and decode_lazy_reorder change the cache's layout and the beam
+    reorder, not the tokens (`M.init_self_cache`); sampling never
+    reorders, so it drops the lazy reorder."""
     B = image_embeds.shape[0]
-    nb = gen.num_beams
-    beam_size = nb if beam_group_kv else 1
-    kv_src = image_embeds if beam_group_kv else image_embeds.repeat_interleave(nb, dim=0)
+    expand = 1 if sample else gen.num_beams
+    beam_size = expand if beam_group_kv else 1
+    kv_src = (image_embeds if beam_group_kv or sample
+              else image_embeds.repeat_interleave(expand, dim=0))
     cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg, dtype=dtype)
+    if cross_kv_int8:
+        cross_k, cross_v = M.quantize_cross_kv(cross_k, cross_v)
     # the all-ones memory mask gives a bias of zeros, which adds nothing
     # to the logits (x + 0 == x): pass none
-    cache = M.init_self_cache(med_cfg, B * nb, gen.max_length,
-                              dtype=dtype or torch.float32,
-                              device=image_embeds.device)
+    cache = M.init_self_cache(med_cfg, B * expand, gen.max_length,
+                              dtype=dtype or torch.float32, device=image_embeds.device,
+                              unrolled=decode_layer_unroll,
+                              lazy_reorder=decode_lazy_reorder and not sample)
     prefill_fn, step_fn, reorder_fn = make_decoder_closures(
-        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size)
+        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size,
+        int8_dot=(cross_kv_int8 == "dot"))
+    if sample:
+        return nucleus_sample(prompt_ids, cache, prefill_fn, step_fn, gen,
+                              generator=generator, noise=noise)
     seqs, _ = beam_search(prompt_ids, cache, prefill_fn, step_fn, reorder_fn, gen)
     return seqs
 
@@ -122,6 +131,19 @@ def blip_itm_scores(params, image_embeds, text_ids, text_mask, med_cfg: MedConfi
         dtype=dtype, group_size=group_size, self_fold=self_fold,
     )
     return linear(params["itm_head"], hidden[:, 0, :], dtype=dtype).float()
+
+
+def blip_itc_features(params, image_embeds, text_ids, text_mask, med_cfg: MedConfig,
+                      dtype=None):
+    """Projected, unit-norm [CLS] features for contrastive similarity:
+    (image_feat (N, E), text_feat (M, E))."""
+    image_feat = linear(params["vision_proj"], image_embeds[:, 0, :], dtype=dtype)
+    image_feat = image_feat / torch.linalg.vector_norm(image_feat, dim=-1, keepdim=True)
+    text_hidden = M.med_forward(params["text_encoder"], text_ids, text_mask, cfg=med_cfg,
+                                mode="text", dtype=dtype)
+    text_feat = linear(params["text_proj"], text_hidden[:, 0, :], dtype=dtype)
+    text_feat = text_feat / torch.linalg.vector_norm(text_feat, dim=-1, keepdim=True)
+    return image_feat, text_feat
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +214,18 @@ def blip_itm_shapes(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256
             "vision_proj": _lin(vit_cfg.hidden_size, embed_dim),
             "text_proj": _lin(med_cfg.hidden_size, embed_dim),
             "itm_head": _lin(med_cfg.hidden_size, 2)}
+
+
+def blip_nlvr_shapes(vit_cfg: ViTConfig, med_cfg: MedConfig) -> dict:
+    """The NLVR2 model: the ViT, a MED text encoder, the classification
+    head and, per layer, the twin cross-attention output denses and the
+    merge of their concatenation (models/blip_nlvr.py)."""
+    d = med_cfg.hidden_size
+    return {"visual_encoder": vit_shapes(vit_cfg),
+            "text_encoder": med_shapes(med_cfg),
+            "cls_head": {"fc1": _lin(d, d), "fc2": _lin(d, 2)},
+            "nlvr": _stacked(med_cfg.num_layers, {"dense0": _lin(d, d), "dense1": _lin(d, d),
+                                                  "merge": _lin(2 * d, d)})}
 
 
 def blip_retrieval_shapes(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256) -> dict:

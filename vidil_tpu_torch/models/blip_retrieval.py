@@ -25,6 +25,7 @@ from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.convert import named_leaves
 from vidil_tpu_torch.models.layers import linear
 from vidil_tpu_torch.models.vit import vit_forward
+from vidil_tpu_torch.ops.generation import gumbel_argmax, gumbel_noise
 
 MOMENTUM_KEYS = ("visual_encoder", "text_encoder", "vision_proj", "text_proj")
 
@@ -93,11 +94,10 @@ def dequeue_and_enqueue(queue: QueueState, image_feat, text_feat, idxs) -> Queue
 
 def sample_categorical(generator: torch.Generator, log_weights):
     """One draw per row of softmax(log_weights) (rows may hold -inf or
-    -1e9): Gumbel-max, argmax(log_weights + G), G = -log(-log U) with U
-    uniform in (0, 1) from `generator` on the weights' device."""
-    u = torch.rand(log_weights.shape, generator=generator, device=log_weights.device)
-    u = u.clamp_(torch.finfo(torch.float32).tiny, 1.0 - 2.0 ** -24)
-    return torch.argmax(log_weights.float() - torch.log(-torch.log(u)), dim=1)
+    -1e9): Gumbel-max with noise from `generator` on the weights' device,
+    the draw nucleus sampling makes (ops/generation.py)."""
+    return gumbel_argmax(log_weights, gumbel_noise(log_weights.shape, generator,
+                                                   log_weights.device))
 
 
 def _normalize(feat):

@@ -56,11 +56,14 @@ def vqa_train_loss(params, video_embeds, question_ids, question_mask,
 def vqa_generate_ids(params, video_embeds, question_ids, question_mask,
                      med_cfg: MedConfig, tokenizer, max_length: int = 10,
                      num_beams: int = 3, dtype=None, length_norm: str = "legacy",
-                     beam_group_kv: bool = False):
+                     beam_group_kv: bool = False, decode_layer_unroll: bool = False,
+                     decode_lazy_reorder: bool = False):
     """Beam-search answers conditioned on the question states, from [DEC].
     Every question position is attended (the reference's all-ones mask, a
     zero bias, which the port leaves out). beam_group_kv=True keeps the
-    cross K/V at batch B; the tokens are the same either way."""
+    cross K/V at batch B; decode_layer_unroll and decode_lazy_reorder
+    change the cache's layout and reorder (`M.init_self_cache`); the
+    tokens are the same either way."""
     B = video_embeds.shape[0]
     question_states = encode_question(params, video_embeds, question_ids,
                                       question_mask, med_cfg, dtype=dtype)
@@ -71,7 +74,8 @@ def vqa_generate_ids(params, video_embeds, question_ids, question_mask,
                            eos_token_id=tokenizer.sep_token_id,
                            pad_token_id=tokenizer.pad_token_id, length_norm=length_norm)
     cache = M.init_self_cache(med_cfg, B * num_beams, gen.max_length,
-                              dtype=dtype or torch.float32, device=video_embeds.device)
+                              dtype=dtype or torch.float32, device=video_embeds.device,
+                              unrolled=decode_layer_unroll, lazy_reorder=decode_lazy_reorder)
     prefill_fn, step_fn, reorder_fn = make_decoder_closures(
         params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size)
     bos = torch.full((B, 1), tokenizer.bos_token_id, dtype=torch.int32,

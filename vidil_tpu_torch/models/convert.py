@@ -9,6 +9,8 @@ kernels ``(in, out)``, the ViT patch kernel ``(P*P*C, D)`` in patchify's
   `convert_blip_vqa`: a BLIP torch ``.pth`` state dict (reference key names)
   -> port params.
 * `convert_clip`: an HF ``CLIPModel`` state dict -> port params.
+* `load_vit_flax_npz`: a Google vision_transformer Flax ``.npz`` -> port
+  ViT params.
 * `from_jax_params`: the JAX package's parameter pytree, as numpy arrays
   (or tensors) with stacked layers -> port params.
 * `to_jax_params`: its inverse, port params -> the JAX layout as numpy
@@ -26,9 +28,10 @@ import torch
 
 from vidil_tpu_torch.config import CLIPConfig, MedConfig, ViTConfig
 
-# per-layer subtrees: the ViT's blocks, a MED tower's layers and the
-# pretraining decoder's own attention blocks (models/blip_pretrain.py)
-STACKED_KEYS = ("blocks", "layers", "decoder_attn")
+# per-layer subtrees: the ViT's blocks, a MED tower's layers, the
+# pretraining decoder's own attention blocks (models/blip_pretrain.py) and
+# NLVR's twin cross-attention denses and merges (models/blip_nlvr.py)
+STACKED_KEYS = ("blocks", "layers", "decoder_attn", "nlvr")
 
 
 def _t(x):
@@ -166,6 +169,57 @@ def convert_vit(sd: dict, cfg: ViTConfig, prefix: str = "visual_encoder.") -> di
         "pos_embed": _t(pos_embed),
         "blocks": blocks,
         "norm": _ln(sd, p + "norm"),
+    }
+
+
+def load_vit_flax_npz(path, cfg: ViTConfig) -> dict:
+    """A Google vision_transformer Flax ``.npz`` checkpoint (the augreg /
+    original ViT release layout; a path or the loaded mapping) -> port ViT
+    params, read with numpy: the fused qkv kernel from the separate
+    per-head q/k/v kernels, the (ph, pw, c, D) conv kernel flattened to
+    patchify's order, the position embedding resized on a grid mismatch."""
+    z = np.load(path) if isinstance(path, str) else path
+    D = int(z["embedding/bias"].shape[0])
+
+    def arr(key, shape=None):
+        a = np.asarray(z[key])
+        return _t(a if shape is None else a.reshape(shape))
+
+    def ln(pfx):
+        return {"scale": arr(pfx + "/scale"), "bias": arr(pfx + "/bias")}
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        b = f"Transformer/encoderblock_{i}/"
+        a = b + "MultiHeadDotProductAttention_1/"
+        # per-head (D, H, Dh) kernels -> (D, D); the fused qkv kernel is (D, 3D)
+        qkv_k = np.concatenate([np.asarray(z[a + f"{n}/kernel"]).reshape(D, D)
+                                for n in ("query", "key", "value")], axis=1)
+        qkv_b = np.concatenate([np.asarray(z[a + f"{n}/bias"]).reshape(D)
+                                for n in ("query", "key", "value")])
+        blocks.append({
+            "norm1": ln(b + "LayerNorm_0"),
+            "attn": {"qkv": {"kernel": _t(qkv_k), "bias": _t(qkv_b)},
+                     "proj": {"kernel": arr(a + "out/kernel", (D, D)),
+                              "bias": arr(a + "out/bias")}},
+            "norm2": ln(b + "LayerNorm_2"),
+            "mlp": {"fc1": {"kernel": arr(b + "MlpBlock_3/Dense_0/kernel"),
+                            "bias": arr(b + "MlpBlock_3/Dense_0/bias")},
+                    "fc2": {"kernel": arr(b + "MlpBlock_3/Dense_1/kernel"),
+                            "bias": arr(b + "MlpBlock_3/Dense_1/bias")}},
+        })
+    pos_embed = np.asarray(z["Transformer/posembed_input/pos_embedding"])
+    if pos_embed.shape[1] != cfg.seq_len:
+        from vidil_tpu_torch.models.vit import interpolate_pos_embed
+
+        pos_embed = interpolate_pos_embed(pos_embed, cfg.num_patches)
+    return {
+        # the flax conv kernel (ph, pw, c, D) flattens to patchify's order
+        "patch_embed": {"kernel": arr("embedding/kernel", (-1, D)), "bias": arr("embedding/bias")},
+        "cls_token": arr("cls", (1, 1, D)),
+        "pos_embed": _t(pos_embed),
+        "blocks": blocks,
+        "norm": ln("Transformer/encoder_norm"),
     }
 
 

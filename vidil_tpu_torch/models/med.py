@@ -7,12 +7,14 @@ absolute positions. ``params["layers"]`` is a list of per-layer dicts.
 Modes: ``mode='text'`` (bidirectional self-attention), ``mode='multimodal'``
 (+ cross-attention over encoder states), ``is_decoder=True`` (causal).
 Generation uses a preallocated self-attention cache, heads folded into the
-feature axis: ``(layers, B, max_len, H*Dh)``, updated in place per step;
-the cross-attention K/V are projected once per generation.
+feature axis: ``(layers, B, max_len, H*Dh)`` (or one ``(B, max_len, H*Dh)``
+tensor per layer, ``unrolled``), updated in place per step, optionally read
+through an ancestry matrix instead of being permuted on beam reorders
+(``lazy_reorder``); the cross-attention K/V are projected once per
+generation, and may be stored as per-row int8 (`quantize_cross_kv`).
 
 ``self_fold`` is accepted and runs unfolded, which is the fold's exact
-result (see `med_forward`). Not ported yet: the int8 cross-K/V branches
-(`blip_generate_ids` raises for `cross_kv_int8`).
+result (see `med_forward`).
 """
 
 from __future__ import annotations
@@ -77,6 +79,11 @@ def med_embeddings(params, input_ids, cfg: MedConfig, position_offset=0, dtype=N
     if dtype is not None:
         emb = emb.to(dtype)
     return emb
+
+
+def med_pooler(params, hidden, dtype=None):
+    """Tanh pooler over the first token."""
+    return torch.tanh(linear(params["pooler"], hidden[:, 0], dtype=dtype))
 
 
 def med_lm_logits(params, hidden, cfg: MedConfig, dtype=None):
@@ -153,24 +160,105 @@ def _attn_block(p, x, kv_states, bias, num_heads: int, eps: float, dtype=None,
     return layer_norm(p["norm"], out + x, eps)
 
 
+def _kv_scale(kv):
+    """A quantized K or V's per-row scales (B, H, Lk, 1) as (B, 1, H, 1, Lk),
+    broadcast over the beams and query rows of grouped logits."""
+    return kv["scale"][:, None, :, None, :, 0]
+
+
+# an fp32 product of int8 values is exact while every partial sum stays
+# below 2**24: K * 127**2 < 2**24 for K <= 1040
+_INT8_F32_EXACT_K = (1 << 24) // (127 * 127)
+
+
+def int8_matmul(a8, b8):
+    """a8 @ b8 for int8 tensors, exactly: the int32 sums the JAX package's
+    int8 x int8 dots accumulate, as floats. The CUDA build of torch has no
+    batched int8 product, so the operands go to fp32 while the contracted
+    length K <= 1040 (every partial sum is then an integer below 2**24)
+    and to fp64 beyond (integers below 2**53: exact for any K the decode
+    sees; the context over a long video memory is the one such product,
+    and it is small beside the rest of the step)."""
+    K = a8.shape[-1]
+    dt = torch.float32 if K <= _INT8_F32_EXACT_K else torch.float64
+    return torch.matmul(a8.to(dt), b8.to(dt))
+
+
+def _int8_dot_probs(q5, k, v, bias, scale: float):
+    """The int8-dot attention's quantized probabilities: q quantized per
+    row, int8 x int8 logits (exact, `int8_matmul`) scaled in fp32, softmax,
+    V's per-row scales folded in, then quantized per row. q5 (B, nb, H, L,
+    Dh); k, v quantized {q8 (B, H, Lk, Dh), scale (B, H, Lk, 1)}. Returns
+    (p8 (B, nb, H, L, Lk) int8, ps (B, nb, H, L, 1) fp32)."""
+    B, G, H, L, Dh = q5.shape
+    qs = torch.clamp_min(q5.abs().amax(dim=-1, keepdim=True).float(), 1e-12) / 127.0
+    q8 = torch.clamp(torch.round(q5.float() / qs), -127, 127).to(torch.int8)
+    qf = q8.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, Dh)
+    s = int8_matmul(qf, k["q8"].transpose(-1, -2)).float()  # (B, H, G*L, Lk)
+    s = s.reshape(B, H, G, L, -1).permute(0, 2, 1, 3, 4)
+    logits = s * (qs * scale) * _kv_scale(k)
+    if bias is not None:
+        logits = logits + bias[:, None].float()
+    probs = torch.softmax(logits, dim=-1)
+    # V's per-row scales folded into the probabilities before they are
+    # quantized, so the int8 product's row sums carry them: ctx = (p8 V8) ps
+    pv = probs * _kv_scale(v)
+    ps = torch.clamp_min(pv.amax(dim=-1, keepdim=True), 1e-20) / 127.0
+    p8 = torch.clamp(torch.round(pv / ps), -127, 127).to(torch.int8)
+    return p8, ps
+
+
+def _int8_dot_attention(q5, k, v, bias, scale: float):
+    """Grouped attention over a quantized memory with int8 x int8 products
+    (the JAX package's int8_dot): `_int8_dot_probs`, then the context
+    (p8 V8) ps, exact in its sums. Returns (B, nb, H, L, Dh) fp32."""
+    B, G, H, L, Dh = q5.shape
+    p8, ps = _int8_dot_probs(q5, k, v, bias, scale)
+    pf = p8.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, -1)
+    ctx = int8_matmul(pf, v["q8"]).float()  # (B, H, G*L, Dh)
+    return ctx.reshape(B, H, G, L, Dh).permute(0, 2, 1, 3, 4) * ps
+
+
 def _attn_block_precomputed_kv(p, x, k, v, bias, num_heads: int, eps: float,
-                               dtype=None, beam_size: int = 1):
+                               dtype=None, beam_size: int = 1, int8_dot: bool = False):
     """Cross-attention with precomputed K/V. beam_size > 1: x has batch
     B*beam_size but k/v have batch B — the beams of one item attend the
-    same memory (queries fold into the row axis; K/V are not replicated)."""
+    same memory (queries fold into the row axis; K/V are not replicated).
+
+    k/v may be per-row int8 {q8, scale} from `quantize_cross_kv`. The
+    per-row scales factor out of both products exactly (logits_k =
+    (q . K8_k) s_k, ctx = sum_k (p_k s_k) V8_k): in the grouped layout they
+    scale the fp32 logits and the probabilities; at beam size 1 the memory
+    is dequantized in fp32 and cast once. `int8_dot` (grouped layout only;
+    at beam size 1 it degrades to the dequantized path, as in JAX) also
+    quantizes q and the probabilities: `_int8_dot_attention`."""
     q = split_heads(linear(p["query"], x, dtype=dtype), num_heads)  # (B*nb, H, L, Dh)
+    k_quant = isinstance(k, dict)
     if beam_size > 1:
         Bn, H, L, Dh = q.shape
         B = Bn // beam_size
         q5 = q.reshape(B, beam_size, H, L, Dh)
         scale = 1.0 / math.sqrt(Dh)
-        logits = _grouped_scores(q5, k) * scale
-        if bias is not None:
-            logits = logits + bias[:, None].float()
-        probs = torch.softmax(logits, dim=-1)
-        ctx = _grouped_context(probs.to(v.dtype), v)
+        if k_quant and int8_dot:
+            ctx = _int8_dot_attention(q5, k, v, bias, scale).to(q.dtype)
+        else:
+            k_mat = k["q8"].to(q.dtype) if k_quant else k
+            logits = _grouped_scores(q5, k_mat) * scale
+            if k_quant:
+                logits = logits * _kv_scale(k)
+            if bias is not None:
+                logits = logits + bias[:, None].float()
+            probs = torch.softmax(logits, dim=-1)
+            if k_quant:
+                v_mat = v["q8"].to(q.dtype)
+                ctx = _grouped_context((probs * _kv_scale(v)).to(v_mat.dtype), v_mat)
+            else:
+                ctx = _grouped_context(probs.to(v.dtype), v)
         ctx = merge_heads(ctx.reshape(Bn, H, L, Dh))
     else:
+        if k_quant:
+            k = (k["q8"].float() * k["scale"]).to(q.dtype)
+            v = (v["q8"].float() * v["scale"]).to(q.dtype)
         ctx = merge_heads(dot_product_attention(q, k, v, bias=bias))
     out = linear(p["out"], ctx, dtype=dtype)
     return layer_norm(p["norm"], out + x, eps)
@@ -286,13 +374,61 @@ def precompute_cross_kv(params, encoder_hidden_states, cfg: MedConfig, dtype=Non
             split_heads(torch.stack(vs), cfg.num_heads))
 
 
+def quantize_cross_kv(k, v):
+    """Per-row symmetric int8 quantization of precomputed cross-K/V: each
+    (..., Dh) row gets one absmax/127 fp32 scale. Returns ({q8, scale},
+    {q8, scale}); the pair drops into `_attn_block_precomputed_kv` in place
+    of the tensors (the scales factor out of both attention products)."""
+
+    def q(x):
+        s = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True).float() / 127.0, 1e-12)
+        q8 = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+        return {"q8": q8, "scale": s}
+
+    return q(k), q(v)
+
+
+def _layer_kv(kv, i):
+    """Layer i of precomputed cross K or V: a tensor, or a quantized dict."""
+    if kv is None:
+        return None
+    if isinstance(kv, dict):
+        return {name: t[i] for name, t in kv.items()}
+    return kv[i]
+
+
 def init_self_cache(cfg: MedConfig, batch: int, max_len: int, dtype=torch.float32,
-                    *, device=None):
+                    *, device=None, unrolled: bool = False, lazy_reorder: bool = False):
     """Fixed-shape self-attention KV cache, heads folded into the feature
-    axis: {'k', 'v'} each (layers, batch, max_len, H*Dh)."""
-    shape = (cfg.num_layers, batch, max_len, cfg.hidden_size)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    axis: {'k', 'v'} each (layers, batch, max_len, H*Dh).
+
+    unrolled=True keeps one (batch, max_len, H*Dh) tensor per layer (lists)
+    instead of one stacked tensor; a beam reorder then gathers each layer's
+    tensor. lazy_reorder=True adds 'anc', an int32 (batch, max_len)
+    ancestry matrix: a beam reorder gathers only it, and the decode step
+    reads slot t of row r from row anc[r, t] (the value a physical reorder
+    would have moved there, so the tokens are the same)."""
+    shape = (batch, max_len, cfg.hidden_size)
+    if unrolled:
+        cache = {name: [torch.zeros(shape, dtype=dtype, device=device)
+                        for _ in range(cfg.num_layers)] for name in ("k", "v")}
+    else:
+        cache = {name: torch.zeros((cfg.num_layers,) + shape, dtype=dtype, device=device)
+                 for name in ("k", "v")}
+    if lazy_reorder:
+        rows = torch.arange(batch, dtype=torch.int32, device=device)
+        cache["anc"] = rows[:, None].repeat(1, max_len)
+    return cache
+
+
+def reorder_cache(cache, idx):
+    """The beam reorder: rows of the cache gathered by the flat beam index
+    `idx`; with an ancestry matrix, only it is gathered."""
+    if "anc" in cache:
+        return dict(cache, anc=cache["anc"][idx])
+    if isinstance(cache["k"], list):
+        return {name: [x[idx] for x in c] for name, c in cache.items()}
+    return {name: c[:, idx] for name, c in cache.items()}
 
 
 def _fold_heads(x):
@@ -302,10 +438,10 @@ def _fold_heads(x):
 
 
 def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
-                       cfg: MedConfig, dtype=None, beam_size: int = 1):
-    """Run the prompt through the decoder, writing cache[:, :, :Lp] in place.
-    Returns (hidden (B, Lp, D), cache). The prompt is unpadded and of one
-    length across the batch."""
+                       cfg: MedConfig, dtype=None, beam_size: int = 1, int8_dot: bool = False):
+    """Run the prompt through the decoder, writing cache slots [0, Lp) of
+    every layer in place. Returns (hidden (B, Lp, D), cache). The prompt is
+    unpadded and of one length across the batch."""
     B, Lp = input_ids.shape
     x = med_embeddings(params, input_ids, cfg, dtype=dtype)
     seq = torch.arange(Lp, device=input_ids.device)
@@ -319,50 +455,63 @@ def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
         h = linear(sa["out"], ctx, dtype=dtype)
         x = layer_norm(sa["norm"], h + x, cfg.layer_norm_eps)
         if cross_k is not None:
-            x = _attn_block_precomputed_kv(layer["cross_attn"], x, cross_k[i], cross_v[i],
-                                           cross_bias, cfg.num_heads, cfg.layer_norm_eps,
-                                           dtype, beam_size=beam_size)
+            x = _attn_block_precomputed_kv(layer["cross_attn"], x, _layer_kv(cross_k, i),
+                                           _layer_kv(cross_v, i), cross_bias, cfg.num_heads,
+                                           cfg.layer_norm_eps, dtype, beam_size=beam_size,
+                                           int8_dot=int8_dot)
         x = _ffn_block(layer, x, cfg, dtype=dtype)
-        cache["k"][i, :, :Lp] = _fold_heads(k).to(cache["k"].dtype)
-        cache["v"][i, :, :Lp] = _fold_heads(v).to(cache["v"].dtype)
+        # cache["k"][i] is layer i's (B, max_len, D) tensor in both layouts
+        # (a view of the stacked one), so the writes land in the cache
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, :Lp] = _fold_heads(k).to(kc.dtype)
+        vc[:, :Lp] = _fold_heads(v).to(vc.dtype)
     return x, cache
 
 
 def med_decode_step(params, token_ids, step_index: int, cache, cross_k, cross_v,
-                    cross_bias, cfg: MedConfig, dtype=None, beam_size: int = 1):
+                    cross_bias, cfg: MedConfig, dtype=None, beam_size: int = 1,
+                    int8_dot: bool = False):
     """Decode one token for the whole batch, writing this step's K/V into
     the cache in place.
 
     token_ids: (B,); step_index: absolute position of this token (cache
-    slots [0, step_index) hold the history). Returns (logits (B, V) fp32,
-    cache)."""
+    slots [0, step_index) hold the history). With an ancestry matrix
+    ('anc'), this step's slot is stamped with the row's own index and every
+    read gathers through it. Returns (logits (B, V) fp32, cache)."""
     B = token_ids.shape[0]
-    max_len = cache["k"].shape[-2]
+    max_len = cache["k"][0].shape[-2]
     H = cfg.num_heads
     Dh = cfg.hidden_size // H
     x = med_embeddings(params, token_ids[:, None], cfg, position_offset=step_index, dtype=dtype)
     pos = torch.arange(max_len, device=token_ids.device)
     step_bias = torch.where(pos <= step_index, 0.0, NEG_INF)[None, None, None, :]
     scale = 1.0 / math.sqrt(Dh)
+    anc = cache.get("anc")
+    if anc is not None:
+        anc[:, step_index] = torch.arange(B, dtype=anc.dtype, device=anc.device)
     for i, layer in enumerate(params["layers"]):
         sa = layer["self_attn"]
         q = split_heads(linear(sa["query"], x, dtype=dtype), H)  # (B, H, 1, Dh)
         k_new = linear(sa["key"], x, dtype=dtype)  # (B, 1, H*Dh)
         v_new = linear(sa["value"], x, dtype=dtype)
-        cache["k"][i, :, step_index] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][i, :, step_index] = v_new[:, 0].to(cache["v"].dtype)
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, step_index] = k_new[:, 0].to(kc.dtype)
+        vc[:, step_index] = v_new[:, 0].to(vc.dtype)
+        if anc is not None:
+            kc, vc = kc[anc, pos[None, :]], vc[anc, pos[None, :]]
         # heads re-split view-only: (B, H, L, Dh)
-        k4 = cache["k"][i].reshape(B, max_len, H, Dh).transpose(1, 2).to(q.dtype)
-        v4 = cache["v"][i].reshape(B, max_len, H, Dh).transpose(1, 2).to(q.dtype)
+        k4 = kc.reshape(B, max_len, H, Dh).transpose(1, 2).to(q.dtype)
+        v4 = vc.reshape(B, max_len, H, Dh).transpose(1, 2).to(q.dtype)
         logits = matmul_f32(q, k4.transpose(-1, -2)) * scale
         probs = torch.softmax(logits + step_bias, dim=-1)
         ctx = merge_heads(torch.matmul(probs.to(v4.dtype), v4))
         h = linear(sa["out"], ctx, dtype=dtype)
         x = layer_norm(sa["norm"], h + x, cfg.layer_norm_eps)
         if cross_k is not None:
-            x = _attn_block_precomputed_kv(layer["cross_attn"], x, cross_k[i], cross_v[i],
-                                           cross_bias, cfg.num_heads, cfg.layer_norm_eps,
-                                           dtype, beam_size=beam_size)
+            x = _attn_block_precomputed_kv(layer["cross_attn"], x, _layer_kv(cross_k, i),
+                                           _layer_kv(cross_v, i), cross_bias, cfg.num_heads,
+                                           cfg.layer_norm_eps, dtype, beam_size=beam_size,
+                                           int8_dot=int8_dot)
         x = _ffn_block(layer, x, cfg, dtype=dtype)
     logits = med_lm_logits(params, x[:, 0, :], cfg, dtype=dtype)
     return logits.float(), cache

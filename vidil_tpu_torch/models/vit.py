@@ -17,6 +17,8 @@ gradient with ``use_fused_block_bwd``).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -26,6 +28,7 @@ from vidil_tpu_torch.models.layers import (
     gelu,
     layer_norm,
     linear,
+    matmul_f32,
     merge_heads,
     mlp_auto,
     remat,
@@ -74,9 +77,32 @@ def use_fused_schedule(cfg: ViTConfig, x) -> bool:
             and cfg.hidden_size % 128 == 0 and (cfg.fused_block_interpret or x.is_cuda))
 
 
-def vit_forward(params, images, cfg: ViTConfig, dtype=None):
+def _forward_with_attn(params, x, cfg: ViTConfig, dtype=None):
+    """The classic blocks with each layer's softmax maps kept: the logits
+    of an fp32-accumulated q·k product, scaled, softmax in fp32 (so no
+    flash kernel: the probabilities are the output); the MLP through
+    `mlp_auto` (K3 with ``use_fused_mlp``). Returns (x after the final
+    LayerNorm, [(B, H, L, L) fp32 per layer])."""
+    attns = []
+    for blk in params["blocks"]:
+        h = layer_norm(blk["norm1"], x, cfg.layer_norm_eps)
+        qkv = linear(blk["attn"]["qkv"], h, dtype=dtype)
+        q, k, v = (split_heads(t, cfg.num_heads) for t in qkv.chunk(3, dim=-1))
+        logits = matmul_f32(q, k.transpose(-1, -2))
+        probs = torch.softmax(logits / math.sqrt(q.shape[-1]), dim=-1)
+        attns.append(probs)
+        out = torch.matmul(probs.to(v.dtype), v)
+        x = x + linear(blk["attn"]["proj"], merge_heads(out), dtype=dtype)
+        x = x + mlp_auto(blk["mlp"], layer_norm(blk["norm2"], x, cfg.layer_norm_eps),
+                         dtype=dtype, use_fused=cfg.use_fused_mlp)
+    return layer_norm(params["norm"], x, cfg.layer_norm_eps), attns
+
+
+def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = False):
     """images: (B, H, W, C) NHWC, already resized/normalized.
-    Returns (B, num_patches + 1, hidden) embeddings (token 0 = [CLS]).
+    Returns (B, num_patches + 1, hidden) embeddings (token 0 = [CLS]), and
+    with ``return_attn`` also every layer's attention maps (the
+    reference's save_attention_map), `_forward_with_attn`.
 
     Fused schedule (`use_fused_schedule`): the token axis is padded once to
     a multiple of 128, every block runs as `fused_vit_block` on the padded
@@ -91,6 +117,8 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None):
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"][:, : x.shape[1], :].to(x.dtype)
+    if return_attn:
+        return _forward_with_attn(params, x, cfg, dtype)
     if use_fused_schedule(cfg, x):
         L = x.shape[1]
         lp = (L + 127) // 128 * 128

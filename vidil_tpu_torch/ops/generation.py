@@ -1,10 +1,12 @@
-"""Batched beam search on the device.
+"""Batched beam search and nucleus sampling on the device.
 
-Counterpart of ``vidil_tpu/ops/generation.py:beam_search``: a fixed-shape
-loop over decode steps with the beam bookkeeping (hypothesis store, stop
-heuristic, length normalization) vectorized over the batch. Two dialects
-(``GenerationConfig.length_norm``): ``"legacy"`` (transformers v4.15, the
-reference's captions) and ``"modern"`` (transformers >= 4.50).
+Counterpart of ``vidil_tpu/ops/generation.py``: `beam_search`, a
+fixed-shape loop over decode steps with the beam bookkeeping (hypothesis
+store, stop heuristic, length normalization) vectorized over the batch,
+in two dialects (``GenerationConfig.length_norm``): ``"legacy"``
+(transformers v4.15, the reference's captions) and ``"modern"``
+(transformers >= 4.50); and `nucleus_sample`, HF's ``do_sample=True,
+top_p=...`` with one Gumbel-max draw per step.
 
 The model is abstracted behind three closures:
 
@@ -22,7 +24,10 @@ device values, so a whole decode is enqueued without a host sync.
 done (one host sync per step); the outputs are the same either way,
 because steps after a row is done change nothing.
 
-Nucleus sampling is not ported yet.
+Random draws come from an explicit ``torch.Generator`` on the logits'
+device; torch and JAX draw different streams, so sampling is held to the
+JAX package by feeding both the same per-step noise (`nucleus_sample`'s
+``noise``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ class GenerationConfig:
     pad_token_id: int = 0
     repetition_penalty: float = 1.0
     length_penalty: float = 1.0
+    top_p: float = 0.9
     length_norm: str = "legacy"  # "legacy" (reference parity) | "modern"
     early_exit: bool = True
 
@@ -64,6 +70,35 @@ def _apply_min_length(scores, cur_len: int, min_length: int, eos_token_id: int):
         scores = scores.clone()
         scores[:, eos_token_id] = float("-inf")
     return scores
+
+
+def _top_p_filter(logits, top_p: float):
+    """HF TopPLogitsWarper: keep the smallest prefix of the descending-prob
+    distribution whose mass reaches top_p (always >= 1 token); a token is
+    dropped when the mass *before* it exceeds top_p, so ties at the
+    threshold stay."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    sorted_probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    remove_sorted = (cum - sorted_probs) > top_p
+    inf = torch.full_like(sorted_logits, float("inf"))
+    threshold = torch.where(remove_sorted, inf, sorted_logits).amin(dim=-1, keepdim=True)
+    return torch.where(logits < threshold, torch.full_like(logits, float("-inf")), logits)
+
+
+def gumbel_noise(shape, generator: torch.Generator, device):
+    """Standard Gumbel noise G = -log(-log U), U uniform from `generator`,
+    clamped into (0, 1) so that G is finite."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_(torch.finfo(torch.float32).tiny, 1.0 - 2.0 ** -24)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_argmax(log_weights, noise):
+    """One draw per row of softmax(log_weights) (rows may hold -inf):
+    argmax(log_weights + G), the first index on ties. This is how
+    jax.random.categorical draws, so JAX's noise gives JAX's draw."""
+    return torch.argmax(log_weights.float() + noise, dim=-1)
 
 
 def _topk_stable(x, k: int):
@@ -203,3 +238,46 @@ def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: Ge
         seq = torch.where(pos >= ln, gen.pad_token_id, seq)
     out_scores = hyp_s[torch.arange(B, device=dev), best]
     return seq.to(torch.int32), out_scores
+
+
+def nucleus_sample(prompt_ids, init_cache, prefill_fn, step_fn, gen: GenerationConfig,
+                   generator: torch.Generator | None = None, noise=None):
+    """Batched top-p sampling (HF ``do_sample=True, top_p=...``): per step,
+    repetition penalty, min-length, the top-p filter, then one Gumbel-max
+    draw per row. A finished row emits pad; with ``gen.early_exit`` the
+    loop stops when every row is done (the tokens are those of the full
+    run).
+
+    prompt_ids: (B, Lp); init_cache sized for batch B. The noise of step
+    t (= cur_len - Lp) is `gumbel_noise` from `generator`, or
+    ``noise[t]`` when `noise` (T, B, V) is given (the tests feed the JAX
+    package's per-step draws). Returns (B, max_length) int32 padded with
+    pad_token_id."""
+    B, Lp = prompt_ids.shape
+    if gen.max_length <= Lp:
+        raise ValueError("max_length must exceed prompt length")
+    if noise is None and generator is None:
+        raise ValueError("nucleus_sample needs a generator or the noise")
+    dev = prompt_ids.device
+    max_len = gen.max_length
+    prompt_ids = prompt_ids.to(torch.int32)
+    last_logits, cache = prefill_fn(prompt_ids, init_cache)
+    seqs = torch.full((B, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
+    seqs[:, :Lp] = prompt_ids
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for cur_len in range(Lp, max_len):
+        if gen.early_exit and bool(finished.all()):
+            break
+        logits = last_logits.float()
+        logits = _apply_repetition_penalty(logits, seqs, cur_len, gen.repetition_penalty)
+        logits = _apply_min_length(logits, cur_len, gen.min_length, gen.eos_token_id)
+        logits = _top_p_filter(logits, gen.top_p)
+        g = (noise[cur_len - Lp] if noise is not None
+             else gumbel_noise(logits.shape, generator, logits.device))
+        sampled = gumbel_argmax(logits, g).to(torch.int32)
+        tokens = torch.where(finished, torch.full_like(sampled, gen.pad_token_id), sampled)
+        seqs[:, cur_len] = tokens
+        finished = finished | (tokens == gen.eos_token_id)
+        if cur_len + 1 < max_len:
+            last_logits, cache = step_fn(tokens, cur_len, cache)
+    return seqs

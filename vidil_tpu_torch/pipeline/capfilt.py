@@ -1,12 +1,14 @@
 """CapFilt: per-frame BLIP captioning + ITM filtering, batched on the device.
 
 Counterpart of ``vidil_tpu/pipeline/capfilt.py``. Frames of many videos
-are captioned in one beam-search run (batch = videos × num_frm), and the
-ITM filter scores all (caption, frame) pairs of a chunk in one grouped
-call — softmax[:, 1], then max/avg over frames against the threshold.
+are captioned in one beam-search (or nucleus-sampling) run (batch =
+videos × num_frm), and the ITM filter scores all (caption, frame) pairs of
+a chunk in one grouped call — softmax[:, 1], then max/avg over frames
+against the threshold. Frames arrive at image_size or at their native
+size (``resize_on_device``: the encode resizes them, `preprocess_any`).
 
 ``dispatch_chunk`` enqueues a chunk's whole device chain (captioner
-encode -> beam decode -> filterer encode -> fused-filter ITM) without a
+encode -> decode -> filterer encode -> fused-filter ITM) without a
 host sync and starts the copies of the small results to pinned host
 memory; ``complete_chunk`` waits for them and does the string work. The
 fused filter builds the ITM ids on the device from the generated tokens;
@@ -133,6 +135,7 @@ class CapFiltEngine:
         num_beams: int = 3,
         max_length: int = 20,
         min_length: int = 5,
+        top_p: float = 0.9,
         itm_max_text_len: int = 35,
         dtype=torch.bfloat16,
         beam_group_kv: bool = False,
@@ -142,15 +145,17 @@ class CapFiltEngine:
         fused_filter: bool = True,
         device="cuda",
     ):
+        """cross_kv_int8 (False | True | "dot"), decode_layer_unroll and
+        decode_lazy_reorder select the decode's variants
+        (`blip_generate_ids`); top_p is the sampling mode's nucleus."""
         self.device = resolve_device(device)
-        if cross_kv_int8 or decode_layer_unroll or decode_lazy_reorder:
-            raise NotImplementedError(
-                "vidil_tpu_torch: cross_kv_int8 / decode_layer_unroll / decode_lazy_reorder "
-                "are not ported yet")
         if dtype == torch.float32:
             dtype = None  # fp32 params: no casts
         self.dtype = dtype
         self.beam_group_kv = beam_group_kv
+        self.decode_kw = dict(cross_kv_int8=cross_kv_int8,
+                              decode_layer_unroll=decode_layer_unroll,
+                              decode_lazy_reorder=decode_lazy_reorder)
         self.fused_filter = fused_filter
         # how often the fused filter's host verification re-scored videos
         # through the classic path
@@ -184,6 +189,13 @@ class CapFiltEngine:
             eos_token_id=tokenizer.sep_token_id, pad_token_id=tokenizer.pad_token_id,
             repetition_penalty=1.0, length_norm="legacy", early_exit=False,
         )
+        # the reference's sampling settings (models/blip.py: top_p 0.9,
+        # repetition_penalty 1.1), one row per frame
+        self.gen_sample = GenerationConfig(
+            max_length=max_length, min_length=min_length, num_beams=1,
+            eos_token_id=tokenizer.sep_token_id, pad_token_id=tokenizer.pad_token_id,
+            repetition_penalty=1.1, top_p=top_p, length_norm="legacy", early_exit=False,
+        )
 
     # -- device programs ----------------------------------------------------
 
@@ -199,7 +211,7 @@ class CapFiltEngine:
         return B.encode_images(params, x, self.vit_cfg, dtype=self.dtype)
 
     def encode_captioner(self, frames):
-        """(F, S, S, C) uint8 frames (or YUV420Frames) -> (F, P, D) embeddings."""
+        """(F, H, W, C) uint8 frames (or YUV420Frames) -> (F, P, D) embeddings."""
         return self._encode(self.captioner_params, self._put(frames))
 
     def generate_beam(self, embeds):
@@ -207,10 +219,19 @@ class CapFiltEngine:
         prompt = self._prompt_dev[None].expand(embeds.shape[0], -1)
         return B.blip_generate_ids(self.captioner_params, embeds, prompt, self.med_cfg,
                                    self.gen_beam, dtype=self.dtype,
-                                   beam_group_kv=self.beam_group_kv)
+                                   beam_group_kv=self.beam_group_kv, **self.decode_kw)
+
+    def generate_sample(self, embeds, generator: torch.Generator):
+        """(N, P, D) captioner embeddings -> (N, max_length) token ids by
+        nucleus sampling, one row per frame, drawn from `generator` (a
+        generator on the engine's device)."""
+        prompt = self._prompt_dev[None].expand(embeds.shape[0], -1)
+        return B.blip_generate_ids(self.captioner_params, embeds, prompt, self.med_cfg,
+                                   self.gen_sample, sample=True, generator=generator,
+                                   dtype=self.dtype, **self.decode_kw)
 
     def encode_filter_frames(self, frames, num_frm: int):
-        """(V*F, S, S, C) uint8 -> (V, F, P, D) filterer embeddings."""
+        """(V*F, H, W, C) uint8 -> (V, F, P, D) filterer embeddings."""
         embeds = self._encode(self.filterer_params, self._put(frames))
         V = _num_frames(frames) // num_frm
         return embeds.reshape((V, num_frm) + tuple(embeds.shape[1:]))
@@ -292,15 +313,16 @@ class CapFiltEngine:
                        n_real: int | None = None) -> ChunkDispatch:
         """Enqueue a chunk's device work without blocking the host.
 
-        chunk items: {'video_id': str, 'frames': (F, S, S, C) uint8 or
-        YUV420Frames (host or device), 'text': [original captions]}.
+        chunk items: {'video_id': str, 'frames': (F, H, W, C) uint8 or
+        YUV420Frames (host or device; at image_size, or all at one native
+        size that the encode resizes), 'text': [original captions]}.
         config keys follow the reference yaml (caption / filter /
         filter_generated_only / keep_original_caption / threshold /
         filter_mode / generation_mode / do_sentence_tokenization).
-        `rng` is accepted for the sampling mode, which is not ported yet.
+        generation_mode other than 'beam' samples, drawing from `rng`, a
+        torch.Generator on the engine's device (one seeded with 0 when
+        none is given).
         """
-        if config.get("caption", True) and config.get("generation_mode", "beam") != "beam":
-            raise NotImplementedError("vidil_tpu_torch: nucleus sampling is not ported yet")
         F = _num_frames(chunk[0]["frames"])
         frames = self._put(_concat_frames([c["frames"] for c in chunk]))
         need_filter = config.get("filter", True)
@@ -308,7 +330,13 @@ class CapFiltEngine:
         frame_embeds = None
         itm_probs = None
         if config.get("caption", True):
-            seqs = self.generate_beam(self._encode(self.captioner_params, frames))
+            embeds = self._encode(self.captioner_params, frames)
+            if config.get("generation_mode", "beam") != "beam":
+                if rng is None:
+                    rng = torch.Generator(device=self.device).manual_seed(0)
+                seqs = self.generate_sample(embeds, rng)
+            else:
+                seqs = self.generate_beam(embeds)
         if need_filter:
             frame_embeds = self.encode_filter_frames(frames, F)
         if self.fused_filter and seqs is not None and need_filter and fused_applicable(config):

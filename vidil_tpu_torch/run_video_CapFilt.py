@@ -12,9 +12,14 @@ when the fused filter applies.
 
 Config keys honoured beyond the reference's: bert_vocab, videos_per_batch,
 beam_group_kv, fused_filter, transfer_format ('rgb' | 'yuv420'),
-compute_dtype ('bfloat16' | 'float32'), synthetic_weights, decode_workers.
-Not ported yet (they raise NotImplementedError): resize_on_device,
-data_parallel, generation_mode other than 'beam', multi-process launches.
+compute_dtype ('bfloat16' | 'float32'), synthetic_weights, decode_workers,
+and resize_on_device: frames go to the device at their native decode size
+(native_height / native_width, else the first video's, even dims) and the
+encode resizes them there; a video decoding at another size gets one host
+PIL resample to that size, with one printed warning. generation_mode
+'sample' draws each chunk's captions from a generator seeded afresh with
+--seed, as the JAX CLI passes PRNGKey(seed) to every chunk. data_parallel
+raises NotImplementedError, as do multi-process launches.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_UNPORTED_KEYS = ("resize_on_device", "data_parallel")
+_UNPORTED_KEYS = ("data_parallel",)
 
 
 def build_engine(config, device="cuda", dtype=None):
@@ -42,8 +47,6 @@ def build_engine(config, device="cuda", dtype=None):
     for key in _UNPORTED_KEYS:
         if config.get(key, False):
             raise NotImplementedError(f"vidil_tpu_torch: {key} is not ported yet")
-    if config.get("generation_mode", "beam") != "beam":
-        raise NotImplementedError("vidil_tpu_torch: nucleus sampling is not ported yet")
     if "vit_config" in config:  # custom architecture (tests / non-standard sizes)
         vit_cfg = ViTConfig(image_size=config["image_size"], **config["vit_config"])
     else:
@@ -80,8 +83,11 @@ def build_engine(config, device="cuda", dtype=None):
 
 
 def main(args, config):
+    import threading
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
 
     from vidil_tpu_torch import utils
     from vidil_tpu_torch.data.sampling import load_video_frames
@@ -128,9 +134,40 @@ def main(args, config):
             return t.pin_memory().to(engine.device, non_blocking=True)
         return t
 
+    resize_dev = bool(config.get("resize_on_device", False))
+    # the native (H, W) every chunk ships at under resize_on_device: the
+    # config's, else the first decoded video's (even dims, for I420)
+    native_hw = None
+    if config.get("native_height") and config.get("native_width"):
+        native_hw = (int(config["native_height"]) & ~1, int(config["native_width"]) & ~1)
+    native_lock = threading.Lock()
+    offspec_warned = False
+
+    def native_frames(item, frames):
+        """Frames at the run's native size: cropped to even dims, or, for
+        a video that decodes at another size, one host PIL resample."""
+        nonlocal native_hw, offspec_warned
+        with native_lock:
+            if native_hw is None:
+                native_hw = (frames.shape[1] & ~1, frames.shape[2] & ~1)
+            h, w = native_hw
+            warn = frames.shape[1:3] != (h, w) and not offspec_warned
+            offspec_warned = offspec_warned or warn
+        if frames.shape[1:3] == (h, w):
+            return frames[:, :h, :w]
+        if warn:
+            print(f"resize_on_device: video {item['video_id']} decodes at "
+                  f"{frames.shape[1]}x{frames.shape[2]}, host-resampling off-spec videos "
+                  f"to the chunk-native {h}x{w}")
+        out = np.empty((len(frames), h, w, 3), np.uint8)
+        for i, frm in enumerate(frames):
+            out[i] = np.asarray(Image.fromarray(frm).resize((w, h), Image.BICUBIC))
+        return out
+
     def decode_item(item):
-        """Host decode + PIL resize of one video (thread-parallel); the
-        frames leave for the device from this thread."""
+        """Host decode + PIL resize (or, under resize_on_device, the native
+        frames) of one video (thread-parallel); the frames leave for the
+        device from this thread."""
         frames = load_video_frames(
             item["video_path"], config["frm_sampling_strategy"], num_frm,
             height=config.get("height"), width=config.get("width"),
@@ -139,7 +176,7 @@ def main(args, config):
         )
         if frames is None:
             return None
-        pre = preprocess_frames_pil(frames, image_size)
+        pre = native_frames(item, frames) if resize_dev else preprocess_frames_pil(frames, image_size)
         if yuv:
             dev = YUV420Frames(*(to_device(p) for p in rgb_to_yuv420(pre)))
         else:
@@ -181,7 +218,10 @@ def main(args, config):
         real = len(chunk)
         while len(chunk) < chunk_size:  # fixed chunk shape
             chunk.append({**chunk[0]})
-        d = engine.dispatch_chunk(chunk, config, n_real=real)
+        # sampling: every chunk draws from a generator seeded afresh with
+        # --seed (the JAX CLI passes PRNGKey(seed) to every chunk)
+        rng = torch.Generator(device=engine.device).manual_seed(args.seed)
+        d = engine.dispatch_chunk(chunk, config, rng=rng, n_real=real)
         if keep_in_flight:
             flush_in_flight()
             in_flight = (d, meta, real)
