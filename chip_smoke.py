@@ -7,9 +7,11 @@ tokenization with its BLIP and CLIP encoders, the prompt side on the
 SBERT MPNet encoder (all-mpnet-base-v2 width), and the BLIP retrieval
 eval, retrieval fine-tuning and video pretraining; then CapFilt's
 sampling, on-device resize and decode variants, NLVR2, the embedding
-extractor and the ViT's attention maps.
+extractor and the ViT's attention maps; last, the multi-process runtime
+(a world of one under NCCL, two gloo ranks on the one card).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase17-world 4   # phase 17 (b) over 4 NCCL ranks, 4 cards
 
 Needs a CUDA card and nvcc (CUDA_HOME or /usr/local/cuda); imports only
 vidil_tpu_torch (no JAX). Phases, each of which fails the run:
@@ -159,12 +161,32 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      return_attn encode (no K1): 12 maps whose rows sum to 1 within 1e-3,
      its embeddings beside the classic encode's after one block and twelve
      (reported).
+ 17. the multi-process runtime: the ViT-B/384 encode of 32 frames with
+     use_flash False (0 K1 launches; 12 with it); (a) the fused caption
+     step of phase 9 without a process group, then in a world of one under
+     NCCL through init_distributed_mode (torchrun's variables) with the
+     gradient all-reduce, and with ZeRO-1, each bitwise equal to the plain
+     step (loss, parameters, first moments; 12 K4 + 12 K5 each); (b) two
+     gloo ranks on cuda:0 (this script in two fresh processes, env
+     rendezvous): the caption step (12 K4 + 12 K5 per rank) and phase 15's
+     retrieval step (no launch) at the global batch, each rank on its rows
+     (the trainers' loader split), against one process (the loss within
+     P17_LOSS_RTOL, the summed gradient within P17_GRAD_NORM_REL of its norm
+     and every leaf within P17_GRAD_LEAF_REL of its norm; the
+     retrieval step on the ranks' draws, which must agree across ranks), the
+     sharded rerank (30 videos, k_test 16; 12 K1 per dispatched block of
+     each rank) against the one process's scores within P17_SCORE_REL, and
+     the CapFilt CLI (7 videos x 4 frames, 4 a chunk, BLIP-base/384, bf16;
+     24 K1 per rank and per chunk of the one process) with its merged
+     files byte-identical to one process's. With --phase17-world N, (b)
+     alone over N NCCL ranks, one card each (at N = 4: 2 videos x 8
+     frames a chunk, 36 K1 a chunk).
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold) and at the retrieval rerank's fold (its text length from
 phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
 of single calls between CUDA events on an idle card: device time plus the
-host work before the launch; "device_ms" (phases 8, 12) is device time
-alone. The last two lines are the kernels' JSON record (each kernel at its main
+host work before the launch; "device_ms" (phases 3 at the ViT views, 8,
+12) is device time alone. The last two lines are the kernels' JSON record (each kernel at its main
 path's shape, bf16; every shape and dtype is on its own "kernel check"
 line above) and {"ok": true, ...}.
 """
@@ -465,6 +487,10 @@ def check_flash_kernel(fa, device, rerank_len):
                 row.update(attention_rates(fa, q, k, row["ms"], bound), host_us=host_us(kernel))
                 if label == "vit_self_attention" and layout == "views":
                     row["c_entry_host_us"] = c_entry_host_us(fa, q, k, v)
+                    # device time alone (torch.profiler), beside SDPA's
+                    row["device_ms"], row["device_kernels"] = device_profile(kernel)
+                    row["library_device_ms"], _ = device_profile(
+                        lambda: F.scaled_dot_product_attention(q, k, v))
                 log("kernel check:", json.dumps(row))
                 rows.append(row)
                 if not ok:
@@ -599,7 +625,7 @@ def in_situ_check(engine, fa, frames, vit_cfg, med_cfg):
     from vidil_tpu_torch.ops.image import preprocess_any
     from vidil_tpu_torch.utils.synth import synth_tree
 
-    def twin(q, k, v):
+    def twin(q, k, v, use_flash=True):
         return fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
 
     def both(fn):
@@ -2383,7 +2409,7 @@ def momentum_loop(label, step, state, batch, fa, fvb, want):
         enqueue_ms.append((time.time() - t0) * 1e3)
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
-        losses.append({k: float(v) for k, v in m.items()})
+        losses.append({k: float(v) for k, v in m.items() if k != "negatives"})
         per_step.append({k: v - before[k] for k, v in _counts(fa, fvb).items()})
         ptrs.append(state.queue.ptr)
         if state.queue.ptr != (ptr + B) % Q:
@@ -2922,6 +2948,536 @@ def run_phase16(fa, fm, fvb, device, card, tok):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the multi-process runtime (utils/dist, parallel/, the
+# data-parallel trainers, the sharded retrieval eval, the CLIs' rank merge)
+# ---------------------------------------------------------------------------
+
+P17_WORLD = 2
+# CapFilt CLI: 7 videos, as many a chunk as rank 0's shard_range takes
+# (`_p17_chunk`): over 2 ranks 4 a chunk (videos 0-3, 4-6), over 4 ranks 2
+# (0-1, 2-3, 4-5, 6), so each rank runs one whole chunk of the one
+# process's chunks; 16 frames a chunk (4 a video over 2 ranks, 8 over 4),
+# whose encodes' attention passes the reference's gate to K1
+P17_VIDEOS, P17_CHUNK_FRAMES = 7, 16
+# sharded rerank: 30 videos x 8 frames and 30 captions, k_test 16; rows of 8
+# (shard_range over 2 ranks: rows 0-15, 16-29; over 4: 0-7, 8-15, 16-23,
+# 24-29: whole v2t blocks)
+P17_RERANK_VIDEOS, P17_RERANK_K = 30, 16
+# two bf16 ranks against one process at the global batch (the ranks' GEMMs
+# run at half the rows, so their tilings and accumulation orders differ):
+# the loss within 2**-6 relative (a few bf16 units of 2**-8), the gradient
+# within 2**-4 of its norm (the per-row differences of bf16 products,
+# 2**-8 relative each, accumulated over the backward's depth), and each
+# leaf within 2**-3 of its norm (floored at 2**-8 of the whole gradient's,
+# `_grad_agreement`); the measured values are printed
+P17_LOSS_RTOL, P17_GRAD_NORM_REL, P17_GRAD_LEAF_REL = 2.0 ** -6, 2.0 ** -4, 2.0 ** -3
+# the sharded rerank's scores against the one process's: the same pairs
+# (the -100 pattern equal) and each score within 2**-12 of max(1, |score|):
+# a t2v bucket may hold other texts than the one process's, and its bf16
+# products then round in another order. Read on an H100: 3.8e-6 over two
+# gloo ranks, 2.3e-5 over four NCCL ranks (PERF.md, PR 11); 2**-12 = 2.4e-4
+# is ten times the larger, and a combine or bucketing fault moves a score
+# by far more
+P17_SCORE_REL = 2.0 ** -12
+# the fused caption step: K4 and K5 once per ViT block, no K1 (224 px)
+P17_CAPTION_LAUNCHES = {"fused_vit_block_fwd": 12, "fused_vit_block_bwd": 12,
+                        "flash_attention_fwd": 0}
+P17_RANK_COMMAND = [sys.executable, os.path.abspath(__file__), "--phase17-rank"]
+P17_RANK_TIMEOUT = 600
+
+
+def _p17_chunk(world: int) -> int:
+    """Videos a CapFilt chunk over `world` ranks: rank 0's shard."""
+    return P17_VIDEOS // world + 1
+
+
+# the CapFilt CLI's K1 launches per chunk, by world: 24 at 4 frames a video
+# (2 ranks; the two encodes), 36 at 8 (4 ranks; the ITM's attention passes
+# the gate too)
+P17_CAPFILT_K1 = {2: 24, 4: 36}
+
+
+def _p17_capfilt_bad(recs, one_counts, chunk):
+    """The CapFilt CLI's K1 launches: every chunk runs the same program (a
+    fixed shape), so each rank's one chunk launches P17_CAPFILT_K1 of its
+    world, and the one process that many per chunk."""
+    chunks = math.ceil(P17_VIDEOS / chunk)
+    per_chunk = P17_CAPFILT_K1[len(recs)]
+    bad = _p17_counts_bad(f"one-process CapFilt over {chunks} chunks", one_counts,
+                          {"flash_attention_fwd": per_chunk * chunks})
+    for r in recs:
+        bad += _p17_counts_bad(f"rank {r['rank']} CapFilt", r["capfilt"]["launches"],
+                               {"flash_attention_fwd": per_chunk})
+    return bad
+
+
+def _flat_grads(params):
+    from vidil_tpu_torch.models.convert import named_leaves
+
+    return [(n, p.grad.detach().float().reshape(-1)) for n, p in named_leaves(params)
+            if p.grad is not None]
+
+
+def _grad_agreement(got, want):
+    """Distance of two [(name, flat grad)] lists: over the whole gradient,
+    ||g - w|| / ||w||; per leaf, ||g - w|| / max(||w||, 2**-8 ||W||) (W the
+    whole gradient: a leaf that is zero in exact arithmetic, such as an
+    attention key bias, holds rounding noise of the other leaves' terms,
+    at bf16's unit roundoff of their scale), the largest and its leaf."""
+    assert [n for n, _ in got] == [n for n, _ in want]
+    diff = [float((g - w.to(g.device)).double().norm()) for (_, g), (_, w) in zip(got, want)]
+    norm = [float(w.double().norm()) for _, w in want]
+    total = math.sqrt(sum(x * x for x in norm))
+    leaf = max((d / max(n, 2.0 ** -8 * total), name)
+               for d, n, (name, _) in zip(diff, norm, want))
+    return {"grad_norm_rel": math.sqrt(sum(d * d for d in diff)) / total,
+            "grad_leaf_rel_max": leaf[0], "grad_leaf_worst": leaf[1]}
+
+
+def _caption_setup(device):
+    """Phase 9's fused caption step: ViT-B/16 224 px, MED-base, synthetic
+    weights, the 12 x 4-frame batch."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=False)
+    med_cfg = _med_cfg(vit_cfg)
+    params = convert.from_jax_params(synth_tree(blip.blip_decoder_shapes(vit_cfg, med_cfg),
+                                                device, salt=1.0))
+    batch, prompt_length = make_train_batch(device)
+    return vit_cfg, med_cfg, params, batch, prompt_length
+
+
+def _caption_step(device, zero1=False):
+    """One fused caption step from fresh state, on this rank's rows of the
+    batch under a process group: (state, loss, K4/K5/K1 counts of the
+    step)."""
+    from vidil_tpu_torch.ops import flash_attention as fa, fused_vit_block as fvb
+    from vidil_tpu_torch.parallel.dryrun import rank_batch
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.train.caption import create_caption_train_state, make_caption_train_step
+
+    vit_cfg, med_cfg, params, batch, prompt_length = _caption_setup(device)
+    state = create_caption_train_state(params, 1e-4, 0.05, device=device)
+    del params
+    if zero1:
+        state = apply_optimizer_sharding(state, {"optimizer_sharding": "zero1"})
+    step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=torch.bfloat16)
+    batch = rank_batch(batch)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    fvb.reset_launch_counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    return state, float(m["loss"]), _counts(fa, fvb)
+
+
+def _retrieval_step(device, tok, negatives=None):
+    """Phase 15b's retrieval step (classic ViT schedule, queues of 57600)
+    from fresh state, on this rank's rows under a process group, the draws
+    from make_generator(0, 0) unless `negatives`: (state, metrics,
+    counts)."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.ops import flash_attention as fa, fused_vit_block as fvb
+    from vidil_tpu_torch.parallel.dryrun import rank_batch
+    from vidil_tpu_torch.train.retrieval import create_train_state, make_retrieval_train_step
+    from vidil_tpu_torch.utils.seeding import make_generator
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=True)
+    med_cfg = _med_cfg(vit_cfg)
+    state = create_train_state(_retrieval_params(vit_cfg, med_cfg, device, salt=5.0), 1e-4, 0.05,
+                               queue_size=RET_QUEUE, seed=0, device=device)
+    step = make_retrieval_train_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
+    batch = rank_batch(_momentum_batch(tok, device, 35, False))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    fvb.reset_launch_counts()
+    state, m = step(state, batch, 0.4, make_generator(0, 0, device), negatives=negatives)
+    torch.cuda.synchronize()
+    return state, m, _counts(fa, fvb)
+
+
+def _rerank_setup(device, tok):
+    """The sharded rerank's corpus: 30 synthetic videos x 8 noise frames,
+    30 captions (one of 35 tokens), phase 15's synthetic retrieval weights."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.evals.retrieval import RetrievalEvaluator
+
+    vit_cfg = ViTConfig.from_name("base", 224)
+    med_cfg = _med_cfg(vit_cfg)
+    ev = RetrievalEvaluator(_retrieval_params(vit_cfg, med_cfg, device, salt=4.0), vit_cfg,
+                            med_cfg, tok, k_test=P17_RERANK_K, dtype=torch.bfloat16,
+                            rows_per_batch=RET_ROWS, blocks_per_dispatch=RET_BLOCKS)
+    rng = np.random.default_rng(17)
+    lengths = [40] + list(rng.integers(5, 21, P17_RERANK_VIDEOS - 1))
+    texts = [" ".join(f"tok{i}" for i in rng.integers(0, 30000, int(n))) for n in lengths]
+    gen = torch.Generator(device=device).manual_seed(17)
+    video = torch.randn((P17_RERANK_VIDEOS, RET_FRAMES, 224, 224, 3), generator=gen,
+                        device=device)
+    te, ti, ta = ev.compute_text_features(texts)
+    vf, ve = ev.compute_video_features([video[i:i + 8] for i in range(0, len(video), 8)])
+    return ev, (vf, ve, te, ti, ta)
+
+
+def _rerank(ev, feats):
+    """score_matrices with its K1 launches, and the K1 launches this rank's
+    dispatched blocks must make (12 per block; the padding blocks of a
+    dispatch run too)."""
+    from vidil_tpu_torch.ops import flash_attention as fa
+    from vidil_tpu_torch.utils.io import shard_range
+
+    vf, ve, te, ti, ta = feats
+    sims = ve @ te.T
+    start, end = shard_range(sims.shape[0])
+    plan = ev.t2v_plan(sims.T)
+    blocks = [math.ceil((end - start) / RET_ROWS), 0 if plan is None else len(plan[0])]
+    want = ev.med_cfg.num_layers * sum(math.ceil(n / RET_BLOCKS) * RET_BLOCKS for n in blocks)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    v2t, t2v = ev.score_matrices(vf, ve, te, ti, ta)
+    return v2t, t2v, dict(fa.launch_counts), want
+
+
+def _p17_workspace(root, tok_vocab, chunk):
+    """The CapFilt CLI's workspace: P17_VIDEOS synthetic mp4s (320 x 240,
+    16 frames), the bench vocab, full-width BLIP-base at 384 px with
+    synthetic weights made on the device, bf16, `chunk` videos a chunk."""
+    import cv2
+
+    videos = os.path.join(root, "videos")
+    os.makedirs(videos, exist_ok=True)
+    ann = {}
+    for vi in range(P17_VIDEOS):
+        w = cv2.VideoWriter(os.path.join(videos, f"video{vi}.mp4"),
+                            cv2.VideoWriter_fourcc(*"mp4v"), 10, (320, 240))
+        for i in range(16):
+            frame = np.zeros((240, 320, 3), np.uint8)
+            frame[:, :, vi % 3] = (i * 13 + vi * 40) % 255
+            frame[: 40 + 10 * i, ::3, (vi + 1) % 3] = 200
+            w.write(frame)
+        w.release()
+        ann[f"video{vi}"] = [f"original caption {vi}. a second sentence {vi}"]
+    with open(os.path.join(root, "ann.json"), "w") as f:
+        json.dump(ann, f)
+    return dict(video_roots=videos, video_formats="mp4",
+                train_ann_jsons=os.path.join(root, "ann.json"), frm_sampling_strategy="uniform",
+                height=None, width=None, start_time=None, end_time=None, fps=-1, caption=True,
+                filter=True, filter_generated_only=False, keep_original_caption=True,
+                filter_mode="max_filter", generation_mode="beam", threshold=0.3,
+                num_frm_CapFilt=P17_CHUNK_FRAMES // chunk, do_sentence_tokenization=True,
+                vit="base",
+                image_size=384, bert_vocab=tok_vocab, synthetic_weights=True,
+                videos_per_batch=chunk, compute_dtype="bfloat16", data_parallel=True)
+
+
+def _capfilt_cli(config, out_dir, device):
+    """The CapFilt CLI's main into `out_dir`: its K1 launches and files."""
+    import argparse
+
+    from vidil_tpu_torch import run_video_CapFilt as cli
+    from vidil_tpu_torch.ops import flash_attention as fa
+
+    os.makedirs(out_dir, exist_ok=True)
+    args = argparse.Namespace(output_dir=out_dir, device=str(device), seed=42, config="",
+                              world_size=1, dist_url="env://", distributed=True)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    cli.main(args, dict(config))
+    torch.cuda.synchronize()
+    return dict(fa.launch_counts)
+
+
+def _p17_device():
+    """The device of phase 17 (b)'s two ranks: both on cuda:0."""
+    return torch.device("cuda", 0)
+
+
+def _p17_counts_bad(label, counts, want):
+    """[message] when a launch count of `counts` differs from `want` (a
+    subset of kernel names)."""
+    wrong = {k: (counts.get(k), v) for k, v in want.items() if counts.get(k) != v}
+    return [f"{label}: launches (got, want) {wrong}"] if wrong else []
+
+
+def p17_rank(root, backend):
+    """One rank of phase 17 (b), env rendezvous: gloo on cuda:0, or NCCL on
+    cuda:LOCAL_RANK (one GPU a rank); the caption and retrieval steps on its
+    rows of the global batch, the sharded rerank and the CapFilt CLI, each
+    with its launch counts zeroed just before and read just after; rank 0
+    saves the summed gradients, the losses, the draws and the scores for
+    the parent to compare."""
+    from vidil_tpu_torch.tokenizer import BlipTokenizer
+    from vidil_tpu_torch.utils import dist
+
+    if backend == "gloo":
+        device = _p17_device()
+        dist.init_distributed_mode(backend="gloo", device=device)
+    else:
+        dist.init_distributed_mode(backend=backend, device="cuda")
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": torch.distributed.get_backend()}
+    t0 = time.time()
+    state, loss, counts = _caption_step(device)
+    out["caption"] = {"loss": loss, "launches": counts, "s": time.time() - t0}
+    if rank == 0:
+        torch.save(_flat_grads(state.params), os.path.join(root, "caption_grads.pt"))
+    del state
+    torch.cuda.empty_cache()
+
+    tok = BlipTokenizer(os.path.join(root, "vocab.txt"))
+    t0 = time.time()
+    state, m, counts = _retrieval_step(device, tok)
+    out["retrieval"] = {k: float(v) for k, v in m.items() if k != "negatives"}
+    out["retrieval"].update(launches=counts, s=time.time() - t0,
+                            negatives=[n.tolist() for n in m["negatives"]])
+    if rank == 0:
+        torch.save(_flat_grads(state.params), os.path.join(root, "retrieval_grads.pt"))
+    del state, m
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    ev, feats = _rerank_setup(device, tok)
+    v2t, t2v, counts, want = _rerank(ev, feats)
+    out["rerank"] = {"launches": counts, "want_k1": want, "s": time.time() - t0}
+    if rank == 0:
+        np.savez(os.path.join(root, "rerank_ranks.npz"), v2t=v2t, t2v=t2v)
+    del ev, feats
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(root, "capfilt.json")) as f:
+        config = json.load(f)
+    t0 = time.time()
+    out["capfilt"] = {"launches": _capfilt_cli(config, os.path.join(root, "capfilt_ranks"),
+                                               device),
+                      "s": time.time() - t0}
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_distributed()
+
+
+def p17_use_flash(fa, device):
+    """ViT-B/384 encode of 32 frames with use_flash False: no K1 launch
+    (plain attention at a shape the gate would send to K1: 12 with it)."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    params = convert.from_jax_params(synth_tree(blip.vit_shapes(ViTConfig.from_name("base", 384)),
+                                                device, salt=1.0))
+    params = {"visual_encoder": params}
+    x = torch.randn((32, 384, 384, 3), generator=torch.Generator(device=device).manual_seed(5),
+                    device=device)
+    out = {}
+    for flag in (False, True):
+        cfg = ViTConfig.from_name("base", 384, use_flash=flag)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            emb = blip.encode_images(params, x, cfg, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out[f"use_flash_{str(flag).lower()}"] = {"k1": fa.launch_counts["flash_attention_fwd"],
+                                                 "finite": bool(torch.isfinite(emb).all())}
+    bad = _p17_counts_bad("use_flash false", {"k1": out["use_flash_false"]["k1"]}, {"k1": 0})
+    bad += _p17_counts_bad("use_flash true", {"k1": out["use_flash_true"]["k1"]}, {"k1": 12})
+    if bad or not all(v["finite"] for v in out.values()):
+        raise SystemExit(f"phase 17 use_flash: {bad} {out}")
+    return out
+
+
+def p17_nccl_world_of_one(device):
+    """(a) The plain fused caption step twice without a process group; then
+    a world of one under NCCL through init_distributed_mode (torchrun's
+    variables): the step with the gradient all-reduce, and with ZeRO-1,
+    each bitwise equal to the plain step (an all-reduce over one rank is a
+    copy), every step with 12 K4 and 12 K5 launches."""
+    from vidil_tpu_torch.models.convert import named_leaves
+    from vidil_tpu_torch.parallel.dryrun import free_port
+    from vidil_tpu_torch.parallel.sharding import optimizer_state
+    from vidil_tpu_torch.utils import dist
+
+    out, runs = {}, {}
+
+    def run(name, zero1=False):
+        t0 = time.time()
+        state, loss, counts = _caption_step(device, zero1)
+        params = torch.cat([p.detach().reshape(-1) for _, p in named_leaves(state.params)])
+        moments = optimizer_state(state.optimizer)
+        # (ZeRO-1 consolidates the moments on the host)
+        exp_avg = torch.cat([moments[p]["exp_avg"].reshape(-1).to(device)
+                             for _, p in named_leaves(state.params)])
+        runs[name] = (loss, params, exp_avg)
+        out[name] = {"loss": loss, "launches": counts, "s": time.time() - t0}
+        bad = _p17_counts_bad(f"phase 17 (a) {name}", counts, P17_CAPTION_LAUNCHES)
+        if bad:
+            raise SystemExit(bad[0])
+
+    run("plain")
+    run("plain_again")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        if not dist.init_distributed_mode(device=device):
+            raise SystemExit("phase 17 (a): init_distributed_mode made no process group")
+        out.update(backend=torch.distributed.get_backend(), world=dist.get_world_size())
+        if out["backend"] != ("nccl" if device.type == "cuda" else "gloo"):
+            raise SystemExit(f"phase 17 (a): backend {out['backend']} on {device}")
+        run("all_reduce")
+        run("zero1", zero1=True)
+        base = runs["plain"]
+        for name, (loss, params, exp_avg) in runs.items():
+            out[name]["bitwise_to_plain"] = bool(loss == base[0] and torch.equal(params, base[1])
+                                                 and torch.equal(exp_avg, base[2]))
+        del runs, base
+        torch.cuda.empty_cache()
+        for name in ("all_reduce", "zero1"):
+            if not out[name]["bitwise_to_plain"]:
+                raise SystemExit(f"phase 17 (a): the {name} step is not bitwise the plain "
+                                 f"step's: {out}")
+    finally:
+        dist.destroy_distributed()
+        for k in env:
+            os.environ.pop(k, None)
+    return out
+
+
+def p17_ranks(device, tok, root, world=P17_WORLD, backend="gloo"):
+    """(b) `world` ranks, fresh subprocesses of this script: gloo on cuda:0
+    (the one-card phase), or NCCL on one GPU a rank (`--phase17-world`):
+    the caption and retrieval steps at the global batch against one
+    process on `device`, the sharded rerank against the one process's
+    scores, and the CapFilt CLI's merged files byte-identical."""
+    from vidil_tpu_torch.parallel.dryrun import spawn_ranks
+
+    chunk = _p17_chunk(world)
+    config = _p17_workspace(root, os.path.join(root, "vocab.txt"), chunk)
+    with open(os.path.join(root, "capfilt.json"), "w") as f:
+        json.dump(config, f)
+    t0 = time.time()
+    results = spawn_ranks(world, P17_RANK_COMMAND + [root, backend], root, P17_RANK_TIMEOUT)
+    ranks_s = time.time() - t0
+    for rank, (rc, stdout, stderr) in enumerate(results):
+        if rc != 0:
+            raise SystemExit(f"phase 17 (b): rank {rank} exited {rc}:\n{stdout[-2000:]}\n"
+                             f"{stderr[-4000:]}")
+    recs = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(world)]
+    out = {"ranks_s": ranks_s, "ranks": recs}
+
+    # the caption step in one process at the global batch
+    state, loss, counts = _caption_step(device)
+    bad = _p17_counts_bad("one-process caption", counts, P17_CAPTION_LAUNCHES)
+    agree = _grad_agreement(torch.load(os.path.join(root, "caption_grads.pt")),
+                            _flat_grads(state.params))
+    del state
+    torch.cuda.empty_cache()
+    out["caption"] = dict(one_process_loss=loss, ranks_loss=recs[0]["caption"]["loss"],
+                          loss_rel=abs(recs[0]["caption"]["loss"] - loss) / abs(loss),
+                          one_process_launches=counts, **agree)
+
+    # the retrieval step in one process, on the ranks' draws
+    draws = recs[0]["retrieval"]["negatives"]
+    negatives = tuple(torch.tensor(n, device=device) for n in draws)
+    state, m, counts = _retrieval_step(device, tok, negatives=negatives)
+    bad += _p17_counts_bad("one-process retrieval", counts, dict.fromkeys(counts, 0))
+    agree = _grad_agreement(torch.load(os.path.join(root, "retrieval_grads.pt")),
+                            _flat_grads(state.params))
+    del state
+    torch.cuda.empty_cache()
+    out["retrieval"] = dict(one_process_loss=float(m["loss"]),
+                            ranks_loss=recs[0]["retrieval"]["loss"],
+                            loss_rel=abs(recs[0]["retrieval"]["loss"] - float(m["loss"]))
+                            / abs(float(m["loss"])),
+                            draws_equal_across_ranks=all(r["retrieval"]["negatives"] == draws
+                                                         for r in recs),
+                            one_process_launches=counts, **agree)
+
+    # the rerank in one process
+    ev, feats = _rerank_setup(device, tok)
+    v2t, t2v, counts, want = _rerank(ev, feats)
+    del ev, feats
+    torch.cuda.empty_cache()
+    got = np.load(os.path.join(root, "rerank_ranks.npz"))
+    rerank = {"one_process_launches": counts, "one_process_want_k1": want}
+    for name, one in (("v2t", v2t), ("t2v", t2v)):
+        mine = got[name]
+        rerank[f"{name}_pairs_equal"] = bool(((mine == -100) == (one == -100)).all())
+        rerank[f"{name}_max_rel"] = float((np.abs(mine - one) / np.maximum(1, np.abs(one))).max())
+        rerank[f"{name}_bitwise"] = bool(np.array_equal(mine, one))
+    out["rerank"] = rerank
+
+    # the CapFilt CLI in one process
+    one_counts = _capfilt_cli(config, os.path.join(root, "capfilt_one"), device)
+    files = {}
+    for name in ("video_text_Cap.json", "video_text_CapFilt.json"):
+        a = open(os.path.join(root, "capfilt_one", name), "rb").read()
+        b = open(os.path.join(root, "capfilt_ranks", name), "rb").read()
+        files[name] = {"bytes": len(a), "identical": a == b, "videos": len(json.loads(a))}
+    out["capfilt"] = {"one_process_launches": one_counts, "files": files}
+
+    for r in recs:
+        label = f"rank {r['rank']}"
+        bad += _p17_counts_bad(f"{label} caption", r["caption"]["launches"],
+                               P17_CAPTION_LAUNCHES)
+        bad += _p17_counts_bad(f"{label} retrieval", r["retrieval"]["launches"],
+                               dict.fromkeys(r["retrieval"]["launches"], 0))
+        bad += _p17_counts_bad(f"{label} rerank", r["rerank"]["launches"],
+                               {"flash_attention_fwd": r["rerank"]["want_k1"]})
+        if r["backend"] != backend or r["world"] != world:
+            bad.append(f"rank {r['rank']}: {r['backend']} world {r['world']}")
+    for name in ("caption", "retrieval"):
+        o = out[name]
+        if not (o["loss_rel"] <= P17_LOSS_RTOL and o["grad_norm_rel"] <= P17_GRAD_NORM_REL
+                and o["grad_leaf_rel_max"] <= P17_GRAD_LEAF_REL):
+            bad.append(f"{name}: {o}")
+    if not out["retrieval"]["draws_equal_across_ranks"]:
+        bad.append("the ranks drew different negatives")
+    bad += _p17_counts_bad("one-process rerank", counts, {"flash_attention_fwd": want})
+    for name in ("v2t", "t2v"):
+        if not (rerank[f"{name}_pairs_equal"] and rerank[f"{name}_max_rel"] <= P17_SCORE_REL):
+            bad.append(f"rerank {name}: {rerank}")
+    bad += _p17_capfilt_bad(recs, one_counts, chunk)
+    if not all(f["identical"] and f["videos"] > 0 for f in files.values()):
+        bad.append(f"CapFilt files: {files}")
+    log_ranks(f"phase 17 (b) {world} {backend} ranks on "
+              + ("cuda:0" if backend == "gloo" else "one GPU each"), out)
+    if bad:
+        raise SystemExit(f"phase 17 (b), {world} {backend} ranks: " + "; ".join(bad))
+    return out
+
+
+def log_ranks(label, out):
+    """Each part's line of `p17_ranks`' result, with its launches and
+    seconds per rank."""
+    for part in ("caption", "retrieval", "rerank", "capfilt"):
+        log(f"{label}, {part}:",
+            json.dumps({**out[part], "launches_per_rank": [r[part]["launches"]
+                                                           for r in out["ranks"]],
+                        "seconds_per_rank": [r[part]["s"] for r in out["ranks"]]}))
+
+
+def run_phase17(fa, device, card, tok):
+    """Phase 17: the use_flash switch, (a) and (b)."""
+    from vidil_tpu_torch.tokenizer import write_bench_vocab
+
+    t_phase = time.time()
+    out = {"use_flash": p17_use_flash(fa, device)}
+    log("phase 17 use_flash:", json.dumps(out["use_flash"]))
+    torch.cuda.empty_cache()
+    out["nccl_world_of_one"] = p17_nccl_world_of_one(device)
+    log("phase 17 (a) NCCL world of one:", json.dumps(out["nccl_world_of_one"]))
+    with tempfile.TemporaryDirectory() as root:
+        write_bench_vocab(os.path.join(root, "vocab.txt"))
+        out["two_ranks"] = p17_ranks(device, tok, root)
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase 17: {out['phase_s']:.1f} s (ranks {out['two_ranks']['ranks_s']:.1f} s); "
+        f"card {card}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3063,6 +3619,8 @@ def main():
             f"encode {r['encode_native_s']:.4f} s native, {r['encode_host_resized_s']:.4f} s "
             f"host-resized (+ {r['pil_resize_host_s']:.3f} s PIL)")
 
+    p17 = run_phase17(fa, device, card, tok)
+
     def entry(name, source, replaces, n, rs, shape, desc, **extra):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"
                  and x["shape"] == shape)
@@ -3110,6 +3668,18 @@ def main():
                                               for m in ("unroll", "lazy", "both")],
                   nlvr_forward=p16["models"]["nlvr"]["k1"],
                   embedding_itm=p16["models"]["embedding_itm"]["k1"], return_attn=0),
+              launches_phase17=dict(
+                  capfilt_cli_per_rank=[r["capfilt"]["launches"]["flash_attention_fwd"]
+                                        for r in p17["two_ranks"]["ranks"]],
+                  sharded_rerank_per_rank=[r["rerank"]["launches"]["flash_attention_fwd"]
+                                           for r in p17["two_ranks"]["ranks"]],
+                  use_flash_false_encode=p17["use_flash"]["use_flash_false"]["k1"]),
+              device_ms_vit_views=next(
+                  x["device_ms"] for x in rows if x["shape"] == "vit_self_attention"
+                  and x["layout"] == "views" and x["dtype"] == "bfloat16"),
+              library_device_ms_vit_views=next(
+                  x["library_device_ms"] for x in rows if x["shape"] == "vit_self_attention"
+                  and x["layout"] == "views" and x["dtype"] == "bfloat16"),
               retrieval_rerank_fold=dict(
                   dispatch_device_ms=ret["eval"]["k1_fold_dispatch_device_ms"],
                   back_to_back_ms=ret["eval"]["k1_fold_back_to_back_ms"],
@@ -3139,6 +3709,11 @@ def main():
               "path (the trainers' default)",
               launches_vqa=vqa["launches"]["fused_vit_block_fwd"],
               launches_pretrain_step=ret["pretraining"]["launches_per_step"]["fused_vit_block_fwd"],
+              launches_phase17_caption_step_per_rank=[
+                  r["caption"]["launches"]["fused_vit_block_fwd"]
+                  for r in p17["two_ranks"]["ranks"]],
+              launches_phase17_nccl_world_of_one=p17["nccl_world_of_one"]["all_reduce"][
+                  "launches"]["fused_vit_block_fwd"],
               **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd"),
               attention=attention(False), attention_with_stats=attention(True),
               sass_attention=sass["fused_vit_block_fwd:attn_fwd_wgmma"]),
@@ -3149,6 +3724,11 @@ def main():
               "path (the trainers' default)",
               launches_vqa=vqa["launches"]["fused_vit_block_bwd"],
               launches_pretrain_step=ret["pretraining"]["launches_per_step"]["fused_vit_block_bwd"],
+              launches_phase17_caption_step_per_rank=[
+                  r["caption"]["launches"]["fused_vit_block_bwd"]
+                  for r in p17["two_ranks"]["ranks"]],
+              launches_phase17_nccl_world_of_one=p17["nccl_world_of_one"]["all_reduce"][
+                  "launches"]["fused_vit_block_bwd"],
               **device(block_bwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_bwd")),
         entry("fused_mlp_fwd", "vidil_tpu_torch/csrc/fused_mlp_fwd.cu",
               "vidil_tpu/ops/fused_mlp.py:69", vt["blip"]["launches"]["fused_mlp_fwd"],
@@ -3165,5 +3745,35 @@ def main():
     return 0
 
 
+def main_nccl_world(world):
+    """`--phase17-world N`: phase 17 (b) over N NCCL ranks, one GPU each
+    (needs N cards): build the kernels, run the ranks, hold them to one
+    process on cuda:0."""
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke: --phase17-world {world} needs {world} GPUs, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
+    from vidil_tpu_torch.ops import _build
+    from vidil_tpu_torch.tokenizer import write_bench_vocab
+
+    card = card_line()
+    log("cards:", world, "x", card)
+    t0 = time.time()
+    _build.build_all()
+    log(f"build: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        write_bench_vocab(os.path.join(root, "vocab.txt"))
+        out = p17_ranks(torch.device("cuda", 0), bench_tokenizer(), root, world, "nccl")
+    log(f"phase 17 (b) over {world} NCCL ranks: {time.time() - t0:.1f} s (ranks "
+        f"{out['ranks_s']:.1f} s); cards {world} x {card}")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 3 and sys.argv[1] == "--phase17-rank":
+        p17_rank(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase17-world":
+        sys.exit(main_nccl_world(int(sys.argv[2])) if torch.cuda.is_available() else 1)
     sys.exit(main())

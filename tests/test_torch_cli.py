@@ -150,14 +150,16 @@ def test_cli_outputs_byte_identical_to_jax_cli(workdir, transfer_format, vocab, 
 
 
 def test_cli_unported_options_raise(workdir):
-    """data_parallel (the SPMD mesh) is not ported: it raises. The options
-    ported since (resize_on_device, generation_mode 'sample') build an
-    engine."""
+    """A data axis the launch does not have raises (data_parallel: 2 on one
+    rank). The options ported since (data_parallel: true, which runs on
+    the launch's ranks; resize_on_device; generation_mode 'sample') build
+    an engine."""
     from vidil_tpu_torch import run_video_CapFilt as torch_cli
 
-    with pytest.raises(NotImplementedError):
-        torch_cli.build_engine(dict(workdir.config, data_parallel=True), device="cpu")
-    for key, value in (("resize_on_device", True), ("generation_mode", "sample")):
+    with pytest.raises(ValueError, match="data_parallel"):
+        torch_cli.build_engine(dict(workdir.config, data_parallel=2), device="cpu")
+    for key, value in (("data_parallel", True), ("resize_on_device", True),
+                       ("generation_mode", "sample")):
         torch_cli.build_engine(dict(workdir.config, **{key: value}), device="cpu")
 
 

@@ -200,9 +200,12 @@ def test_score_matrices_match_jax_fp32(tmp_path):
 
 
 def test_score_matrices_refuse_multiple_ranks(monkeypatch):
+    """Several ranks without a process group cannot combine their rows:
+    the eval raises instead of returning one rank's shard (the sharded
+    eval itself: tests/test_torch_dist.py)."""
     pe = ER.RetrievalEvaluator({"vision_proj": {"kernel": torch.zeros(1)}}, None, None, None)
     monkeypatch.setattr(ER, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(RuntimeError, match="process group"):
         pe.score_matrices(None, np.zeros((1, 1)), np.zeros((1, 1)), None, None)
 
 
@@ -530,9 +533,12 @@ def test_cli_flags_default_to_cuda_and_refuse_mesh_keys(workdir):
     args = cli.parse_args(["--config", "c.yaml"], evaluate_flag=False,
                           default_output="output/retrieval_eval")
     assert args.evaluate and args.output_dir == "output/retrieval_eval"
-    for key, value in (("data_parallel", 2), ("model_parallel", 2),
-                       ("optimizer_sharding", "zero1")):
-        with pytest.raises(NotImplementedError, match=key):
+    # data_parallel must be the launch's world (one rank here), an unknown
+    # optimizer sharding is refused, tensor parallelism is not ported
+    for key, value, error in (("data_parallel", 2, ValueError),
+                              ("optimizer_sharding", "zero3", ValueError),
+                              ("model_parallel", 2, NotImplementedError)):
+        with pytest.raises(error, match=key):
             cli.main(_args(str(workdir.root / "refused")), dict(workdir.config, **{key: value}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -350,8 +350,11 @@ def test_convert_blip_retrieval_matches_jax(with_momentum):
 
 
 def test_unported_and_device_guards(clip_workdir, monkeypatch):
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        pcli.build_clip_engine(dict(clip_workdir.config, data_parallel=True), device="cpu")
+    # data_parallel: true runs on the launch's ranks; a data axis the
+    # launch does not have raises
+    pcli.build_clip_engine(dict(clip_workdir.config, data_parallel=True), device="cpu")
+    with pytest.raises(ValueError, match="data_parallel"):
+        pcli.build_clip_engine(dict(clip_workdir.config, data_parallel=2), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pcli.build_clip_engine(dict(clip_workdir.config))  # --device cuda is the default

@@ -56,6 +56,10 @@ class ViTConfig:
     remat: bool = False  # torch.utils.checkpoint on blocks >= remat_from_layer
     remat_from_layer: int = 0
     remat_policy: str | None = None  # None = recompute the whole block
+    # the self-attention through `attention_auto`'s gate (kernel K1 where the
+    # reference's `_flash_profitable` holds); False = plain attention at
+    # every shape, as the JAX package's `use_flash=False`
+    use_flash: bool = True
     use_fused_mlp: bool = False  # the MLP as kernel K3 (models/layers.py:mlp_auto)
     # The fused-block schedule: each block as kernel K4 (`use_fused_block`),
     # its gradient as kernel K5 (`use_fused_block_bwd`, which is its own

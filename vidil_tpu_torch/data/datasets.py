@@ -233,11 +233,25 @@ def vqa_collate(batch):
 
 
 class PrefetchLoader:
-    """Threaded batch loader: decodes/transforms items ahead of compute."""
+    """Threaded batch loader: decodes/transforms items ahead of compute.
+
+    Over several ranks: ``rank_rows=(rank, world)`` yields this rank's
+    rows of each global batch of `batch_size` (`parallel.mesh.local_rows`;
+    every rank draws the same shuffle, and drops the last partial batch, so
+    every rank takes as many steps); ``item_range=(start, end)`` loads only
+    those items, in order (a rank's eval shard)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, collate_fn=None, drop_last: bool = False,
-                 seed: int = 42):
+                 seed: int = 42, rank_rows: tuple[int, int] | None = None,
+                 item_range: tuple[int, int] | None = None):
+        if rank_rows is not None:
+            from vidil_tpu_torch.parallel.mesh import local_rows
+
+            assert drop_last, "a rank's rows of the global batches need drop_last"
+            rank_rows = local_rows(batch_size, *rank_rows)
+        self.rank_rows = rank_rows
+        self.item_range = item_range
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -263,17 +277,24 @@ class PrefetchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def _items(self):
+        if self.item_range is None:
+            return list(range(len(self.dataset)))
+        return list(range(*self.item_range))
+
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self._items())
         return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self):
-        order = list(range(len(self.dataset)))
+        order = self._items()
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(order)
         batches = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.rank_rows is not None:
+            batches = [b[self.rank_rows] for b in batches]
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = []
             it = iter(batches)

@@ -6,11 +6,11 @@ port's own copy of ``vidil_tpu/data/text_utils.py`` (`pre_caption`,
 
 from __future__ import annotations
 
-import json
 import os
 import re
 
 from vidil_tpu_torch.utils.dist import barrier, get_rank, get_world_size, is_main_process
+from vidil_tpu_torch.utils.io import load_json, save_json
 
 
 def pre_caption(caption: str, max_words: int = 50) -> str:
@@ -39,13 +39,12 @@ def save_result(result: list, result_dir: str, filename: str,
     (reference: data/utils.py:94-123)."""
     result_file = os.path.join(result_dir, "%s_rank%d.json" % (filename, get_rank()))
     final_result_file = os.path.join(result_dir, "%s.json" % filename)
-    json.dump(result, open(result_file, "w"))
+    save_json(result_file, result, indent=None)
     barrier()
     if is_main_process():
         result = []
         for rank in range(get_world_size()):
-            rf = os.path.join(result_dir, "%s_rank%d.json" % (filename, rank))
-            result += json.load(open(rf))
+            result += load_json(os.path.join(result_dir, "%s_rank%d.json" % (filename, rank)))
         if remove_duplicate:
             result_new, id_list = [], []
             for res in result:
@@ -53,6 +52,6 @@ def save_result(result: list, result_dir: str, filename: str,
                     id_list.append(res[remove_duplicate])
                     result_new.append(res)
             result = result_new
-        json.dump(result, open(final_result_file, "w"))
+        save_json(final_result_file, result, indent=None)
         print("result file saved to %s" % final_result_file)
     return final_result_file

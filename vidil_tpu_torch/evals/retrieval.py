@@ -13,8 +13,11 @@ the next dispatch is enqueued before the previous one's scores are read
 back (their copy to the host is queued behind them, not behind the next;
 the block indices are on the device before the first dispatch).
 
-Single process only: `score_matrices` raises when torch.distributed runs
-more than one rank (the JAX package's host all-gather is not ported).
+Over several ranks each rank reranks its `shard_range` of the v2t rows
+and of the t2v rows (every rank holds all features), and the ranks' score
+matrices combine by an all-gather: ``sum(0) + 100 * (world - 1)``, the JAX
+package's formula (each entry is -100 on every rank but the one that
+scored it).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from vidil_tpu_torch.models import blip as B
 from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.layers import linear
 from vidil_tpu_torch.tokenizer import trimmed_pad_len
-from vidil_tpu_torch.utils import get_world_size
+from vidil_tpu_torch.utils import get_world_size, is_dist_avail_and_initialized, shard_range
 
 
 def build_t2v_buckets(topk, start: int, end: int, G: int):
@@ -162,9 +165,10 @@ class RetrievalEvaluator:
         k = min(self.k_test, n_cols)
         R = max(1, self.rows_per_batch)
         scores = np.full(sims.shape, -100.0, np.float32)
+        start, end = shard_range(n_rows)
         rows_list, topk_list, reals = [], [], []
-        for block_start in range(0, n_rows, R):
-            rows = list(range(block_start, min(n_rows, block_start + R)))
+        for block_start in range(start, end, R):
+            rows = list(range(block_start, min(end, block_start + R)))
             reals.append(len(rows))
             while len(rows) < R:
                 rows.append(rows[-1])
@@ -207,15 +211,20 @@ class RetrievalEvaluator:
         return np.concatenate(outs)
 
     def t2v_plan(self, sims_t2v):
-        """The t2v buckets of a (texts, videos) similarity matrix, padded to
-        whole blocks of `rows_per_batch`: (vids_b (n, R), txts_b (n, R, G),
-        bucket_vid, bucket_txt, bucket_real) — the blocks the rerank runs."""
+        """The t2v buckets of this rank's text rows (`shard_range`) of a
+        (texts, videos) similarity matrix, padded to whole blocks of
+        `rows_per_batch`: (vids_b (n, R), txts_b (n, R, G), bucket_vid,
+        bucket_txt, bucket_real) — the blocks the rerank runs; None when the
+        rank has no rows."""
         n_rows, n_cols = sims_t2v.shape
         k = min(self.k_test, n_cols)
         G = max(1, min(self.t2v_group or 64, k))
         R = max(1, self.rows_per_batch)
-        topk = np.argsort(sims_t2v, axis=1)[:, ::-1][:, :k]
-        bucket_vid, bucket_txt, bucket_real = build_t2v_buckets(topk, 0, n_rows, G)
+        start, end = shard_range(n_rows)
+        if start >= end:
+            return None
+        topk = np.argsort(sims_t2v[start:end], axis=1)[:, ::-1][:, :k]
+        bucket_vid, bucket_txt, bucket_real = build_t2v_buckets(topk, start, end, G)
         nb = len(bucket_vid)
         pad = (-nb) % R
         if pad:
@@ -229,9 +238,10 @@ class RetrievalEvaluator:
         texts and score each bucket against its one video memory. The same
         pairs and the same score as a row-major t2v rerank."""
         scores = np.full(sims.shape, -100.0, np.float32)
-        if sims.shape[0] == 0:
+        plan = self.t2v_plan(sims)
+        if plan is None:
             return scores
-        vids_b, txts_b, bucket_vid, bucket_txt, bucket_real = self.t2v_plan(sims)
+        vids_b, txts_b, bucket_vid, bucket_txt, bucket_real = plan
         G = txts_b.shape[-1]
         itm = self._dispatch_blocks(self._blocks(vf, tids, tatts), vids_b, txts_b)
         nb = len(bucket_vid)
@@ -243,17 +253,33 @@ class RetrievalEvaluator:
         return scores
 
     def score_matrices(self, video_feats, video_embeds, text_embeds, text_ids, text_atts):
-        """Full v2t (videos, texts) and t2v (texts, videos) score matrices."""
-        if get_world_size() > 1:
-            raise NotImplementedError(
-                "vidil_tpu_torch: the multi-process retrieval eval is not ported yet")
+        """Full v2t (videos, texts) and t2v (texts, videos) score matrices;
+        over several ranks each reranks its rows and the ranks combine
+        (module docstring). Every rank calls it with the same features."""
+        world = get_world_size()
+        if world > 1 and not is_dist_avail_and_initialized():
+            raise RuntimeError("vidil_tpu_torch: a retrieval eval over several ranks needs "
+                               "an initialised process group")
         sims = np.asarray(video_embeds) @ np.asarray(text_embeds).T
         vf = torch.as_tensor(video_feats, device=self.device)
         tids = self._put(text_ids).long()
         tatts = self._put(text_atts).long()
         score_v2t = self._rerank_rows(sims, self._blocks(vf, tids, tatts))
         score_t2v = self._rerank_t2v_bucketed(sims.T, vf, tids, tatts)
+        if world > 1:
+            score_v2t, score_t2v = (_combine_ranks(s, world) for s in (score_v2t, score_t2v))
         return score_v2t, score_t2v
+
+
+def _combine_ranks(scores, world: int):
+    """The ranks' score matrices, all-gathered and combined as the JAX
+    package does: ``sum(0) + 100 * (world - 1)`` in fp32."""
+    from vidil_tpu_torch.parallel.collectives import concat_all_gather
+    from vidil_tpu_torch.utils.dist import collective_device
+
+    t = torch.from_numpy(scores).to(collective_device())
+    every = concat_all_gather(t[None]).cpu().numpy()
+    return every.sum(axis=0) + 100.0 * (world - 1)
 
 
 def _to_host_async(t):

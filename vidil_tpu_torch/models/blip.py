@@ -31,9 +31,11 @@ def encode_video_frames(params, video, vit_cfg: ViTConfig, dtype=None):
 
 
 def blip_caption_loss(params, image_embeds, input_ids, attention_mask, med_cfg: MedConfig,
-                      prompt_length: int, dtype=None):
+                      prompt_length: int, dtype=None, data_parallel: bool = False):
     """LM loss with prompt and pad masking: input_ids start with the [DEC]
-    bos token; the first prompt_length positions and the pads are -100."""
+    bos token; the first prompt_length positions and the pads are -100.
+    data_parallel: this rank's share of the global batch's mean
+    (`med_lm_loss`)."""
     labels = torch.where(attention_mask == 1, input_ids, torch.full_like(input_ids, -100))
     pos = torch.arange(input_ids.shape[1], device=input_ids.device)
     labels = torch.where(pos[None, :] < prompt_length, torch.full_like(labels, -100), labels)
@@ -43,7 +45,8 @@ def blip_caption_loss(params, image_embeds, input_ids, attention_mask, med_cfg: 
         mode="multimodal", is_decoder=True, dtype=dtype,
     )
     logits = M.med_lm_logits(params["text_decoder"], hidden, med_cfg, dtype=dtype)
-    return M.med_lm_loss(logits, labels, label_smoothing=med_cfg.label_smoothing)
+    return M.med_lm_loss(logits, labels, label_smoothing=med_cfg.label_smoothing,
+                         data_parallel=data_parallel)
 
 
 def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConfig,
@@ -65,7 +68,7 @@ def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConf
 
 def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
                       gen: GenerationConfig, sample: bool = False, generator=None,
-                      noise=None, dtype=None, beam_group_kv: bool = False,
+                      noise=None, dtype=None, cache_dtype=None, beam_group_kv: bool = False,
                       cross_kv_int8: bool | str = False, decode_layer_unroll: bool = False,
                       decode_lazy_reorder: bool = False):
     """Token ids from encoded images, by beam search or (``sample``) by
@@ -77,7 +80,8 @@ def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
     keeps the cross K/V at batch B (the beams of one item share it);
     False replicates it per beam (the reference's repeat_interleave).
     Token outputs are the same either way. Sampling runs one row per item
-    (no beams, so neither applies).
+    (no beams, so neither applies). cache_dtype: the self-K/V cache's dtype
+    (default `dtype`, else fp32), as the reference's.
 
     cross_kv_int8: False, True (the cross K/V stored as per-row int8) or
     "dot" (also int8 x int8 attention products; with beam_size 1, i.e.
@@ -96,7 +100,8 @@ def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
     # the all-ones memory mask gives a bias of zeros, which adds nothing
     # to the logits (x + 0 == x): pass none
     cache = M.init_self_cache(med_cfg, B * expand, gen.max_length,
-                              dtype=dtype or torch.float32, device=image_embeds.device,
+                              dtype=cache_dtype or dtype or torch.float32,
+                              device=image_embeds.device,
                               unrolled=decode_layer_unroll,
                               lazy_reorder=decode_lazy_reorder and not sample)
     prefill_fn, step_fn, reorder_fn = make_decoder_closures(

@@ -6,6 +6,16 @@ and the queues are explicit state beside the parameters; the step updates
 them in place (`momentum_update`, `dequeue_and_enqueue`). The batch is the
 global one (the reference's ``negative_all_rank=True``).
 
+Data parallelism (``data_parallel``): each rank holds its rows of the
+global batch, and the losses are its shares of the global batch's (they sum
+to the one-process losses). The ITA rows meet the world's momentum
+features (`concat_all_gather`), which also enter the queues, so every rank
+keeps the same queues. The hard negatives are drawn over the global batch:
+every rank computes the world's similarities, draws the global (B,) index
+vectors from the same seeded generator and takes its slice; a negative
+video from another rank reaches its ITM rows through `all_gather_with_grad`,
+whose backward returns the gradient to the rank that encoded it.
+
 Hard negatives: the JAX package draws them with ``jax.random.categorical``
 over masked log-weights. Its key streams cannot be reproduced here, so the
 port samples the same distribution by Gumbel-max (`sample_categorical`)
@@ -26,6 +36,8 @@ from vidil_tpu_torch.models.convert import named_leaves
 from vidil_tpu_torch.models.layers import linear
 from vidil_tpu_torch.models.vit import vit_forward
 from vidil_tpu_torch.ops.generation import gumbel_argmax, gumbel_noise
+from vidil_tpu_torch.parallel.collectives import all_gather_with_grad, concat_all_gather
+from vidil_tpu_torch.utils.dist import get_rank, get_world_size
 
 MOMENTUM_KEYS = ("visual_encoder", "text_encoder", "vision_proj", "text_proj")
 
@@ -130,40 +142,74 @@ def _div_temp(x, temp):
     return x.float() / temp
 
 
+def _global_mean(rows, n_global: int):
+    """The mean over a global batch of `n_global` rows of which `rows` are
+    this rank's: ``rows.mean()`` on one rank."""
+    if rows.shape[0] == n_global:
+        return rows.mean()
+    return rows.sum() / n_global
+
+
+def _rank_offset(n_local: int, data_parallel: bool):
+    """(this rank's first row in the global batch, the global batch)."""
+    world = get_world_size() if data_parallel else 1
+    rank = get_rank() if data_parallel else 0
+    return rank * n_local, n_local * world
+
+
 def ita_loss(video_feat, text_feat, video_feat_m, text_feat_m, queue: QueueState, temp,
-             alpha):
+             alpha, offset: int = 0):
     """The contrastive loss against the momentum features and the queues,
-    with in-batch diagonal targets mixed by alpha."""
+    with in-batch diagonal targets mixed by alpha.
+
+    video_feat/text_feat are this rank's rows; video_feat_m/text_feat_m the
+    global batch's momentum features (the world's, gathered), of which the
+    rank's rows start at `offset`. Returns (this rank's share of the loss,
+    sim_i2t, sim_t2i) with the rank's rows of the similarities."""
     B = video_feat.shape[0]
+    n_global = video_feat_m.shape[0]
     video_feat_all = torch.cat([video_feat_m.t().float(), queue.image], dim=1)  # (E, B+Q)
     text_feat_all = torch.cat([text_feat_m.t().float(), queue.text], dim=1)
     with torch.no_grad():
-        sim_i2t_m = (video_feat_m.float() @ text_feat_all) / temp
-        sim_t2i_m = (text_feat_m.float() @ video_feat_all) / temp
-        eye = torch.eye(B, sim_i2t_m.shape[1], device=sim_i2t_m.device)
+        own_video_m = video_feat_m[offset:offset + B].float()
+        own_text_m = text_feat_m[offset:offset + B].float()
+        sim_i2t_m = (own_video_m @ text_feat_all) / temp
+        sim_t2i_m = (own_text_m @ video_feat_all) / temp
+        eye = torch.eye(n_global, sim_i2t_m.shape[1], device=sim_i2t_m.device)[offset:offset + B]
         i2t_targets = alpha * torch.softmax(sim_i2t_m, dim=1) + (1 - alpha) * eye
         t2i_targets = alpha * torch.softmax(sim_t2i_m, dim=1) + (1 - alpha) * eye
     sim_i2t = _div_temp(video_feat @ text_feat_all.to(video_feat.dtype), temp)
     sim_t2i = _div_temp(text_feat @ video_feat_all.to(text_feat.dtype), temp)
-    loss_i2t = -(torch.log_softmax(sim_i2t, dim=1) * i2t_targets).sum(dim=1).mean()
-    loss_t2i = -(torch.log_softmax(sim_t2i, dim=1) * t2i_targets).sum(dim=1).mean()
+    loss_i2t = _global_mean(-(torch.log_softmax(sim_i2t, dim=1) * i2t_targets).sum(dim=1),
+                            n_global)
+    loss_t2i = _global_mean(-(torch.log_softmax(sim_t2i, dim=1) * t2i_targets).sum(dim=1),
+                            n_global)
     return (loss_i2t + loss_t2i) / 2, sim_i2t, sim_t2i
 
 
 def itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx, neg_text_idx,
-             med_cfg: MedConfig, dtype=None):
+             med_cfg: MedConfig, dtype=None, data_parallel: bool = False):
     """ITM over B positives and 2B negatives (each video with a sampled
     text, each text with a sampled video); the memory mask is all ones, as
-    in the JAX package (so the cross-attention carries a zero bias)."""
+    in the JAX package (so the cross-attention carries a zero bias).
+
+    The inputs are this rank's rows; the negative indices (this rank's
+    slice of the global index vectors) point into the global batch, whose
+    texts and video embeddings are gathered under `data_parallel` (the
+    embeddings with their gradient). Returns the rank's share of the mean
+    over the global batch's 3B rows."""
     B = enc_ids.shape[0]
+    world_embeds = all_gather_with_grad(video_embeds) if data_parallel else video_embeds
+    world_ids = concat_all_gather(enc_ids) if data_parallel else enc_ids
+    world_mask = concat_all_gather(text_mask) if data_parallel else text_mask
     video_atts = torch.ones(video_embeds.shape[:2], dtype=torch.int32, device=enc_ids.device)
     pos_hidden = M.med_forward(params["text_encoder"], enc_ids, text_mask,
                                encoder_hidden_states=video_embeds,
                                encoder_attention_mask=video_atts, cfg=med_cfg,
                                mode="multimodal", dtype=dtype)
-    text_ids_all = torch.cat([enc_ids, enc_ids[neg_text_idx]], dim=0)
-    text_atts_all = torch.cat([text_mask, text_mask[neg_text_idx]], dim=0)
-    video_embeds_all = torch.cat([video_embeds[neg_video_idx], video_embeds], dim=0)
+    text_ids_all = torch.cat([enc_ids, world_ids[neg_text_idx]], dim=0)
+    text_atts_all = torch.cat([text_mask, world_mask[neg_text_idx]], dim=0)
+    video_embeds_all = torch.cat([world_embeds[neg_video_idx], video_embeds], dim=0)
     video_atts_all = torch.cat([video_atts, video_atts], dim=0)
     neg_hidden = M.med_forward(params["text_encoder"], text_ids_all, text_atts_all,
                                encoder_hidden_states=video_embeds_all,
@@ -174,44 +220,65 @@ def itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx, neg_text_i
     labels = torch.cat([torch.ones(B, dtype=torch.long, device=vl.device),
                         torch.zeros(2 * B, dtype=torch.long, device=vl.device)])
     logp = torch.log_softmax(logits, dim=-1)
-    return -torch.gather(logp, 1, labels[:, None]).mean()
+    rows = -torch.gather(logp, 1, labels[:, None])
+    return _global_mean(rows, 3 * world_ids.shape[0])
+
+
+def momentum_features(params_m, video, text_ids, text_mask, vit_cfg: ViTConfig,
+                      med_cfg: MedConfig, dtype=None, data_parallel: bool = False):
+    """The momentum towers' features of the global batch: this rank's rows,
+    gathered over the world under `data_parallel`."""
+    with torch.no_grad():
+        _, video_feat_m = video_features(params_m, video, vit_cfg, dtype=dtype)
+        text_feat_m = text_features(params_m, text_ids, text_mask, med_cfg, dtype=dtype)
+    if data_parallel:
+        return concat_all_gather(video_feat_m), concat_all_gather(text_feat_m)
+    return video_feat_m, text_feat_m
 
 
 def retrieval_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids, text_mask,
                    alpha, idx, generator, vit_cfg: ViTConfig, med_cfg: MedConfig, dtype=None,
-                   negatives=None):
+                   negatives=None, data_parallel: bool = False):
     """ITA + ITM losses. Returns (loss_ita, loss_itm, aux); aux holds the
-    momentum features for the queue update, the batch's idx, and the
-    negatives drawn.
+    global batch's momentum features and idx for the queue update, and the
+    negatives drawn (global index vectors).
 
     video (B, N, S, S, C) normalized frames; text_ids [CLS]-prefixed;
     enc_ids the same with [ENC] at position 0; idx (B,) video ids (texts
     of one video are not each other's negatives). negatives: None to draw
-    them from `generator`, or (neg_video_idx, neg_text_idx), each (B,).
+    them from `generator`, or (neg_video_idx, neg_text_idx), each (B,) over
+    the global batch. data_parallel: the inputs are this rank's rows of the
+    global batch and the losses its shares (module docstring).
     """
     temp = params["temp"].clamp(0.001, 0.5)
+    offset, n_global = _rank_offset(video.shape[0], data_parallel)
+    rows = slice(offset, offset + video.shape[0])
 
     video_embeds, video_feat = video_features(params, video, vit_cfg, dtype=dtype)
     text_feat = text_features(params, text_ids, text_mask, med_cfg, dtype=dtype)
-    with torch.no_grad():
-        _, video_feat_m = video_features(params_m, video, vit_cfg, dtype=dtype)
-        text_feat_m = text_features(params_m, text_ids, text_mask, med_cfg, dtype=dtype)
+    video_feat_m, text_feat_m = momentum_features(params_m, video, text_ids, text_mask, vit_cfg,
+                                                  med_cfg, dtype=dtype,
+                                                  data_parallel=data_parallel)
+    idx_all = concat_all_gather(idx) if data_parallel else idx
 
     loss_ita, _, _ = ita_loss(video_feat, text_feat, video_feat_m, text_feat_m, queue, temp,
-                              alpha)
+                              alpha, offset=offset)
 
     if negatives is None:
         with torch.no_grad():
-            same = idx.reshape(-1, 1) == idx.reshape(1, -1)
-            sim_i2t_b = _div_temp(video_feat @ text_feat.t(), temp)
-            sim_t2i_b = _div_temp(text_feat @ video_feat.t(), temp)
+            video_feat_all = concat_all_gather(video_feat) if data_parallel else video_feat
+            text_feat_all = concat_all_gather(text_feat) if data_parallel else text_feat
+            same = idx_all.reshape(-1, 1) == idx_all.reshape(1, -1)
+            sim_i2t_b = _div_temp(video_feat_all @ text_feat_all.t(), temp)
+            sim_t2i_b = _div_temp(text_feat_all @ video_feat_all.t(), temp)
             logw_i2t = torch.log_softmax(sim_i2t_b, dim=1).masked_fill(same, -1e9)
             logw_t2i = torch.log_softmax(sim_t2i_b, dim=1).masked_fill(same, -1e9)
             negatives = (sample_categorical(generator, logw_t2i),
                          sample_categorical(generator, logw_i2t))
     neg_video_idx, neg_text_idx = negatives
-    loss_itm = itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx, neg_text_idx,
-                        med_cfg, dtype=dtype)
-    aux = {"video_feat_m": video_feat_m, "text_feat_m": text_feat_m, "idx": idx,
+    assert neg_video_idx.shape[0] == n_global, "negatives index the global batch"
+    loss_itm = itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx[rows],
+                        neg_text_idx[rows], med_cfg, dtype=dtype, data_parallel=data_parallel)
+    aux = {"video_feat_m": video_feat_m, "text_feat_m": text_feat_m, "idx": idx_all,
            "negatives": negatives}
     return loss_ita, loss_itm, aux

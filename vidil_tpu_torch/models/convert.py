@@ -224,11 +224,12 @@ def load_vit_flax_npz(path, cfg: ViTConfig) -> dict:
 
 
 def convert_med(sd: dict, cfg: MedConfig, prefix: str = "",
-                lm_head_prefix: str | None = None) -> dict:
+                lm_head_prefix: str | None = None, with_pooler: bool = False) -> dict:
     """A BERT/MED tower; prefix e.g. ``"text_encoder."`` or
     ``"text_decoder.bert."``; lm_head_prefix e.g. ``"text_decoder."`` also
     pulls ``cls.predictions.*`` (the decoder weight is tied to the word
-    embedding)."""
+    embedding); with_pooler also pulls ``pooler.dense`` when the checkpoint
+    has it (`med.med_pooler`)."""
     p = prefix
     layers = []
     for i in range(cfg.num_layers):
@@ -261,6 +262,8 @@ def convert_med(sd: dict, cfg: MedConfig, prefix: str = "",
         },
         "layers": layers,
     }
+    if with_pooler and (p + "pooler.dense.weight") in sd:
+        params["pooler"] = _lin(sd, p + "pooler.dense")
     if lm_head_prefix is not None:
         h = lm_head_prefix
         params["cls"] = {

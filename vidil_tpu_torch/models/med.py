@@ -334,12 +334,17 @@ def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=No
     return x
 
 
-def med_lm_loss(logits, labels, label_smoothing: float = 0.1, reduction: str = "mean"):
+def med_lm_loss(logits, labels, label_smoothing: float = 0.1, reduction: str = "mean",
+                data_parallel: bool = False):
     """Shifted next-token cross entropy with label smoothing, -100 = ignore
     (torch CrossEntropyLoss(label_smoothing=eps)):
     loss = (1 - eps) * nll + eps * mean_j(-log p_j).
 
-    reduction "mean": over the valid tokens; "none": per-sample sums."""
+    reduction "mean": over the valid tokens; "none": per-sample sums.
+    data_parallel (with "mean"): the rows are this rank's of a global batch;
+    the token sum is divided by the global batch's valid count (summed
+    over the ranks), so the ranks' losses add up to the global mean and
+    not to a mean of per-rank means."""
     logits = logits[:, :-1, :].float()
     labels = labels[:, 1:]
     valid = labels != -100
@@ -350,7 +355,12 @@ def med_lm_loss(logits, labels, label_smoothing: float = 0.1, reduction: str = "
     per_tok = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     per_tok = torch.where(valid, per_tok, torch.zeros_like(per_tok))
     if reduction == "mean":
-        return per_tok.sum() / valid.sum().clamp_min(1)
+        count = valid.sum()
+        if data_parallel:
+            from vidil_tpu_torch.parallel.collectives import psum
+
+            count = psum(count)
+        return per_tok.sum() / count.clamp_min(1)
     if reduction == "none":
         return per_tok.sum(dim=-1)
     raise ValueError(reduction)

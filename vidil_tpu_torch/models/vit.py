@@ -47,21 +47,22 @@ def patchify(x, patch_size: int):
     return x.reshape(B, nH * nW, P * P * C)
 
 
-def attention(params, x, num_heads: int, dtype=None):
+def attention(params, x, num_heads: int, dtype=None, use_flash: bool = True):
     """Fused-QKV self-attention; q, k, v reach the kernel as strided views
-    of the QKV projection."""
+    of the QKV projection. ``use_flash=False`` keeps plain attention."""
     qkv = linear(params["qkv"], x, dtype=dtype)
     q, k, v = qkv.chunk(3, dim=-1)
     q, k, v = (split_heads(t, num_heads) for t in (q, k, v))
-    out = attention_auto(q, k, v)
+    out = attention_auto(q, k, v, use_flash=use_flash)
     return linear(params["proj"], merge_heads(out), dtype=dtype)
 
 
 def block_forward(params, x, num_heads: int, eps: float, dtype=None,
-                  use_fused_mlp: bool = False):
+                  use_fused_mlp: bool = False, use_flash: bool = True):
     """Pre-LN residual block; the MLP goes through `mlp_auto` (kernel K3
     when `use_fused_mlp` and its gate allow)."""
-    x = x + attention(params["attn"], layer_norm(params["norm1"], x, eps), num_heads, dtype=dtype)
+    x = x + attention(params["attn"], layer_norm(params["norm1"], x, eps), num_heads, dtype=dtype,
+                      use_flash=use_flash)
     x = x + mlp_auto(params["mlp"], layer_norm(params["norm2"], x, eps), act=gelu, dtype=dtype,
                      use_fused=use_fused_mlp)
     return x
@@ -131,7 +132,7 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = 
         return layer_norm(params["norm"], x[:, :L], cfg.layer_norm_eps)
     for i, blk in enumerate(params["blocks"]):
         fn = remat(block_forward, cfg.remat and i >= cfg.remat_from_layer)
-        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype, cfg.use_fused_mlp)
+        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype, cfg.use_fused_mlp, cfg.use_flash)
     return layer_norm(params["norm"], x, cfg.layer_norm_eps)
 
 

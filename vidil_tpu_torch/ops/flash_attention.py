@@ -380,7 +380,7 @@ def _flash_profitable(q, k, bias) -> bool:
             and B * H * Lq * Lk * 4 >= _LOGITS_SPILL_BYTES)
 
 
-def attention_auto(q, k, v, bias=None):
+def attention_auto(q, k, v, bias=None, use_flash: bool = True):
     """The reference's routing (``vidil_tpu/ops/flash_attention.py:
     attention_auto``): `flash_attention` (the kernels on CUDA tensors, the
     twins on the CPU, where the reference runs its kernel with
@@ -393,8 +393,9 @@ def attention_auto(q, k, v, bias=None):
     as for K3's 2048-row gate (``models/layers.py:mlp_auto``), a shape
     takes the function the reference computes for it. Whether this rule,
     measured on a TPU, is also the fastest one on an H100 is a separate
-    question, left open (ROADMAP).
+    question, left open (ROADMAP). ``use_flash=False`` (``ViTConfig.use_flash``)
+    sends every shape to the plain path, as in the reference.
     """
-    if _flash_profitable(q, k, bias):
+    if use_flash and _flash_profitable(q, k, bias):
         return flash_attention(q, k, v)
     return dot_product_attention(q, k, v, bias=bias)

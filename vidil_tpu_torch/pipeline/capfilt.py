@@ -138,17 +138,30 @@ class CapFiltEngine:
         top_p: float = 0.9,
         itm_max_text_len: int = 35,
         dtype=torch.bfloat16,
+        length_norm: str = "legacy",
         beam_group_kv: bool = False,
         cross_kv_int8: bool | str = False,
         decode_layer_unroll: bool = False,
         decode_lazy_reorder: bool = False,
+        early_exit: bool = True,
+        early_readback: bool = True,
         fused_filter: bool = True,
         device="cuda",
     ):
         """cross_kv_int8 (False | True | "dot"), decode_layer_unroll and
         decode_lazy_reorder select the decode's variants
-        (`blip_generate_ids`); top_p is the sampling mode's nucleus."""
+        (`blip_generate_ids`); top_p is the sampling mode's nucleus;
+        length_norm the beam search's dialect ("legacy" | "modern",
+        `ops/generation.py`).
+
+        early_exit is accepted for the reference's signature and changes no
+        token: the decode runs all its steps (no host sync inside it). early_readback starts
+        the chunk's small device->host copies right after its dispatch, on
+        the card (False: `complete_chunk` reads them)."""
         self.device = resolve_device(device)
+        if length_norm not in ("legacy", "modern"):
+            raise ValueError(f"unknown length_norm: {length_norm!r}")
+        self.early_readback = early_readback
         if dtype == torch.float32:
             dtype = None  # fp32 params: no casts
         self.dtype = dtype
@@ -187,14 +200,14 @@ class CapFiltEngine:
         self.gen_beam = GenerationConfig(
             max_length=max_length, min_length=min_length, num_beams=num_beams,
             eos_token_id=tokenizer.sep_token_id, pad_token_id=tokenizer.pad_token_id,
-            repetition_penalty=1.0, length_norm="legacy", early_exit=False,
+            repetition_penalty=1.0, length_norm=length_norm, early_exit=False,
         )
         # the reference's sampling settings (models/blip.py: top_p 0.9,
         # repetition_penalty 1.1), one row per frame
         self.gen_sample = GenerationConfig(
             max_length=max_length, min_length=min_length, num_beams=1,
             eos_token_id=tokenizer.sep_token_id, pad_token_id=tokenizer.pad_token_id,
-            repetition_penalty=1.1, top_p=top_p, length_norm="legacy", early_exit=False,
+            repetition_penalty=1.1, top_p=top_p, length_norm=length_norm, early_exit=False,
         )
 
     # -- device programs ----------------------------------------------------
@@ -342,7 +355,7 @@ class CapFiltEngine:
         if self.fused_filter and seqs is not None and need_filter and fused_applicable(config):
             itm_probs = self._itm_fused(frame_embeds, seqs)
         d = ChunkDispatch(chunk, config, F, seqs, frame_embeds, itm_probs, n_real=n_real)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.early_readback:
             # start the small device->host copies now, into pinned memory
             if seqs is not None:
                 d.seqs_host = seqs.to("cpu", non_blocking=True)

@@ -19,8 +19,12 @@ random key). The MED vocabulary is widened to the tokenizer's when the
 config's is smaller (bert_config.json has 30522 words; [DEC] and [ENC] are
 30522 and 30523), as the reference's resize_token_embeddings does. The
 batch is the reference's ``batch_size`` (8 when unset); a
-``batch_size_tpu`` key is reported and ignored. Not ported yet (they raise
-NotImplementedError): the SPMD mesh keys, multi-process launches.
+``batch_size_tpu`` key is reported and ignored. Several GPUs: launch under
+``torchrun --nproc_per_node=N``: each rank takes its rows of every global
+batch, its losses are shares of the global batch's and the gradients are
+summed over the ranks (as in the retrieval trainer); ``data_parallel: N``
+must match the launch's world, ``optimizer_sharding: zero1`` shards the
+AdamW moments, and ``model_parallel > 1`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,7 +67,9 @@ def main(args, config):
     from vidil_tpu_torch.data.datasets import PrefetchLoader, RetrievalTrainDataset
     from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
-    from vidil_tpu_torch.train.common import refuse_mesh_keys, resolve_train_batch, set_lr
+    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
     from vidil_tpu_torch.utils.logging import MetricLogger
@@ -71,25 +77,28 @@ def main(args, config):
     from vidil_tpu_torch.utils.seeding import make_generator
 
     device = resolve_device(getattr(args, "device", "cuda"))
-    refuse_mesh_keys(config)
-    utils.init_distributed_mode(args)
+    owns_group = utils.init_distributed_mode(args, device=device)
+    data_parallel_from_config(config)
     utils.seed_everything(args.seed)
 
     vit_cfg, med_cfg, tokenizer = build(config)
     dataset = RetrievalTrainDataset(dict(config), max_words=config.get("max_words", 30))
     B = resolve_train_batch(config, "batch_size", 8)
-    loader = PrefetchLoader(dataset, B, shuffle=True, drop_last=True, seed=args.seed)
+    loader = PrefetchLoader(dataset, B, shuffle=True, drop_last=True, seed=args.seed,
+                            **loader_shards())
 
     queue_size = config.get("queue_size", 57600)
     queue_size -= queue_size % B
     state = create_pretrain_state(init_pretrain_params(vit_cfg, med_cfg), config["init_lr"],
                                   config.get("weight_decay", 0.05), queue_size=queue_size,
                                   seed=args.seed, device=device)
+    state = apply_optimizer_sharding(state, config)
     step_fn = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
 
     start_epoch = 0
     resume_path = config.get("resume", "")
     if resume_path:
+        utils.barrier()
         state, ck_meta = load_train_state(resume_path, state)
         start_epoch = (ck_meta or {}).get("epoch", -1) + 1
         print(f"resumed full train state from {resume_path} at epoch {start_epoch}")
@@ -117,15 +126,18 @@ def main(args, config):
             logger.update(loss_ita=float(metrics["loss_ita"]),
                           loss_itm=float(metrics["loss_itm"]),
                           loss_lm=float(metrics["loss_lm"]), lr=lr)
+        logger.synchronize_between_processes()
+        save_train_state(os.path.join(args.output_dir, "checkpoint_last"), state,
+                         meta={"epoch": epoch})
         if utils.is_main_process():
             save_checkpoint(os.path.join(args.output_dir, f"checkpoint_{epoch:02d}"),
                             state.params, meta={"epoch": epoch})
-            save_train_state(os.path.join(args.output_dir, "checkpoint_last"), state,
-                             meta={"epoch": epoch})
             with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
                 stats = {k: m.global_avg for k, m in logger.meters.items()}
                 f.write(json.dumps({**stats, "epoch": epoch}) + "\n")
         utils.barrier()
+    if owns_group:
+        utils.destroy_distributed()
     return state
 
 

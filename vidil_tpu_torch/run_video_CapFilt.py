@@ -18,8 +18,14 @@ and resize_on_device: frames go to the device at their native decode size
 encode resizes them there; a video decoding at another size gets one host
 PIL resample to that size, with one printed warning. generation_mode
 'sample' draws each chunk's captions from a generator seeded afresh with
---seed, as the JAX CLI passes PRNGKey(seed) to every chunk. data_parallel
-raises NotImplementedError, as do multi-process launches.
+--seed, as the JAX CLI passes PRNGKey(seed) to every chunk.
+
+Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
+takes its `shard_range` of the videos on ``cuda:LOCAL_RANK`` and writes
+its tmp files; rank 0 merges them after a barrier, so the two files are
+the same as one process writes. ``data_parallel: true`` runs on the
+launch's ranks (one rank: the plain engine); ``data_parallel: N`` must
+match the launch's world.
 """
 
 from __future__ import annotations
@@ -27,15 +33,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
-
-_UNPORTED_KEYS = ("data_parallel",)
-
 
 def build_engine(config, device="cuda", dtype=None):
     from vidil_tpu_torch.config import MedConfig, ViTConfig, compute_dtype_from_config
@@ -43,10 +45,10 @@ def build_engine(config, device="cuda", dtype=None):
     from vidil_tpu_torch.pipeline.capfilt import CapFiltEngine, resolve_device
     from vidil_tpu_torch.tokenizer import BlipTokenizer
 
+    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+
     device = resolve_device(device)
-    for key in _UNPORTED_KEYS:
-        if config.get(key, False):
-            raise NotImplementedError(f"vidil_tpu_torch: {key} is not ported yet")
+    data_parallel_from_config(config)
     if "vit_config" in config:  # custom architecture (tests / non-standard sizes)
         vit_cfg = ViTConfig(image_size=config["image_size"], **config["vit_config"])
     else:
@@ -112,11 +114,10 @@ def main(args, config):
     tmp_dir = os.path.join(args.output_dir, "tmp")
     os.makedirs(tmp_dir, exist_ok=True)
 
-    utils.init_distributed_mode(args)
+    owns_group = utils.init_distributed_mode(args, device=device)
     utils.seed_everything(args.seed)
 
     rank = utils.get_rank()
-    num_tasks = utils.get_world_size()
     start, end = utils.shard_range(len(data))
     print(f"rank{rank}:start-{start}:end-{end}")
     shard = data[start:end]
@@ -265,28 +266,19 @@ def main(args, config):
         print(f"rank{rank}: steady-state (first chunk excluded): "
               f"{fs} frames in {ds:.1f}s = {fs/ds:.2f} frames/s")
 
-    with open(os.path.join(tmp_dir, f"{rank}_filtered.json"), "w") as out:
-        json.dump(video_text_CapFilt, out, indent=4)
-    with open(os.path.join(tmp_dir, f"{rank}_unfiltered.json"), "w") as out:
-        json.dump(video_text_Cap_unfiltered, out, indent=4)
+    utils.save_json(os.path.join(tmp_dir, f"{rank}_filtered.json"), video_text_CapFilt)
+    utils.save_json(os.path.join(tmp_dir, f"{rank}_unfiltered.json"), video_text_Cap_unfiltered)
 
-    utils.barrier()
-
+    merged_filtered = utils.merge_rank_jsons(
+        tmp_dir, os.path.join(args.output_dir, "video_text_CapFilt.json"), "_filtered.json")
+    merged_unfiltered = utils.merge_rank_jsons(
+        tmp_dir, os.path.join(args.output_dir, "video_text_Cap.json"), "_unfiltered.json",
+        cleanup=True)
     if utils.is_main_process():
-        merged_filtered = {}
-        merged_unfiltered = {}
-        for r in range(num_tasks):
-            with open(os.path.join(tmp_dir, f"{r}_filtered.json")) as f:
-                merged_filtered.update(json.load(f))
-            with open(os.path.join(tmp_dir, f"{r}_unfiltered.json")) as f:
-                merged_unfiltered.update(json.load(f))
         print("filtered video number:", len(merged_filtered))
         print("unfiltered video number:", len(merged_unfiltered))
-        with open(os.path.join(args.output_dir, "video_text_CapFilt.json"), "w") as out:
-            json.dump(merged_filtered, out, indent=4)
-        with open(os.path.join(args.output_dir, "video_text_Cap.json"), "w") as out:
-            json.dump(merged_unfiltered, out, indent=4)
-        shutil.rmtree(tmp_dir)
+    if owns_group:
+        utils.destroy_distributed()
 
 
 def parse_args(argv=None):

@@ -14,8 +14,14 @@ Config keys beyond the reference's (offline environments): clip_ckpt /
 clip_vocab / clip_merges (local CLIP weights and BPE files), clip_config,
 bert_vocab, ontology_root, ontology_paths, videos_per_batch, vit_config
 (e.g. ``{use_fused_mlp: true}`` for kernel K3 in the BLIP ViT),
-compute_dtype ('bfloat16' | 'float32'), decode_workers. Not ported yet (it
-raises NotImplementedError): data_parallel; multi-process launches.
+compute_dtype ('bfloat16' | 'float32'), decode_workers.
+
+Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
+takes its `shard_range` of the videos on ``cuda:LOCAL_RANK``; rank 0
+merges the tmp files after a barrier, so ``visual_tokens.json`` is the
+same as one process writes. ``data_parallel: true`` runs on the launch's
+ranks (one rank: the plain engine); ``data_parallel: N`` must match the
+launch's world.
 """
 
 from __future__ import annotations
@@ -23,20 +29,19 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import time
 from pathlib import Path
 
 import torch
 
-_UNPORTED_KEYS = ("data_parallel",)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _refuse_unported(config) -> None:
-    for key in _UNPORTED_KEYS:
-        if config.get(key, False):
-            raise NotImplementedError(f"vidil_tpu_torch: {key} is not ported yet")
+    """The data axis the config asks for must be the launch's world."""
+    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+
+    data_parallel_from_config(config)
 
 
 def build_clip_engine(config, dtype=None, device="cuda"):
@@ -135,10 +140,9 @@ def main(args, config):
     tmp_dir = os.path.join(args.output_dir, "tmp")
     os.makedirs(tmp_dir, exist_ok=True)
 
-    utils.init_distributed_mode(args)
+    owns_group = utils.init_distributed_mode(args, device=device)
     utils.seed_everything(args.seed)
     rank = utils.get_rank()
-    num_tasks = utils.get_world_size()
 
     if args.encoder_version == "clip":
         engine = build_clip_engine(config, device=device)
@@ -244,19 +248,11 @@ def main(args, config):
     if n_frames:
         print(f"rank{rank}: {n_frames} frames in {dt:.1f}s = {n_frames/dt:.2f} frames/s")
 
-    with open(os.path.join(tmp_dir, f"{rank}.json"), "w") as out:
-        json.dump(videoid_2_visual_tokens, out, indent=4)
-
-    utils.barrier()
-
-    if utils.is_main_process():
-        merged = {}
-        for r in range(num_tasks):
-            with open(os.path.join(tmp_dir, f"{r}.json")) as f:
-                merged.update(json.load(f))
-        with open(os.path.join(args.output_dir, "visual_tokens.json"), "w") as out:
-            json.dump(merged, out, indent=4)
-        shutil.rmtree(tmp_dir)
+    utils.save_json(os.path.join(tmp_dir, f"{rank}.json"), videoid_2_visual_tokens)
+    utils.merge_rank_jsons(tmp_dir, os.path.join(args.output_dir, "visual_tokens.json"),
+                           cleanup=True)
+    if owns_group:
+        utils.destroy_distributed()
 
 
 def parse_args(argv=None):

@@ -13,12 +13,14 @@ import torch
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import blip as B
+from vidil_tpu_torch.parallel.collectives import psum
 from vidil_tpu_torch.train.common import (
     TrainState,
     apply_gradients,
     create_train_state,
     training_cfgs,
 )
+from vidil_tpu_torch.utils.dist import is_dist_avail_and_initialized
 
 
 # the JAX package's names for the trainers' shared state
@@ -34,18 +36,24 @@ def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_lengt
     [DEC], attention_mask (B, L); numpy arrays or tensors. 'single_frame'
     batches expose the chosen frame as N == 1. After a step the parameters'
     ``.grad`` hold that step's gradients.
+
+    Under a process group (one rank included) the batch is this rank's rows
+    of the global batch; the loss is the rank's share of the global token
+    mean, the gradients are summed over the ranks, and the reported loss is
+    the global batch's.
     """
     vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat)
 
     def train_step(state: TrainState, batch):
+        dp = is_dist_avail_and_initialized()
         dev = state.device
         video = torch.as_tensor(batch["video"], dtype=torch.float32, device=dev)
         ids = torch.as_tensor(batch["input_ids"], device=dev).long()
         mask = torch.as_tensor(batch["attention_mask"], device=dev).long()
         embeds = B.encode_video_frames(state.params, video, vit_cfg, dtype=dtype)
         loss = B.blip_caption_loss(state.params, embeds, ids, mask, med_cfg,
-                                   prompt_length=prompt_length, dtype=dtype)
-        return apply_gradients(state, loss), {"loss": loss.detach()}
+                                   prompt_length=prompt_length, dtype=dtype, data_parallel=dp)
+        return apply_gradients(state, loss, dp), {"loss": psum(loss) if dp else loss.detach()}
 
     return train_step
 

@@ -3,6 +3,12 @@ the train state of the caption and VQA trainers.
 
 Counterpart of ``vidil_tpu/train/common.py`` (`training_cfgs`,
 `resolve_train_batch`) and of ``vidil_tpu/train/retrieval.py:make_optimizer``.
+
+Data parallelism: each rank's step takes its rows of the global batch and
+computes its share of the global batch's loss (a mean over the global
+batch's tokens or rows, whose counts come from an all-reduce); the
+gradients are summed over the ranks before AdamW (`apply_gradients`), so
+every rank takes the one-process global-batch step.
 """
 
 from __future__ import annotations
@@ -84,17 +90,19 @@ def resolve_train_batch(config: dict, key: str, default: int | None = None) -> i
     return int(base)
 
 
-MESH_KEYS = ("data_parallel", "model_parallel", "optimizer_sharding")
+def loader_shards(n_items: int | None = None) -> dict:
+    """`PrefetchLoader` keywords of this rank over the world of ranks:
+    its rows of each global train batch (no `n_items`), or its
+    `shard_range` of an eval set of `n_items`. Empty on one rank."""
+    from vidil_tpu_torch.utils.dist import get_rank, get_world_size
+    from vidil_tpu_torch.utils.io import shard_range
 
-
-def refuse_mesh_keys(config: dict) -> None:
-    """The JAX trainers' SPMD mesh keys are not ported: raise on any that
-    asks for more than one device."""
-    for key in MESH_KEYS:
-        if key == "model_parallel" and int(config.get(key, 1) or 1) == 1:
-            continue
-        if config.get(key):
-            raise NotImplementedError(f"vidil_tpu_torch: {key} (SPMD mesh) is not ported yet")
+    world = get_world_size()
+    if world == 1:
+        return {}
+    if n_items is None:
+        return {"rank_rows": (get_rank(), world)}
+    return {"item_range": shard_range(n_items)}
 
 
 def make_optimizer(params, init_lr: float, weight_decay: float = 0.05):
@@ -145,11 +153,20 @@ def create_train_state(params, init_lr: float, weight_decay: float = 0.05,
     return TrainState(params, make_optimizer(params, init_lr, weight_decay), device)
 
 
-def apply_gradients(state: TrainState, loss) -> TrainState:
+def apply_gradients(state: TrainState, loss, data_parallel: bool = False) -> TrainState:
     """Backward of `loss` into fresh ``.grad`` and one AdamW step, in place;
-    the parameters' ``.grad`` keep this step's gradients."""
+    the parameters' ``.grad`` keep this step's gradients.
+
+    data_parallel: `loss` is this rank's share of the global batch's loss
+    (the shares sum to it), so the gradients are summed over the ranks
+    (`all_reduce_grads`, bucketed) before the step: every rank then takes
+    the one-process global-batch step."""
+    from vidil_tpu_torch.parallel.collectives import all_reduce_grads
+
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if data_parallel:
+        all_reduce_grads([p for _, p in named_leaves(state.params)])
     state.optimizer.step()
     state.step += 1
     return state

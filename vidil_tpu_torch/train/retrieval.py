@@ -27,12 +27,14 @@ from vidil_tpu_torch.models.blip_retrieval import (
     retrieval_loss,
 )
 from vidil_tpu_torch.models.convert import to_device
+from vidil_tpu_torch.parallel.collectives import psum
 from vidil_tpu_torch.train.common import (
     TrainState,
     apply_gradients,
     create_train_state as create_base_state,
     training_cfgs,
 )
+from vidil_tpu_torch.utils.dist import is_dist_avail_and_initialized
 from vidil_tpu_torch.utils.seeding import make_generator
 
 
@@ -71,15 +73,23 @@ def batch_tensors(batch: dict, device) -> dict:
             else torch.as_tensor(v, device=device).long() for k, v in batch.items()}
 
 
-def finish_step(state: RetrievalTrainState, loss, aux) -> RetrievalTrainState:
-    """The step's tail shared with pretraining: backward and AdamW, the
-    temperature clamp, the queue update from the momentum features."""
-    apply_gradients(state, loss)
+def finish_step(state: RetrievalTrainState, loss, aux,
+                data_parallel: bool = False) -> RetrievalTrainState:
+    """The step's tail shared with pretraining: backward (the gradients
+    summed over the ranks under `data_parallel`) and AdamW, the temperature
+    clamp, the queue update from the global batch's momentum features."""
+    apply_gradients(state, loss, data_parallel)
     with torch.no_grad():
         state.params["temp"].clamp_(0.001, 0.5)
     state.queue = dequeue_and_enqueue(state.queue, aux["video_feat_m"], aux["text_feat_m"],
                                       aux["idx"])
     return state
+
+
+def step_metrics(data_parallel: bool, **losses) -> dict:
+    """The step's losses, detached; the global batch's (summed over the
+    ranks' shares) under `data_parallel`."""
+    return {k: psum(v) if data_parallel else v.detach() for k, v in losses.items()}
 
 
 def make_retrieval_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, momentum: float = 0.995,
@@ -90,19 +100,26 @@ def make_retrieval_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, momentum: 
     batch: video (B, N, S, S, C), text_ids / enc_ids / text_mask (B, L),
     idx (B,). generator: the draws of the hard negatives, unless
     `negatives` gives them (see `retrieval_loss`). After a step the
-    parameters' ``.grad`` hold its gradients."""
+    parameters' ``.grad`` hold its gradients.
+
+    Under a process group (one rank included) the batch is this rank's rows
+    of the global batch, every rank passes a generator seeded alike, and
+    the metrics are the global batch's losses. The metrics also hold the
+    step's ``negatives``, (neg_video_idx, neg_text_idx) over the global
+    batch."""
     vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat, default_fused_bwd=False)
 
     def train_step(state: RetrievalTrainState, batch, alpha, generator, negatives=None):
+        dp = is_dist_avail_and_initialized()
         b = batch_tensors(batch, state.device)
         momentum_update(state.params, state.params_m, momentum)
         loss_ita, loss_itm, aux = retrieval_loss(
             state.params, state.params_m, state.queue, b["video"], b["text_ids"], b["enc_ids"],
             b["text_mask"], alpha, b["idx"], generator, vit_cfg, med_cfg, dtype=dtype,
-            negatives=negatives)
+            negatives=negatives, data_parallel=dp)
         loss = loss_ita + loss_itm
-        state = finish_step(state, loss, aux)
-        return state, {"loss": loss.detach(), "loss_ita": loss_ita.detach(),
-                       "loss_itm": loss_itm.detach()}
+        state = finish_step(state, loss, aux, dp)
+        metrics = step_metrics(dp, loss=loss, loss_ita=loss_ita, loss_itm=loss_itm)
+        return state, {**metrics, "negatives": aux["negatives"]}
 
     return train_step

@@ -13,9 +13,15 @@ master parameters, as in the JAX trainer.
 Config keys beyond the reference's: bert_vocab, optional vit_config /
 med_config for custom sizes. The batch is the reference's
 ``train_batch_size``; a ``train_batch_size_tpu`` key is reported and
-ignored. Not ported yet (they raise NotImplementedError): the SPMD mesh
-keys (data_parallel, model_parallel, optimizer_sharding), multi-process
-launches.
+ignored.
+
+Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
+takes its rows of every global batch of ``train_batch_size`` (which N
+must divide) and the gradients are summed over the ranks, so the step is
+the one-process step at that batch; the val/test captions are split
+across the ranks and merged by rank 0. ``data_parallel: N`` must match
+the launch's world; ``optimizer_sharding: zero1`` shards the AdamW
+moments (ZeRO-1); ``model_parallel > 1`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -104,14 +110,16 @@ def main(args, config):
         make_caption_train_step,
         select_frame_itm,
     )
-    from vidil_tpu_torch.train.common import refuse_mesh_keys, resolve_train_batch, set_lr
+    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
     from vidil_tpu_torch.utils.logging import MetricLogger
     from vidil_tpu_torch.utils.schedules import cosine_lr_schedule
 
     device = resolve_device(getattr(args, "device", "cuda"))
-    refuse_mesh_keys(config)
-    utils.init_distributed_mode(args)
+    owns_group = utils.init_distributed_mode(args, device=device)
+    data_parallel_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
 
@@ -132,12 +140,15 @@ def main(args, config):
 
     train_B = resolve_train_batch(config, "train_batch_size")
     train_loader = PrefetchLoader(train_dataset, train_B, shuffle=True,
-                                  drop_last=True, seed=args.seed)
-    val_loader = PrefetchLoader(val_dataset, config["test_batch_size"])
-    test_loader = PrefetchLoader(test_dataset, config["test_batch_size"])
+                                  drop_last=True, seed=args.seed, **loader_shards())
+    val_loader = PrefetchLoader(val_dataset, config["test_batch_size"],
+                                **loader_shards(len(val_dataset)))
+    test_loader = PrefetchLoader(test_dataset, config["test_batch_size"],
+                                 **loader_shards(len(test_dataset)))
 
     state = create_caption_train_state(params, config["init_lr"],
                                        config.get("weight_decay", 0.05), device=device)
+    state = apply_optimizer_sharding(state, config)
     del params
     train_step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=dtype)
 
@@ -166,6 +177,7 @@ def main(args, config):
     start_epoch = 0
     resume_path = config.get("resume", "")
     if resume_path and not args.evaluate:
+        utils.barrier()
         state, ck_meta = load_train_state(resume_path, state)
         start_epoch = (ck_meta or {}).get("epoch", -1) + 1
         print(f"resumed full train state from {resume_path} at epoch {start_epoch}")
@@ -185,10 +197,10 @@ def main(args, config):
                 batch = {"video": np.asarray(video), "input_ids": ids, "attention_mask": mask}
                 state, metrics = train_step(state, batch)
                 logger.update(loss=float(metrics["loss"]), lr=lr)
+            logger.synchronize_between_processes()
             train_stats = {k: f"{m.global_avg:.3f}" for k, m in logger.meters.items()}
-            if utils.is_main_process():
-                save_train_state(os.path.join(args.output_dir, "checkpoint_last"),
-                                 state, meta={"epoch": epoch})
+            save_train_state(os.path.join(args.output_dir, "checkpoint_last"),
+                             state, meta={"epoch": epoch})
 
         if epoch == config["max_epoch"] - 1 or args.evaluate:
             skip_val = config.get("skip_val", False)
@@ -229,6 +241,8 @@ def main(args, config):
         if args.evaluate:
             break
         utils.barrier()
+    if owns_group:
+        utils.destroy_distributed()
     return state
 
 

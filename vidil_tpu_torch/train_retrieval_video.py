@@ -18,9 +18,16 @@ med_config for custom sizes; without ``pretrained`` the weights are
 synthetic (`utils/synth.py`). The batch is the reference's
 ``batch_size_train``; a ``batch_size_train_tpu`` key is reported and
 ignored. Hard negatives come from ``make_generator(seed, step)``
-(`utils/seeding.py`), not JAX's key stream. Not ported yet (they raise
-NotImplementedError): the SPMD mesh keys (data_parallel, model_parallel,
-optimizer_sharding), multi-process launches.
+(`utils/seeding.py`), not JAX's key stream.
+
+Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
+takes its rows of every global batch, the losses are its shares of the
+global batch's (the world's momentum features enter the queues; the hard
+negatives are drawn over the global batch from a generator seeded alike
+on every rank) and the gradients are summed over the ranks; the eval
+reranks each rank's rows and combines them. ``data_parallel: N`` must
+match the launch's world, ``optimizer_sharding: zero1`` shards the AdamW
+moments (ZeRO-1), and ``model_parallel > 1`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -87,7 +94,9 @@ def main(args, config):
         RetrievalTrainDataset,
     )
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
-    from vidil_tpu_torch.train.common import refuse_mesh_keys, resolve_train_batch, set_lr
+    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.train.retrieval import create_train_state, make_retrieval_train_step
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
     from vidil_tpu_torch.utils.logging import MetricLogger
@@ -95,8 +104,8 @@ def main(args, config):
     from vidil_tpu_torch.utils.seeding import make_generator
 
     device = resolve_device(getattr(args, "device", "cuda"))
-    refuse_mesh_keys(config)
-    utils.init_distributed_mode(args)
+    owns_group = utils.init_distributed_mode(args, device=device)
+    data_parallel_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
 
@@ -115,12 +124,14 @@ def main(args, config):
     val_dataset, test_dataset = eval_dataset("val_ann_jsonl"), eval_dataset("test_ann_jsonl")
 
     B = resolve_train_batch(config, "batch_size_train")
-    train_loader = PrefetchLoader(train_dataset, B, shuffle=True, drop_last=True, seed=args.seed)
+    train_loader = PrefetchLoader(train_dataset, B, shuffle=True, drop_last=True, seed=args.seed,
+                                  **loader_shards())
     # the queue must be a multiple of the batch (reference :546)
     queue_size = config["queue_size"] - config["queue_size"] % B
     state = create_train_state(params, config["init_lr"], config.get("weight_decay", 0.05),
                                embed_dim=params["vision_proj"]["kernel"].shape[1],
                                queue_size=queue_size, seed=args.seed, device=device)
+    state = apply_optimizer_sharding(state, config)
     del params
     train_step = make_retrieval_train_step(vit_cfg, med_cfg, dtype=dtype)
 
@@ -128,6 +139,7 @@ def main(args, config):
     start_epoch = 0
     resume_path = config.get("resume", "")
     if resume_path and not args.evaluate:
+        utils.barrier()
         state, ck_meta = load_train_state(resume_path, state)
         start_epoch = (ck_meta or {}).get("epoch", -1) + 1
         print(f"resumed full train state from {resume_path} at epoch {start_epoch}")
@@ -172,12 +184,14 @@ def main(args, config):
             name = "evaluate.txt" if args.evaluate else "log.txt"
             with open(os.path.join(args.output_dir, name), "a") as f:
                 f.write(json.dumps(log_stats) + "\n")
-            if not args.evaluate:
-                save_train_state(os.path.join(args.output_dir, "checkpoint_last"), state,
-                                 meta={"epoch": epoch})
+        if not args.evaluate:
+            save_train_state(os.path.join(args.output_dir, "checkpoint_last"), state,
+                             meta={"epoch": epoch})
         if args.evaluate:
             break
         utils.barrier()
+    if owns_group:
+        utils.destroy_distributed()
     return state
 
 

@@ -17,9 +17,15 @@ fused block pair (`train/common.py:training_cfgs`; opt out with
 Config keys beyond the reference's: bert_vocab, optional vit_config /
 med_config for custom sizes. The batch is the reference's
 ``batch_size_train``; a ``batch_size_train_tpu`` key is reported and
-ignored. Not ported yet (they raise NotImplementedError): the SPMD mesh
-keys (data_parallel, model_parallel, optimizer_sharding), multi-process
-launches.
+ignored.
+
+Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
+takes its questions of every global batch (and their answers), the answer
+loss is divided by the global batch's questions and the gradients are
+summed over the ranks; the test answers are split across the ranks and
+merged by rank 0. ``data_parallel: N`` must match the launch's world,
+``optimizer_sharding: zero1`` shards the AdamW moments (ZeRO-1), and
+``model_parallel > 1`` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -123,15 +129,17 @@ def main(args, config):
     from vidil_tpu_torch.data.datasets import PrefetchLoader, VQADataset, vqa_collate
     from vidil_tpu_torch.data.text_utils import save_result
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
-    from vidil_tpu_torch.train.common import refuse_mesh_keys, resolve_train_batch, set_lr
+    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.train.vqa import create_vqa_train_state, make_vqa_train_step
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
     from vidil_tpu_torch.utils.logging import MetricLogger
     from vidil_tpu_torch.utils.schedules import cosine_lr_schedule
 
     device = resolve_device(getattr(args, "device", "cuda"))
-    refuse_mesh_keys(config)
-    utils.init_distributed_mode(args)
+    owns_group = utils.init_distributed_mode(args, device=device)
+    data_parallel_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
     params, tokenizer, vit_cfg, med_cfg = build(config)
@@ -139,18 +147,21 @@ def main(args, config):
     train_loader = PrefetchLoader(VQADataset(config, split="train"),
                                   resolve_train_batch(config, "batch_size_train", 16),
                                   shuffle=True, drop_last=True, collate_fn=vqa_collate,
-                                  seed=args.seed)
-    test_loader = PrefetchLoader(VQADataset(config, split="test"),
-                                 config.get("batch_size_test", 16))
+                                  seed=args.seed, **loader_shards())
+    test_dataset = VQADataset(config, split="test")
+    test_loader = PrefetchLoader(test_dataset, config.get("batch_size_test", 16),
+                                 **loader_shards(len(test_dataset)))
 
     state = create_vqa_train_state(params, config["init_lr"], config.get("weight_decay", 0.05),
                                    device=device)
+    state = apply_optimizer_sharding(state, config)
     del params
     train_step = make_vqa_train_step(vit_cfg, med_cfg, dtype=dtype)
 
     start_epoch = 0
     resume_path = config.get("resume", "")
     if resume_path and not args.evaluate:
+        utils.barrier()
         state, ck_meta = load_train_state(resume_path, state)
         start_epoch = (ck_meta or {}).get("epoch", -1) + 1
         print(f"resumed full train state from {resume_path} at epoch {start_epoch}")
@@ -169,14 +180,16 @@ def main(args, config):
         result = evaluate(state.params, test_loader, tokenizer, vit_cfg, med_cfg, config,
                           dtype=dtype)
         save_result(result, args.result_dir, f"vqa_result_epoch{epoch}")
-        if utils.is_main_process() and not args.evaluate:
-            save_checkpoint(os.path.join(args.output_dir, "checkpoint_best"), state.params,
-                            meta={"epoch": epoch})
+        if not args.evaluate:
+            utils.save_on_master(save_checkpoint, os.path.join(args.output_dir, "checkpoint_best"),
+                                 state.params, meta={"epoch": epoch})
             save_train_state(os.path.join(args.output_dir, "checkpoint_last"),
                              state, meta={"epoch": epoch})
         if args.evaluate:
             break
         utils.barrier()
+    if owns_group:
+        utils.destroy_distributed()
     return state
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from vidil_tpu_torch.models.convert import named_leaves, to_jax_params
+from vidil_tpu_torch.parallel.sharding import set_param_state
 
 
 def _flatten(tree, prefix=""):
@@ -89,15 +90,26 @@ def load_checkpoint(path: str):
 
 def save_train_state(path: str, state, meta: dict | None = None) -> None:
     """A trainer's state (train/common.py:TrainState, or the retrieval /
-    pretraining state, see the module docstring) -> ``path`` (.npz)."""
+    pretraining state, see the module docstring) -> ``path`` (.npz).
+
+    Every rank calls it: under ZeRO-1 the moments are first consolidated on
+    rank 0 (`parallel.sharding.optimizer_state`, a collective); only rank 0
+    writes."""
+    from vidil_tpu_torch.parallel.sharding import optimizer_state
+    from vidil_tpu_torch.utils.dist import is_main_process
+
+    opt_state = optimizer_state(state.optimizer)
+    if not is_main_process():
+        return
     if getattr(state, "params_m", None) is not None:
-        leaves = {f"leaf_{i:05d}": _host(*leaf) for i, leaf in enumerate(_jax_state_leaves(state))}
+        leaves = {f"leaf_{i:05d}": _host(*leaf)
+                  for i, leaf in enumerate(_jax_state_leaves(state, opt_state))}
         np.savez(path, **_with_meta(leaves, meta))
         return
     flat = {"step": np.asarray(state.step, np.int64)}
     for name, p in named_leaves(state.params):
         flat[f"params/{name}"] = p.detach().cpu().numpy()
-        st = state.optimizer.state.get(p, {})
+        st = opt_state.get(p, {})
         for key in ("exp_avg", "exp_avg_sq", "step"):
             if key in st:
                 flat[f"{'adam_step' if key == 'step' else key}/{name}"] = \
@@ -124,11 +136,11 @@ def load_train_state(path: str, state):
                 raise ValueError(f"{name}: shape {arr.shape} != model {tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
             if f"exp_avg/{name}" in data.files:
-                state.optimizer.state[p] = {
+                set_param_state(state.optimizer, p, {
                     "step": torch.tensor(float(data[f"adam_step/{name}"])),
                     "exp_avg": torch.from_numpy(data[f"exp_avg/{name}"]).to(p.device),
                     "exp_avg_sq": torch.from_numpy(data[f"exp_avg_sq/{name}"]).to(p.device),
-                }
+                })
     state.step = int(data["step"])
     return state, meta
 
@@ -150,21 +162,23 @@ def _jax_order(tree):
     return [([tree], False)]
 
 
-def _jax_state_leaves(state):
+def _jax_state_leaves(state, opt_state=None):
     """The leaves of the JAX package's (Retrieval|Pre)TrainState in its
     flatten order, each as (tensors, stacked): params, params_m, the queue
     (image, text, idx, ptr), the optax state (count; hyperparams b1, b2,
     eps, eps_root, learning_rate, weight_decay; adam count, mu, nu) and
     step. Scalars are numpy arrays; a moment the optimizer has not made yet
-    is the zeros it starts from."""
+    is the zeros it starts from. opt_state: {parameter: AdamW state}
+    (default the optimizer's own)."""
     group = state.optimizer.param_groups[0]
     q = state.queue
+    opt_state = state.optimizer.state if opt_state is None else opt_state
 
     def scalar(v, dtype=np.float32):
         return [np.asarray(v, dtype)], False
 
     def moment(key, p):
-        st = state.optimizer.state.get(p)
+        st = opt_state.get(p)
         return st[key] if st else torch.zeros_like(p)
 
     params = _jax_order(state.params)
@@ -217,11 +231,11 @@ def _load_jax_state(data, state):
                 t.copy_(layer(arr, stacked, i))
         for j, (ts, stacked) in enumerate(params):
             for i, p in enumerate(ts):
-                state.optimizer.state[p] = {
+                set_param_state(state.optimizer, p, {
                     "step": torch.tensor(float(step)),
                     "exp_avg": layer(arrays[mu_at + j], stacked, i).to(p.device),
                     "exp_avg_sq": layer(arrays[mu_at + n_p + j], stacked, i).to(p.device),
-                }
+                })
     state.queue = state.queue._replace(ptr=int(arrays[ptr_at]))
     state.step = step
     return state

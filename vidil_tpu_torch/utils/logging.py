@@ -1,6 +1,9 @@
 """Windowed metric tracking + iteration logging: the port's own copy of
 ``vidil_tpu/utils/logging.py`` (reference: utils.py:34-183), with the peak
 CUDA memory of ``torch.cuda`` in the log line when the run is on a card.
+`MetricLogger.synchronize_between_processes` sums every meter's count and
+total over the ranks in fp64 (the window stays local), so ``global_avg``
+is the world's.
 """
 
 from __future__ import annotations
@@ -39,8 +42,12 @@ class SmoothedValue:
         import torch
         import torch.distributed as dist
 
-        t = torch.tensor([self.count, self.total], dtype=torch.float64)
+        from vidil_tpu_torch.utils.dist import collective_device
+
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=collective_device())
         dist.all_reduce(t)
+        t = t.cpu()
         self.count = int(t[0])
         self.total = float(t[1])
 
