@@ -7,11 +7,14 @@ tokenization with its BLIP and CLIP encoders, the prompt side on the
 SBERT MPNet encoder (all-mpnet-base-v2 width), and the BLIP retrieval
 eval, retrieval fine-tuning and video pretraining; then CapFilt's
 sampling, on-device resize and decode variants, NLVR2, the embedding
-extractor and the ViT's attention maps; last, the multi-process runtime
-(a world of one under NCCL, two gloo ranks on the one card).
+extractor and the ViT's attention maps; then the multi-process runtime
+(a world of one under NCCL, two gloo ranks on the one card); last, tensor
+parallelism (two gloo ranks as a 1 x 2 grid on the one card), remat
+"dots" and profiling.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase17-world 4   # phase 17 (b) over 4 NCCL ranks, 4 cards
+    python3 chip_smoke.py --phase18-world 4   # phase 18 (a) over a 2 x 2 grid, 4 cards
 
 Needs a CUDA card and nvcc (CUDA_HOME or /usr/local/cuda); imports only
 vidil_tpu_torch (no JAX). Phases, each of which fails the run:
@@ -181,6 +184,20 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      files byte-identical to one process's. With --phase17-world N, (b)
      alone over N NCCL ranks, one card each (at N = 4: 2 videos x 8
      frames a chunk, 36 K1 a chunk).
+ 18. tensor parallelism, remat "dots" and profiling: (a) two gloo ranks
+     on cuda:0 as a 1 x 2 (data, model) grid run P18_STEPS caption steps
+     (ViT-B/16 384 px, MED-base, bf16, classic schedule, 4 videos x 4
+     frames), each rank on 6 of 12 heads: per step exactly 12 K1 with lse
+     rows and 12 K2, all at q (16, 6, 577, 64) (phase 7 holds both kernels
+     there against their twins, run-to-run bitwise), the two ranks' losses
+     bitwise equal, the first step's loss and gathered gradients against
+     one process at the P18 bars; parameter bytes and peak memory per rank
+     and step ms are printed. (b) The same step in one process with the
+     ViT's and MED's remat full and then "dots": the gradients bitwise
+     equal; peak memory and step ms of each. (c) utils/profiling.trace
+     around one CapFilt chunk inside an annotate range: the trace names K1's
+     kernel and the range; device_memory_stats(). With --phase18-world N,
+     (a) alone over N NCCL ranks, one card each, an N/2 x 2 grid.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold) and at the retrieval rerank's fold (its text length from
 phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
@@ -206,6 +223,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vidil_tpu_torch.utils.profiling import device_profile
 
 # H100 SXM data sheet (dense): bf16 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -625,7 +644,7 @@ def in_situ_check(engine, fa, frames, vit_cfg, med_cfg):
     from vidil_tpu_torch.ops.image import preprocess_any
     from vidil_tpu_torch.utils.synth import synth_tree
 
-    def twin(q, k, v, use_flash=True):
+    def twin(q, k, v, use_flash=True, grid=(1, 1)):
         return fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
 
     def both(fn):
@@ -686,15 +705,23 @@ def attention_bwd_bound_ms(q, k, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _train_views(B, L, gen, device, dtype):
+def _train_views(B, L, gen, device, dtype, heads=12):
     """q, k, v as head-split views of one QKV projection and g as the head
-    split of a merge_heads gradient, as the train step hands them over."""
+    split of a merge_heads gradient, as the train step hands them over
+    (`heads` of 64: a tensor-parallel rank's local heads)."""
     from vidil_tpu_torch.models.layers import split_heads
 
-    qkv = torch.randn((B, L, 3 * 768), generator=gen, device=device).to(dtype)
-    q, k, v = (split_heads(t, 12) for t in qkv.chunk(3, dim=-1))
-    g = split_heads(torch.randn((B, L, 768), generator=gen, device=device).to(dtype), 12)
+    qkv = torch.randn((B, L, 3 * 64 * heads), generator=gen, device=device).to(dtype)
+    q, k, v = (split_heads(t, heads) for t in qkv.chunk(3, dim=-1))
+    g = split_heads(torch.randn((B, L, 64 * heads), generator=gen, device=device).to(dtype),
+                    heads)
     return q, k, v, g
+
+
+# phase 18's tensor-parallel rank: ViT-B/384 at 4 videos x 4 frames on 6 of
+# 12 heads (tp = 2), fp32 logits 127.8 MB: K1 runs only on the gate's
+# global 12 heads (255.7 MB)
+TP_SHAPE = ("train_384_tp", 16, 577, 6)
 
 
 def check_fwd_lse(fa, device):
@@ -703,9 +730,10 @@ def check_fwd_lse(fa, device):
     rows = []
     gen = torch.Generator(device=device).manual_seed(1)
     for dtype in (torch.bfloat16, torch.float32):
-        for label, B, L in (("vit_self_attention", 32, 577), ("train_224", 48, 197)):
+        for label, B, L, H in (("vit_self_attention", 32, 577, 12), ("train_224", 48, 197, 12),
+                               TP_SHAPE):
             for layout in ("contiguous", "views"):
-                q, k, v, _ = _train_views(B, L, gen, device, dtype)
+                q, k, v, _ = _train_views(B, L, gen, device, dtype, H)
                 if layout == "contiguous":
                     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
                 o, lse = fa._launch(q, k, v, with_lse=True)
@@ -721,7 +749,7 @@ def check_fwd_lse(fa, device):
                 bound, bound_by = attention_bound_ms(q, k, dtype, with_lse=True)
                 kernel = lambda: fa._launch(q, k, v, with_lse=True)
                 row = dict(shape=label, layout=layout, dtype=str(dtype).replace("torch.", ""),
-                           q=[B, 12, L, 64], max_abs_err=err, lse_max_abs_err=lse_err,
+                           q=[B, H, L, 64], max_abs_err=err, lse_max_abs_err=lse_err,
                            atol=ATOL[dtype], lse_atol=LSE_ATOL[dtype], run_to_run_bitwise=bitwise,
                            ms=time_ms(kernel),
                            inference_ms=time_ms(lambda: fa._launch(q, k, v)),
@@ -743,8 +771,8 @@ def check_bwd(fa, device):
     rows = []
     gen = torch.Generator(device=device).manual_seed(2)
     for dtype in (torch.bfloat16, torch.float32):
-        for label, B, L in (("train_224", 48, 197), ("train_384", 32, 577)):
-            q, k, v, g = _train_views(B, L, gen, device, dtype)
+        for label, B, L, H in (("train_224", 48, 197, 12), ("train_384", 32, 577, 12), TP_SHAPE):
+            q, k, v, g = _train_views(B, L, gen, device, dtype, H)
             o, lse = fa._launch(q, k, v, with_lse=True)
             got = fa._launch_bwd(q, k, v, o, lse, g)
             torch.cuda.synchronize()
@@ -762,9 +790,9 @@ def check_bwd(fa, device):
             kernel = lambda: fa._launch_bwd(q, k, v, o, lse, g)
             library = lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True)
             dev_ms, kernels = device_profile(kernel)
-            flops = 2 * B * 12 * L * L * 64  # one product
+            flops = 2 * B * H * L * L * 64  # one product
             row = dict(shape=label, layout="views", dtype=str(dtype).replace("torch.", ""),
-                       q=[B, 12, L, 64], max_abs_err=max(errs.values()), errs=errs,
+                       q=[B, H, L, 64], max_abs_err=max(errs.values()), errs=errs,
                        max_abs_grad=scale, rtol=BWD_RTOL[dtype], run_to_run_bitwise=bitwise,
                        ms=time_ms(kernel),
                        plain_ms=time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, g)),
@@ -781,10 +809,11 @@ def check_bwd(fa, device):
     return rows
 
 
-def make_train_batch(device):
-    """One fixed batch: 12 videos x 4 frames at 224 px (normalized noise),
-    40-token captions: [DEC], the "a video of " prompt, random words, [SEP],
-    pads after captions of 20-40 tokens."""
+def make_train_batch(device, videos=TRAIN_VIDEOS, frames=TRAIN_FRAMES, size=224):
+    """One fixed batch: 12 videos x 4 frames at 224 px (normalized noise;
+    or `videos` x `frames` at `size`), 40-token captions: [DEC], the "a
+    video of " prompt, random words, [SEP], pads after captions of 20-40
+    tokens."""
     import os
 
     from vidil_tpu_torch.tokenizer import BlipTokenizer, write_bench_vocab
@@ -796,14 +825,14 @@ def make_train_batch(device):
     prompt = tok.encode("a video of ")[:-1]
     prompt[0] = tok.bos_token_id
     rng = np.random.default_rng(0)
-    ids = np.zeros((TRAIN_VIDEOS, TRAIN_TOKENS), np.int64)
+    ids = np.zeros((videos, TRAIN_TOKENS), np.int64)
     mask = np.zeros_like(ids)
-    for b in range(TRAIN_VIDEOS):
+    for b in range(videos):
         n = int(rng.integers(20, TRAIN_TOKENS + 1))
         row = prompt + list(rng.integers(1000, 30000, n - len(prompt) - 1)) + [tok.sep_token_id]
         ids[b, :n], mask[b, :n] = row, 1
     gen = torch.Generator(device=device).manual_seed(3)
-    video = torch.randn((TRAIN_VIDEOS, TRAIN_FRAMES, 224, 224, 3), generator=gen, device=device)
+    video = torch.randn((videos, frames, size, size, 3), generator=gen, device=device)
     return ({"video": video, "input_ids": torch.from_numpy(ids).to(device),
              "attention_mask": torch.from_numpy(mask).to(device)}, len(prompt))
 
@@ -952,37 +981,6 @@ KERNEL_PARTS = {"gemm": ("gemm_bf16", "gemm_f32"),
                 "attention": ("attn_fwd_wgmma", "attn_fwd_f32", "attn_bwd_"),
                 "ln_rows": ("ln_rows", "ln_bwd_rows"),
                 "column_sums": ("colsum_partial", "colsum_final"), "sum_splits": ("sum_splits",)}
-PROFILE_REPS = 5
-
-
-def device_profile(fn, reps=PROFILE_REPS):
-    """torch.profiler over `reps` calls of fn after one warm-up call: the
-    device ms per call (its kernels' device time, summed: one stream) and,
-    per kernel name, [ms per call, launches per call]. Per name, the mean
-    of the launches it recorded times its launches per call, the recorded
-    count over `reps` rounded up (the profiler can drop a few launches of a
-    window); a window that recorded no kernel is profiled again, twice at
-    most."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        host = {e.key for e in events if e.device_type != DeviceType.CUDA}
-        kernels = {}
-        for e in events:
-            if e.device_type == DeviceType.CUDA and e.key not in host and e.count:
-                per_call = math.ceil(e.count / reps)
-                kernels[e.key] = [e.self_device_time_total / 1e3 / e.count * per_call, per_call]
-        if kernels:
-            break
-    return sum(ms for ms, _ in kernels.values()), kernels
 
 
 def kernel_parts(kernels):
@@ -1085,7 +1083,7 @@ def block_gemm_flops(B, Lp, backward=False, D=BLOCK_D):
 
 
 def block_device_times(kernel, library, B, Lp, dtype, backward=False):
-    """Phase 8's device times (torch.profiler, PROFILE_REPS calls): the
+    """Phase 8's device times (torch.profiler, `device_profile`'s 5 calls): the
     kernel's and the library block's ms per call, the kernel's launches by
     part, and its GEMMs' rate."""
     dev_ms, kernels = device_profile(kernel)
@@ -3478,6 +3476,373 @@ def run_phase17(fa, device, card, tok):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor parallelism, remat "dots", profiling
+# ---------------------------------------------------------------------------
+
+P18_VIDEOS, P18_FRAMES, P18_STEPS, P18_MODEL = 4, 4, 3, 2
+# every step of a tensor-parallel rank: the classic ViT-B/384 schedule, one
+# K1 with lse rows and one K2 per block on the rank's 6 heads; no K1 without
+# lse rows, no fused block (training_cfgs under model_parallel > 1)
+P18_LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 12,
+                "flash_attention_bwd": 12, "fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0}
+# The ranks against one process at the global batch, the first step in
+# bf16 and again in fp32. Each row-parallel product (the ViT's proj and
+# fc2, the MED's out and fc2: 60 in all) sums the two ranks' fp32 partial
+# products and rounds once, as the one process's product rounds its own
+# fp32 sum in another order: the steps differ by rounding alone, at most
+# one unit of the compute dtype in an element of those products, and the
+# synthetic towers amplify such a difference layer by layer (about 3.5x a
+# layer, PERF.md), saturating in bf16. The yardstick is measured in the
+# same run: the one process's step again with its input frames scaled by
+# (1 + eps) of the dtype (2**-7, 2**-23), one unit everywhere at the
+# first layer, which the whole depth amplifies. The injections of the
+# model axis come later in the towers (each block's proj and fc2, so less
+# amplified: a series of ratio 1/3.5 sums to < 1.5 per tower and product)
+# and are sparser (only sums that round across a unit differ), so the
+# ranks' distances (loss, gradient norm, worst leaf) must lie within
+# P18_UNIT_FACTOR times the yardstick's: 2 products x 2 towers x 1.5,
+# twice. A fault of the split (a head in the wrong place, a missing sum)
+# moves the fp32 gradient by O(1), 10**3 times that.
+P18_UNIT_EPS = {"bf16": 2.0 ** -7, "fp32": 2.0 ** -23}
+P18_UNIT_FACTOR = 12.0
+P18_RANK_COMMAND = [sys.executable, os.path.abspath(__file__), "--phase18-rank"]
+P18_RANK_TIMEOUT = 600
+
+
+def _p18_setup(device):
+    """ViT-B/16 at 384 px and MED-base, synthetic weights, no ViT remat (the
+    yamls' vit_grad_ckpt), 4 videos x 4 frames of 40-token captions."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import blip, convert
+    from vidil_tpu_torch.utils.synth import synth_tree
+
+    vit_cfg = ViTConfig.from_name("base", 384, remat=False)
+    med_cfg = _med_cfg(vit_cfg)
+    params = convert.from_jax_params(synth_tree(blip.blip_decoder_shapes(vit_cfg, med_cfg),
+                                                device, salt=1.0))
+    batch, prompt_length = make_train_batch(device, P18_VIDEOS, P18_FRAMES, 384)
+    return vit_cfg, med_cfg, params, batch, prompt_length
+
+
+def _classic_step(vit_cfg, med_cfg, prompt_length, grid=None, dtype=torch.bfloat16):
+    """The caption step on the classic schedule (VIDIL_TPU_TRAIN_FUSED_BLOCK=0
+    while it is made; a grid with a model axis takes it anyway), computing
+    in `dtype` (None: fp32)."""
+    from vidil_tpu_torch.train.caption import make_caption_train_step
+
+    env = os.environ.get("VIDIL_TPU_TRAIN_FUSED_BLOCK")
+    os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = "0"
+    try:
+        return make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=dtype, grid=grid)
+    finally:
+        os.environ.pop("VIDIL_TPU_TRAIN_FUSED_BLOCK")
+        if env is not None:
+            os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = env
+
+
+def _grad_tree(params):
+    from vidil_tpu_torch.models.blip_retrieval import _map
+
+    return _map(lambda t: t.grad, params)
+
+
+def _flat(tree):
+    from vidil_tpu_torch.models.convert import named_leaves
+
+    return [(n, t.detach().float().reshape(-1)) for n, t in named_leaves(tree)]
+
+
+def _timed_steps(step, state, batch, fa, fvb, steps, first):
+    """`steps` steps, each with the launch counts zeroed just before it and
+    read just after, its CUDA-event ms and its loss; `first(state)` after
+    the first step (its gradients)."""
+    out = {"losses": [], "step_ms": [], "launches": []}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        fvb.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        out["launches"].append(_counts(fa, fvb))
+        out["step_ms"].append(start.elapsed_time(end))
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["first"] = first(state)
+    return state, out
+
+
+def p18_rank(root, backend, model):
+    """One rank of phase 18 (a): the caption step over a (world / model) x
+    model grid, env rendezvous (gloo on cuda:0, or NCCL on cuda:LOCAL_RANK);
+    P18_STEPS bf16 steps with their launch counts and the q shapes that
+    reached the flash kernels, then one fp32 step from fresh weights; rank
+    0 saves each first step's gathered gradients."""
+    from vidil_tpu_torch.models.convert import named_leaves
+    from vidil_tpu_torch.ops import flash_attention as fa, fused_vit_block as fvb
+    from vidil_tpu_torch.parallel.dryrun import rank_batch
+    from vidil_tpu_torch.parallel.mesh import make_grid
+    from vidil_tpu_torch.parallel.sharding import gather_params
+    from vidil_tpu_torch.train.caption import create_caption_train_state
+    from vidil_tpu_torch.utils import dist
+
+    if backend == "gloo":
+        device = _p17_device()
+        dist.init_distributed_mode(backend="gloo", device=device)
+    else:
+        dist.init_distributed_mode(backend=backend, device="cuda")
+        device = torch.device("cuda", torch.cuda.current_device())
+    grid = make_grid(dist.get_world_size() // model, model)
+    shapes = []
+    flash = fa.flash_attention
+
+    def recorded(q, k, v):
+        shapes.append(tuple(q.shape))
+        return flash(q, k, v)
+
+    fa.flash_attention = recorded
+    vit_cfg, med_cfg, params, batch, prompt_length = _p18_setup(device)
+    state = create_caption_train_state(params, 1e-4, 0.05, device=device, grid=grid)
+    del params
+    step = _classic_step(vit_cfg, med_cfg, prompt_length, grid)
+    batch = rank_batch(batch, grid=grid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    gathered = lambda st: _flat(gather_params(_grad_tree(st.params), grid))  # noqa: E731
+    state, out = _timed_steps(step, state, batch, fa, fvb, P18_STEPS, gathered)
+    out["s"] = time.time() - t0
+    grads = out.pop("first")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    param_bytes = sum(p.numel() * p.element_size() for _, p in named_leaves(state.params))
+    del state
+    _, _, params, _, _ = _p18_setup(device)
+    state = create_caption_train_state(params, 1e-4, 0.05, device=device, grid=grid)
+    del params
+    state, out32 = _timed_steps(_classic_step(vit_cfg, med_cfg, prompt_length, grid, None), state,
+                                batch, fa, fvb, 1, gathered)
+    grads32 = out32.pop("first")
+    if dist.get_rank() == 0:
+        torch.save({"bf16": [(n, g.cpu()) for n, g in grads],
+                    "fp32": [(n, g.cpu()) for n, g in grads32]},
+                   os.path.join(root, "tp_grads.pt"))
+    out["fp32"] = out32
+    out.update(rank=dist.get_rank(), world=dist.get_world_size(), data=grid.data,
+               model=grid.model, backend=torch.distributed.get_backend(),
+               flash_q_shapes=[list(x) for x in sorted(set(shapes))], flash_calls=len(shapes),
+               param_bytes=param_bytes, peak_memory_gib=peak)
+    with open(os.path.join(root, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_distributed()
+
+
+def p18_tensor_parallel(device, root, world=P18_MODEL, backend="gloo"):
+    """(a) the caption step over `world` ranks with a model axis of 2 (two
+    gloo ranks on cuda:0, or NCCL on one GPU a rank with `--phase18-world`)
+    against one process at the global batch on `device`: the launches per
+    step and the flash kernels' q shapes per rank, the model ranks' losses
+    bitwise equal, the first step's loss and gathered gradients in bf16
+    and in fp32 within the P18 bars."""
+    from vidil_tpu_torch.models.convert import named_leaves
+    from vidil_tpu_torch.ops import flash_attention as fa, fused_vit_block as fvb
+    from vidil_tpu_torch.parallel.dryrun import spawn_ranks
+    from vidil_tpu_torch.train.caption import create_caption_train_state
+
+    t0 = time.time()
+    results = spawn_ranks(world, P18_RANK_COMMAND + [root, backend, str(P18_MODEL)], root,
+                          P18_RANK_TIMEOUT)
+    ranks_s = time.time() - t0
+    failed = [f"rank {rank} exited {rc}:\n{stdout[-2000:]}\n{stderr[-3000:]}"
+              for rank, (rc, stdout, stderr) in enumerate(results) if rc != 0]
+    if failed:
+        raise SystemExit("phase 18 (a): " + "\n".join(failed))
+    recs = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(world)]
+
+    tp_grads = torch.load(os.path.join(root, "tp_grads.pt"))
+    one, agree, unit = {}, {}, {}
+
+    def one_step(dtype, scale=1.0):
+        vit_cfg, med_cfg, params, batch, prompt_length = _p18_setup(device)
+        batch["video"] = batch["video"] * scale
+        state = create_caption_train_state(params, 1e-4, 0.05, device=device)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        state, run = _timed_steps(_classic_step(vit_cfg, med_cfg, prompt_length, dtype=dtype),
+                                  state, batch, fa, fvb, 1, lambda st: _flat(_grad_tree(st.params)))
+        run.update(peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   param_bytes=sum(p.numel() * p.element_size()
+                                   for _, p in named_leaves(state.params)))
+        del state
+        torch.cuda.empty_cache()
+        return run
+
+    def distance(grads, loss, ref):
+        d = _grad_agreement(grads, ref["first"])
+        d["loss_rel"] = abs(loss - ref["losses"][0]) / abs(ref["losses"][0])
+        return d
+
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        one[name] = one_step(dtype)
+        nudged = one_step(dtype, 1.0 + P18_UNIT_EPS[name])
+        ranks_loss = recs[0]["losses"][0] if name == "bf16" else recs[0]["fp32"]["losses"][0]
+        agree[name] = distance(tp_grads[name], ranks_loss, one[name])
+        unit[name] = distance(nudged["first"], nudged["losses"][0], one[name])
+        one[name].pop("first")
+    data = world // P18_MODEL
+    local = [P18_VIDEOS * P18_FRAMES // data, 12 // P18_MODEL, 577, 64]
+    out = {"ranks_s": ranks_s, "grid": [data, P18_MODEL], "backend": backend,
+           "one_process": one["bf16"], "one_process_fp32": one["fp32"], "agreement": agree,
+           "unit_yardstick": unit,
+           "ranks": [{k: r[k] for k in ("rank", "losses", "step_ms", "launches", "s",
+                                        "flash_q_shapes", "flash_calls", "param_bytes",
+                                        "peak_memory_gib", "fp32")} for r in recs]}
+    bad = []
+    for r in recs:
+        if r["flash_q_shapes"] != [local]:
+            bad.append(f"rank {r['rank']}: flash q shapes {r['flash_q_shapes']}, want {local}")
+        for i, counts in enumerate(r["launches"]):
+            bad += _p17_counts_bad(f"rank {r['rank']} step {i}", counts, P18_LAUNCHES)
+        if (r["data"], r["model"], r["backend"]) != (data, P18_MODEL, backend):
+            bad.append(f"rank {r['rank']}: grid {r['data']} x {r['model']} {r['backend']}")
+    for d in range(data):  # the model ranks of one data rank: the same global loss
+        group = [r["losses"] + r["fp32"]["losses"] for r in recs if r["rank"] // P18_MODEL == d]
+        if any(g != group[0] for g in group):
+            bad.append(f"data rank {d}: the model ranks' losses differ: {group}")
+    bad += _p17_counts_bad("one-process classic step", one["bf16"]["launches"][0], P18_LAUNCHES)
+    for name in ("bf16", "fp32"):
+        for key in ("loss_rel", "grad_norm_rel", "grad_leaf_rel_max"):
+            bar = P18_UNIT_FACTOR * max(unit[name][key], P18_UNIT_EPS[name])
+            if not agree[name][key] <= bar:
+                bad.append(f"{name} {key} {agree[name][key]} over {bar} "
+                           f"({P18_UNIT_FACTOR} x one unit's {unit[name][key]})")
+    if not all(np.isfinite(r["losses"]).all() for r in recs):
+        bad.append("a rank's loss is not finite")
+    log(f"phase 18 (a) tensor parallel, {data} x {P18_MODEL} {backend} ranks:", json.dumps(out))
+    if bad:
+        raise SystemExit("phase 18 (a): " + "; ".join(bad))
+    return out
+
+
+def p18_remat_dots(device, fa, fvb):
+    """(b) the classic ViT-B/384 caption step in one process with the ViT's
+    and the MED's remat full and then "dots" (the plain GEMMs' outputs
+    saved): the first step's gradients bitwise equal; two steps each, the
+    peak memory and the second step's ms."""
+    import dataclasses
+
+    from vidil_tpu_torch.train.caption import create_caption_train_state
+
+    out, grads = {}, {}
+    for policy in (None, "dots"):
+        vit_cfg, med_cfg, params, batch, prompt_length = _p18_setup(device)
+        vit_cfg = dataclasses.replace(vit_cfg, remat=True, remat_policy=policy)
+        med_cfg = dataclasses.replace(med_cfg, remat=True, remat_policy=policy)
+        state = create_caption_train_state(params, 1e-4, 0.05, device=device)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, run = _timed_steps(_classic_step(vit_cfg, med_cfg, prompt_length), state, batch,
+                                  fa, fvb, 2, lambda st: _flat(_grad_tree(st.params)))
+        grads[str(policy)] = run.pop("first")
+        out[str(policy)] = {"peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "step_ms": run["step_ms"][1], "losses": run["losses"],
+                            "launches": run["launches"][0]}
+        del state
+        torch.cuda.empty_cache()
+    out["grads_bitwise"] = all(a[0] == b[0] and torch.equal(a[1], b[1])
+                               for a, b in zip(grads["None"], grads["dots"]))
+    log("phase 18 (b) remat full vs dots (classic ViT-B/384 caption step, bf16):",
+        json.dumps(out))
+    if not out["grads_bitwise"] or out["None"]["losses"] != out["dots"]["losses"]:
+        raise SystemExit(f"phase 18 (b): the dots step is not the full remat's: {out}")
+    return out
+
+
+def p18_profiling(device, fa, root):
+    """(c) `utils.profiling.trace` around one CapFilt chunk inside an
+    `annotate` range: the written trace names K1's kernel and the range;
+    `device_memory_stats()` after it."""
+    from torch.autograd import DeviceType
+
+    from vidil_tpu_torch.utils import profiling
+
+    engine, _, _ = make_engine(device)
+    rng = np.random.default_rng(18)
+    chunk = [{"video_id": f"p18v{v}", "frames": rng.integers(0, 256, (N_FRAMES, 384, 384, 3),
+                                                             dtype=np.uint8), "text": []}
+             for v in range(N_VIDEOS)]
+    engine.complete_chunk(engine.dispatch_chunk(chunk, CONFIG))  # compiles, warms
+    log_dir = os.path.join(root, "trace")
+    fa.reset_launch_counts()
+    with profiling.trace(log_dir) as prof:
+        with profiling.annotate("phase18_capfilt_chunk"):
+            results = engine.complete_chunk(engine.dispatch_chunk(chunk, CONFIG))
+    files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    text = open(os.path.join(log_dir, files[0])).read() if len(files) == 1 else ""
+    out = {"trace_files": files, "trace_bytes": len(text),
+           "names_k1_kernel": "flash_fwd_bf16" in text,
+           "names_annotate_range": "phase18_capfilt_chunk" in text,
+           "k1_launches": fa.launch_counts["flash_attention_fwd"], "videos": len(results),
+           "device_memory_stats": profiling.device_memory_stats(),
+           "profiled_kernels": sum(1 for e in prof.key_averages()
+                                   if e.device_type == DeviceType.CUDA)}
+    del engine
+    torch.cuda.empty_cache()
+    log("phase 18 (c) profiling:", json.dumps(out))
+    if not (out["names_k1_kernel"] and out["names_annotate_range"] and out["k1_launches"] > 0
+            and out["device_memory_stats"].get("bytes_limit")):
+        raise SystemExit(f"phase 18 (c): the trace lacks K1 or the range: {out}")
+    return out
+
+
+def run_phase18(fa, fvb, device, card):
+    """Phase 18: (a) tensor parallelism over two gloo ranks on the card,
+    (b) remat "dots", (c) profiling."""
+    t_phase = time.time()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        out["tensor_parallel"] = p18_tensor_parallel(device, root)
+        out["remat_dots"] = p18_remat_dots(device, fa, fvb)
+        out["profiling"] = p18_profiling(device, fa, root)
+    out["phase_s"] = time.time() - t_phase
+    tp = out["tensor_parallel"]
+    log(f"phase 18: {out['phase_s']:.1f} s (ranks {tp['ranks_s']:.1f} s); tensor-parallel "
+        f"parameter bytes per rank {[r['param_bytes'] for r in tp['ranks']]} against "
+        f"{tp['one_process']['param_bytes']} in one process, peak memory per rank "
+        f"{[round(r['peak_memory_gib'], 3) for r in tp['ranks']]} GiB (one process "
+        f"{tp['one_process']['peak_memory_gib']:.3f}), step ms per rank "
+        f"{[r['step_ms'] for r in tp['ranks']]} (one process {tp['one_process']['step_ms']}); "
+        f"distance from one process (one unit at the input): bf16 {tp['agreement']['bf16']} "
+        f"({tp['unit_yardstick']['bf16']}), fp32 {tp['agreement']['fp32']} "
+        f"({tp['unit_yardstick']['fp32']}); "
+        f"card {card}")
+    return out
+
+
+def main_p18_world(world):
+    """`--phase18-world N`: phase 18 (a) over N NCCL ranks, one GPU each, a
+    (N / 2) x 2 grid (needs N cards)."""
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke: --phase18-world {world} needs {world} GPUs, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
+    from vidil_tpu_torch.ops import _build
+
+    card = card_line()
+    log("cards:", world, "x", card)
+    t0 = time.time()
+    _build.build_all()
+    log(f"build: {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        out = p18_tensor_parallel(torch.device("cuda", 0), root, world, "nccl")
+    log(f"phase 18 (a) over {world} NCCL ranks: ranks {out['ranks_s']:.1f} s; cards "
+        f"{world} x {card}")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3620,6 +3985,15 @@ def main():
             f"host-resized (+ {r['pil_resize_host_s']:.3f} s PIL)")
 
     p17 = run_phase17(fa, device, card, tok)
+    p18 = run_phase18(fa, fvb, device, card)
+    p18_ranks = p18["tensor_parallel"]["ranks"]
+
+    def tp_row(rs):
+        """A K1/K2 bf16 check row at a tensor-parallel rank's shape."""
+        r = next(x for x in rs if x["dtype"] == "bfloat16" and x["shape"] == TP_SHAPE[0]
+                 and x.get("layout", "views") == "views")
+        return {k: r[k] for k in ("q", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "run_to_run_bitwise") if k in r}
 
     def entry(name, source, replaces, n, rs, shape, desc, **extra):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x.get("layout", "views") == "views"
@@ -3693,7 +4067,10 @@ def main():
               situ_launches["flash_attention_fwd_lse"], lse_rows, "vit_self_attention",
               "q,k,v (32, 12, 577, 64) bf16 views, with fp32 lse rows; the classic schedule's "
               "ViT-B/384 block (phase 11); at 224 px the reference's gate sends the attention "
-              "to the plain path"),
+              "to the plain path",
+              launches_phase18_tensor_parallel_per_rank_per_step=[
+                  [c["flash_attention_fwd_lse"] for c in r["launches"]] for r in p18_ranks],
+              tensor_parallel_rank=tp_row(lse_rows)),
         entry("flash_attention_bwd", "vidil_tpu_torch/csrc/flash_attention_bwd.cu",
               "vidil_tpu/ops/flash_attention.py:242", situ_launches["flash_attention_bwd"],
               bwd_rows, "train_384",
@@ -3701,6 +4078,9 @@ def main():
               "(phase 11)",
               **device(bwd_rows, "train_384", ("device_ms", "library_device_ms",
                                                "tflops_7_products", "tflops_5_products")),
+              launches_phase18_tensor_parallel_per_rank_per_step=[
+                  [c["flash_attention_bwd"] for c in r["launches"]] for r in p18_ranks],
+              tensor_parallel_rank=tp_row(bwd_rows),
               sass={k: v for k, v in sass.items() if k.startswith("flash_attention_bwd:")}),
         entry("fused_vit_block_fwd", "vidil_tpu_torch/csrc/fused_vit_block_fwd.cu",
               "vidil_tpu/ops/fused_vit_block.py:139", fused["fused_vit_block_fwd"],
@@ -3776,4 +4156,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) > 2 and sys.argv[1] == "--phase17-world":
         sys.exit(main_nccl_world(int(sys.argv[2])) if torch.cuda.is_available() else 1)
+    if len(sys.argv) > 4 and sys.argv[1] == "--phase18-rank":
+        p18_rank(sys.argv[2], sys.argv[3], int(sys.argv[4]))
+        sys.exit(0)
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase18-world":
+        sys.exit(main_p18_world(int(sys.argv[2])) if torch.cuda.is_available() else 1)
     sys.exit(main())

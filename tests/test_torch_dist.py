@@ -329,7 +329,8 @@ def test_nccl_refuses_more_ranks_than_gpus(monkeypatch):
 
 def test_data_axis_rules():
     """data_parallel: absent, 0 or true take the world (one rank here); N
-    must equal it; model_parallel > 1 is not ported. Rank r's rows of a
+    times model_parallel must equal it, and a grid the world does not fit
+    raises ValueError naming both sizes. Rank r's rows of a
     batch of B are [r B / N, (r + 1) B / N); without a process group
     `rank_batch` gives the whole batch, a VQA batch's answers re-indexed
     as they came."""
@@ -337,11 +338,14 @@ def test_data_axis_rules():
 
     for cfg in ({}, {"data_parallel": 0}, {"data_parallel": True}, {"data_parallel": 1},
                 {"model_parallel": 1}):
-        assert mesh.data_parallel_from_config(cfg) == 1
-    with pytest.raises(ValueError, match="data_parallel"):
-        mesh.data_parallel_from_config({"data_parallel": 2})
-    with pytest.raises(NotImplementedError, match="model_parallel"):
-        mesh.data_parallel_from_config({"model_parallel": 2})
+        grid = mesh.grid_from_config(cfg)
+        assert (grid.data, grid.model, grid.data_parallel) == (1, 1, False)
+    with pytest.raises(ValueError, match="data_parallel 2 x model_parallel 1"):
+        mesh.grid_from_config({"data_parallel": 2})
+    with pytest.raises(ValueError, match="model_parallel 2"):
+        mesh.grid_from_config({"model_parallel": 2})
+    with pytest.raises(ValueError, match="data_parallel 1 x model_parallel 2"):
+        mesh.grid_from_config({"data_parallel": 1, "model_parallel": 2})
     assert mesh.local_rows(8, 1, 2) == slice(4, 8)
     with pytest.raises(AssertionError):
         mesh.local_rows(6, 0, 4)

@@ -226,8 +226,11 @@ def test_itm_scores_grouped(itm):
 def test_unported_switches_raise(itm):
     _, _, tp = itm
     ids, mask = _text(2, 5, 21)
-    with pytest.raises(NotImplementedError):
-        MedConfig(**MED_KW, remat_policy="dots")
+    # remat_policy "dots" runs: the forward is the plain one's
+    dots = MedConfig(**MED_KW, remat=True, remat_policy="dots")
+    assert torch.equal(med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=dots,
+                                       mode="text"),
+                       med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text"))
     # self_fold is accepted: the unfolded run is the fold's exact result
     base = med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text")
     folded = med.med_forward(tp["text_encoder"], _t(ids), _t(mask), cfg=PM, mode="text",

@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_vidil_tpu():
                  "train.retrieval", "train.pretrain", "train.frame_selection",
                  "train_retrieval_video", "eval_retrieval_video", "pretrain_video",
                  "parallel", "parallel.collectives", "parallel.mesh", "parallel.sharding",
-                 "parallel.dryrun", "utils.dist", "utils.io"):
+                 "parallel.dryrun", "utils.dist", "utils.io", "utils.profiling", "data.factory",
+                 "data.image_datasets", "models.testing"):
         assert f"vidil_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"

@@ -342,10 +342,11 @@ def test_pretrain_cli_defaults_to_cuda_and_refuses_mesh_keys(workdir):
     from vidil_tpu_torch import pretrain_video as cli
 
     assert cli.parse_args([]).device == "cuda"
-    # data_parallel must be the launch's world; tensor parallelism is not ported
+    # data_parallel x model_parallel must be the launch's world: a grid the
+    # world does not fit raises ValueError
     with pytest.raises(ValueError, match="data_parallel"):
         cli.main(_args(str(workdir.root / "refused")), dict(workdir.config, data_parallel=2))
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    with pytest.raises(ValueError, match="model_parallel"):
         cli.main(_args(str(workdir.root / "refused")), dict(workdir.config, model_parallel=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

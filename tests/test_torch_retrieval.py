@@ -533,11 +533,12 @@ def test_cli_flags_default_to_cuda_and_refuse_mesh_keys(workdir):
     args = cli.parse_args(["--config", "c.yaml"], evaluate_flag=False,
                           default_output="output/retrieval_eval")
     assert args.evaluate and args.output_dir == "output/retrieval_eval"
-    # data_parallel must be the launch's world (one rank here), an unknown
-    # optimizer sharding is refused, tensor parallelism is not ported
+    # data_parallel x model_parallel must be the launch's world (one rank
+    # here): a grid the world does not fit raises ValueError; an unknown
+    # optimizer sharding is refused
     for key, value, error in (("data_parallel", 2, ValueError),
                               ("optimizer_sharding", "zero3", ValueError),
-                              ("model_parallel", 2, NotImplementedError)):
+                              ("model_parallel", 2, ValueError)):
         with pytest.raises(error, match=key):
             cli.main(_args(str(workdir.root / "refused")), dict(workdir.config, **{key: value}))
     if not torch.cuda.is_available():

@@ -205,8 +205,9 @@ def test_to_jax_params_inverts_from_jax_params():
     dict(vit=dict(use_fused_mlp=True)), dict(vit=dict(remat=True, remat_policy="dots")),
     dict(med=dict(use_fused_mlp=True)), dict(med=dict(remat_policy="dots"))])
 def test_unported_switches_raise(cfg):
-    """remat_policy="dots" is still refused at construction; the fused MLP
-    (K3) is accepted, and the trainers' training_cfgs turns it off."""
+    """remat_policy="dots" is accepted and kept by the trainers'
+    training_cfgs (an unknown policy raises ValueError); the fused MLP (K3)
+    is accepted, and training_cfgs turns it off."""
     from vidil_tpu_torch.train.common import training_cfgs
 
     def build():
@@ -214,8 +215,10 @@ def test_unported_switches_raise(cfg):
                 MedConfig(**MED_KW, **cfg.get("med", {})))
 
     if "dots" in repr(cfg):
-        with pytest.raises(NotImplementedError):
-            build()
+        vit, med = training_cfgs(*build())
+        assert "dots" in (vit.remat_policy, med.remat_policy) and med.remat
+        with pytest.raises(ValueError, match="remat_policy"):
+            MedConfig(**MED_KW, remat_policy="everything")
         return
     vit, med = build()
     assert vit.use_fused_mlp or med.use_fused_mlp
@@ -396,11 +399,12 @@ def test_cli_defaults_to_cuda_and_refuses_unported_keys(workdir):
     from vidil_tpu_torch import train_caption_video as cli
 
     assert cli.parse_args([]).device == "cuda"
-    # data_parallel must be the launch's world (one rank here), an unknown
-    # optimizer sharding is refused, tensor parallelism is not ported
+    # data_parallel x model_parallel must be the launch's world (one rank
+    # here): a grid the world does not fit raises ValueError; an unknown
+    # optimizer sharding is refused
     for key, value, error in (("data_parallel", 2, ValueError),
                               ("optimizer_sharding", "zero3", ValueError),
-                              ("model_parallel", 2, NotImplementedError)):
+                              ("model_parallel", 2, ValueError)):
         with pytest.raises(error, match=key):
             cli.main(_cli_args(str(workdir.root / "refused")), dict(workdir.config, **{key: value}))
     if torch.cuda.is_available():

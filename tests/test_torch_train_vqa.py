@@ -427,11 +427,12 @@ def test_cli_defaults_to_cuda_and_refuses_unported_keys(workdir):
     from vidil_tpu_torch import train_vqa_video as cli
 
     assert cli.parse_args([]).device == "cuda"
-    # data_parallel must be the launch's world (one rank here), an unknown
-    # optimizer sharding is refused, tensor parallelism is not ported
+    # data_parallel x model_parallel must be the launch's world (one rank
+    # here): a grid the world does not fit raises ValueError; an unknown
+    # optimizer sharding is refused
     for key, value, error in (("data_parallel", 2, ValueError),
                               ("optimizer_sharding", "zero3", ValueError),
-                              ("model_parallel", 2, NotImplementedError)):
+                              ("model_parallel", 2, ValueError)):
         with pytest.raises(error, match=key):
             cli.main(_cli_args(str(workdir.root / "refused")), dict(workdir.config, **{key: value}))
     if torch.cuda.is_available():

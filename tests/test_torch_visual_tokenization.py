@@ -359,5 +359,51 @@ def test_unported_and_device_guards(clip_workdir, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pcli.build_clip_engine(dict(clip_workdir.config))  # --device cuda is the default
     assert pcli.parse_args([]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="scikit-learn"):
+    # clip-kmeans: a selector where scikit-learn is installed; where it is
+    # missing, an ImportError that says so
+    assert callable(pvt.make_clip_kmeans_selector(None))
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
         pvt.make_clip_kmeans_selector(None)
+
+
+class _FrameReader:
+    """A decoded video's frames behind the VideoReader calls the selector
+    makes (len, get_batch)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __len__(self):
+        return len(self.frames)
+
+    def get_batch(self, idx):
+        return self.frames[np.asarray(idx)]
+
+
+def test_clip_kmeans_selector_matches_jax(clip_workdir):
+    """The port's clip-kmeans selector on the JAX CLI's CLIP checkpoint
+    picks JAX's frames from the same video under the same np.random seed:
+    the pooled CLS features agree to fp32 rounding, KMeans(random_state=0)
+    clusters them alike, and the draws come from the same stream."""
+    pytest.importorskip("sklearn")
+    sys.path.insert(0, REPO)
+    import run_visual_tokenization as jcli
+
+    rng = np.random.RandomState(11)
+    base = rng.randint(0, 256, (4, 48, 64, 3)).astype(np.uint8)
+    # 24 frames in 4 scenes of 6, each with its own small noise
+    frames = np.concatenate([np.clip(b[None].astype(int) + rng.randint(-6, 7, (6, 48, 64, 3)),
+                                     0, 255).astype(np.uint8) for b in base])
+    jengine = jcli.build_clip_engine(dict(clip_workdir.config))
+    pengine = pcli.build_clip_engine(dict(clip_workdir.config), device="cpu")
+    pre = jvt.clip_preprocess_pil(frames[::2], 28)
+    np.testing.assert_allclose(pengine.pool_frames(pre), np.asarray(jengine.pool_frames(pre)),
+                               atol=1e-5, rtol=0)
+    picks = []
+    for make, engine in ((jvt.make_clip_kmeans_selector, jengine),
+                         (pvt.make_clip_kmeans_selector, pengine)):
+        np.random.seed(3)
+        picks.append([int(i) for i in make(engine)(_FrameReader(frames), 4)])
+    assert picks[0] == picks[1] and len(set(picks[1])) == 4

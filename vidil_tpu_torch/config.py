@@ -1,23 +1,51 @@
-"""Model architecture configs and the pipeline-yaml helpers.
+"""Model architecture configs and the pipeline-yaml helpers
+(`load_yaml_config`, `dump_yaml_config`, `asdict`).
 
 The port's own copy of the JAX package's ``ViTConfig`` / ``MedConfig``
 fields (same defaults, same ``from_json`` mapping of a BERT/MED json),
 with the training fields the trainers read (remat, label smoothing) and
 the fused ViT block's switches (kernels K4/K5, `models/vit.py`) and the
 fused MLP switch (kernel K3, `models/layers.py:mlp_auto`), and the JAX
-package's ``CLIPConfig``. ``remat_policy="dots"`` is a field too, but a
-config that sets it fails at construction with NotImplementedError instead
-of running another path.
+package's ``CLIPConfig``. ``remat_policy`` names the remat's saving rule
+(`models/layers.py:remat_policy`: None or "dots"); another name fails at
+construction.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 from dataclasses import dataclass
 
 import torch
 
 from vidil_tpu_torch.models.layers import remat_policy
+
+
+def load_yaml_config(path: str) -> dict:
+    """A pipeline or trainer yaml (PyYAML, imported here: the port's models
+    do not need it)."""
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def dump_yaml_config(config: dict, out_dir: str, name: str = "config.yaml",
+                     sort_keys: bool = False) -> None:
+    """Echo the resolved config into the output dir for provenance
+    (reference: run_video_CapFilt.py:304-308), keys in their order; the
+    CLIs pass ``sort_keys=True``, the root CLIs' echo (PyYAML's default)."""
+    import yaml
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, name), "w") as f:
+        yaml.safe_dump(config, f, sort_keys=sort_keys)
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
 
 
 def compute_dtype_from_config(config: dict, override=None) -> torch.dtype:
@@ -35,8 +63,8 @@ def compute_dtype_from_config(config: dict, override=None) -> torch.dtype:
     return table[name]
 
 
-def _refuse_unported(cfg) -> None:
-    """Raise for a remat policy other than None (full recompute)."""
+def _check_remat_policy(cfg) -> None:
+    """Raise ValueError for a remat policy the port does not know."""
     remat_policy(cfg.remat_policy)
 
 
@@ -55,7 +83,7 @@ class ViTConfig:
     in_channels: int = 3
     remat: bool = False  # torch.utils.checkpoint on blocks >= remat_from_layer
     remat_from_layer: int = 0
-    remat_policy: str | None = None  # None = recompute the whole block
+    remat_policy: str | None = None  # None = recompute the whole block; "dots"
     # the self-attention through `attention_auto`'s gate (kernel K1 where the
     # reference's `_flash_profitable` holds); False = plain attention at
     # every shape, as the JAX package's `use_flash=False`
@@ -76,7 +104,7 @@ class ViTConfig:
     fused_block_interpret: bool = False
 
     def __post_init__(self):
-        _refuse_unported(self)
+        _check_remat_policy(self)
 
     @property
     def num_patches(self) -> int:
@@ -113,11 +141,11 @@ class MedConfig:
     hidden_act: str = "gelu"
     label_smoothing: float = 0.1
     remat: bool = False  # torch.utils.checkpoint on every layer
-    remat_policy: str | None = None  # None = recompute the whole layer
+    remat_policy: str | None = None  # None = recompute the whole layer; "dots"
     use_fused_mlp: bool = False  # the FFN as kernel K3 (models/layers.py:mlp_auto)
 
     def __post_init__(self):
-        _refuse_unported(self)
+        _check_remat_policy(self)
 
     @classmethod
     def from_json(cls, path: str, **overrides) -> "MedConfig":

@@ -2,7 +2,7 @@
 prefetch loader: the port's own copy of the trainers' part of
 ``vidil_tpu/data/datasets.py`` (`RetrievalTrainDataset`,
 `RetrievalEvalDataset`, `CaptionTrainDataset`, `CaptionEvalDataset`,
-`VQADataset`, `vqa_collate`, `PrefetchLoader`).
+`VideoToCaptionsDataset`, `VQADataset`, `vqa_collate`, `PrefetchLoader`).
 Items are numpy arrays, batching is plain stacking, and a thread pool
 decodes video ahead of the device.
 
@@ -174,6 +174,58 @@ class CaptionEvalDataset:
         if frames is None:
             raise IOError(f"cannot decode eval video {vid}")
         return np.stack([self.transform(f) for f in frames]), vid
+
+
+class VideoToCaptionsDataset:
+    """(frames, [captions]) items from videoid-keyed ann jsons (reference:
+    data/video_pretrain_dataset.py:219-378 pretrain_video_to_captions_dataset
+    and :379+ visual_tokenization_dataset share this shape). Also exposes
+    the raw .annotation list like the reference."""
+
+    def __init__(self, config: dict, max_words: int = 64, train: bool = False):
+        self.config = config
+        ann_jsons = config["train_ann_jsons"]
+        roots = config["video_roots"]
+        fmts = config["video_formats"]
+        if isinstance(ann_jsons, str):
+            ann_jsons, roots, fmts = [ann_jsons], [roots], [fmts]
+        annotation: dict = {}
+        skipped = 0
+        for ann_path, root, fmt in zip(ann_jsons, roots, fmts):
+            with open(ann_path) as f:
+                ann = json.load(f)
+            items = ann.items() if isinstance(ann, dict) else (
+                (o["video_id"], o["texts"]) for o in ann)
+            for vid, texts in items:
+                path = os.path.join(root, f"{vid}.{fmt}")
+                if not os.path.exists(path):
+                    print(f"ERROR: video file not found, skipped:{path}")
+                    skipped += 1
+                    continue
+                if vid in annotation:
+                    annotation[vid]["caption"] += list(texts)
+                else:
+                    annotation[vid] = {"video": path, "caption": list(texts)}
+        self.annotation = list(annotation.values())
+        print("num of video skipped:", skipped)
+        print("num of video considering:", len(self.annotation))
+        size = config["image_size"]
+        self.transform = TrainTransform(size) if train else TestTransform(size)
+        self.max_words = max_words
+        self.train = train
+
+    def __len__(self):
+        return len(self.annotation)
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        frames = _decode(ann["video"], self.config)
+        if frames is None:
+            if self.train:
+                return self[random.randint(0, len(self.annotation) - 1)]
+            return None, None  # reference: visual_tokenization_dataset :466-467
+        video = np.stack([self.transform(f) for f in frames])
+        return video, ann["caption"]
 
 
 class VQADataset:

@@ -28,7 +28,7 @@ def sample_frame_indices(
 
     clip_selector: callable(vlen, num_frm) -> indices, used for
     'clip-kmeans' (CLIP-embedding KMeans selection; see
-    vidil_tpu.pipeline.visual_tokenization.make_clip_kmeans_selector).
+    vidil_tpu_torch.pipeline.visual_tokenization.make_clip_kmeans_selector).
     """
     end_idx = vlen if end_idx is None else end_idx
     if strategy == "uniform":

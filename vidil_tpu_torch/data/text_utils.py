@@ -1,20 +1,57 @@
-"""Caption and question preprocessing and the per-rank result merge: the
-port's own copy of ``vidil_tpu/data/text_utils.py`` (`pre_caption`,
+"""Caption and question preprocessing, the per-rank result merge and the
+file-lock poll: the port's own copy of ``vidil_tpu/data/text_utils.py``
+(`is_locked`, `wait_for_file`, `pre_caption`, `pre_caption_minimum`,
 `pre_question`, `save_result`), byte-identical to the reference's
-(reference: data/utils.py:35-123).
+(reference: data/utils.py:13-123).
 """
 
 from __future__ import annotations
 
 import os
 import re
+import time
 
 from vidil_tpu_torch.utils.dist import barrier, get_rank, get_world_size, is_main_process
 from vidil_tpu_torch.utils.io import load_json, save_json
 
 
+def is_locked(filepath: str) -> bool:
+    """True while another process holds the file open exclusively — the
+    reference's only concurrency guard for multi-process reads of one file
+    (reference: data/utils.py:13-26)."""
+    locked = None
+    if os.path.exists(filepath):
+        try:
+            with open(filepath, "r+"):
+                locked = False
+        except IOError:
+            locked = True
+    return bool(locked)
+
+
+def wait_for_file(filepath: str, wait_time: float = 1.0, max_wait: float = 60.0) -> bool:
+    """Poll until the file is readable (reference: data/utils.py:28-33)."""
+    waited = 0.0
+    while is_locked(filepath):
+        time.sleep(wait_time)
+        waited += wait_time
+        if waited >= max_wait:
+            return False
+    return os.path.exists(filepath)
+
+
 def pre_caption(caption: str, max_words: int = 50) -> str:
     caption = re.sub(r"([.!\"()*#:;~])", " ", caption.lower())
+    caption = re.sub(r"\s{2,}", " ", caption)
+    caption = caption.rstrip("\n")
+    caption = caption.strip(" ")
+    caption_words = caption.split(" ")
+    if len(caption_words) > max_words:
+        caption = " ".join(caption_words[:max_words])
+    return caption
+
+
+def pre_caption_minimum(caption: str, max_words: int = 50) -> str:
     caption = re.sub(r"\s{2,}", " ", caption)
     caption = caption.rstrip("\n")
     caption = caption.strip(" ")

@@ -20,6 +20,7 @@ from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.blip_retrieval import (
     QueueState,
+    _data_gather,
     _rank_offset,
     ita_loss,
     itm_loss,
@@ -28,7 +29,6 @@ from vidil_tpu_torch.models.blip_retrieval import (
     text_features,
     video_features,
 )
-from vidil_tpu_torch.parallel.collectives import concat_all_gather
 
 
 def init_pretrain_params(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256,
@@ -63,26 +63,27 @@ def tied_decoder_params(params):
 
 def pretrain_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids, dec_ids,
                   text_mask, alpha, generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
-                  dtype=None, negatives=None, data_parallel: bool = False):
+                  dtype=None, negatives=None, grid=None):
     """Returns (loss_ita, loss_itm, loss_lm, aux).
 
     text_ids [CLS]-prefixed (max_length 30), enc_ids with [ENC] and dec_ids
     with [DEC] at position 0. negatives: None to draw them from
     `generator`, or (neg_video_idx, neg_text_idx), each (B,) over the
-    global batch. data_parallel: the inputs are this rank's rows of the
-    global batch and the losses its shares (`models/blip_retrieval.py`):
-    the in-batch weights are the world's similarity rows, gathered, and the
-    LM mean is over the global batch's tokens."""
+    global batch. grid (`parallel/mesh.py:Grid`): the inputs are this data
+    rank's rows of the global batch and the losses its shares
+    (`models/blip_retrieval.py`): the in-batch weights are the global
+    batch's similarity rows, gathered over the data axis, and the LM mean
+    is over the global batch's tokens; the towers run on this rank's heads
+    under a model axis."""
     temp = params["temp"].clamp(0.001, 0.5)
     B = video.shape[0]
-    offset, n_global = _rank_offset(B, data_parallel)
+    offset, n_global = _rank_offset(B, grid)
     rows = slice(offset, offset + B)
 
-    video_embeds, video_feat = video_features(params, video, vit_cfg, dtype=dtype)
-    text_feat = text_features(params, text_ids, text_mask, med_cfg, dtype=dtype)
+    video_embeds, video_feat = video_features(params, video, vit_cfg, dtype=dtype, grid=grid)
+    text_feat = text_features(params, text_ids, text_mask, med_cfg, dtype=dtype, grid=grid)
     video_feat_m, text_feat_m = momentum_features(params_m, video, text_ids, text_mask, vit_cfg,
-                                                  med_cfg, dtype=dtype,
-                                                  data_parallel=data_parallel)
+                                                  med_cfg, dtype=dtype, grid=grid)
 
     loss_ita, sim_i2t, sim_t2i = ita_loss(video_feat, text_feat, video_feat_m, text_feat_m,
                                           queue, temp, alpha, offset=offset)
@@ -90,8 +91,7 @@ def pretrain_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids,
     if negatives is None:
         with torch.no_grad():
             s_t2i, s_i2t = sim_t2i[:, :n_global].float(), sim_i2t[:, :n_global].float()
-            if data_parallel:
-                s_t2i, s_i2t = concat_all_gather(s_t2i), concat_all_gather(s_i2t)
+            s_t2i, s_i2t = _data_gather(s_t2i, grid), _data_gather(s_i2t, grid)
             diag = torch.eye(n_global, dtype=torch.bool, device=video.device)
             w_t2i = (torch.softmax(s_t2i, dim=1) + 1e-4).masked_fill(diag, 0.0)
             w_i2t = (torch.softmax(s_i2t, dim=1) + 1e-4).masked_fill(diag, 0.0)
@@ -100,17 +100,17 @@ def pretrain_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids,
     neg_video_idx, neg_text_idx = negatives
     assert neg_video_idx.shape[0] == n_global, "negatives index the global batch"
     loss_itm = itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx[rows],
-                        neg_text_idx[rows], med_cfg, dtype=dtype, data_parallel=data_parallel)
+                        neg_text_idx[rows], med_cfg, dtype=dtype, grid=grid)
 
     dec_params = tied_decoder_params(params)
     dec_targets = dec_ids.masked_fill(dec_ids == med_cfg.pad_token_id, -100)
     video_atts = torch.ones(video_embeds.shape[:2], dtype=torch.int32, device=video.device)
     hidden = M.med_forward(dec_params, dec_ids, text_mask, encoder_hidden_states=video_embeds,
                            encoder_attention_mask=video_atts, cfg=med_cfg, mode="multimodal",
-                           is_decoder=True, dtype=dtype)
+                           is_decoder=True, dtype=dtype, grid=grid)
     lm_logits = M.med_lm_logits(dec_params, hidden, med_cfg, dtype=dtype)
     loss_lm = M.med_lm_loss(lm_logits, dec_targets, label_smoothing=med_cfg.label_smoothing,
-                            data_parallel=data_parallel)
+                            grid=grid)
 
     aux = {"video_feat_m": video_feat_m, "text_feat_m": text_feat_m,
            "idx": torch.full((n_global,), -100, dtype=torch.int32, device=video.device),

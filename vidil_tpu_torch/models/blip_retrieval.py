@@ -6,15 +6,19 @@ and the queues are explicit state beside the parameters; the step updates
 them in place (`momentum_update`, `dequeue_and_enqueue`). The batch is the
 global one (the reference's ``negative_all_rank=True``).
 
-Data parallelism (``data_parallel``): each rank holds its rows of the
-global batch, and the losses are its shares of the global batch's (they sum
-to the one-process losses). The ITA rows meet the world's momentum
-features (`concat_all_gather`), which also enter the queues, so every rank
-keeps the same queues. The hard negatives are drawn over the global batch:
-every rank computes the world's similarities, draws the global (B,) index
-vectors from the same seeded generator and takes its slice; a negative
-video from another rank reaches its ITM rows through `all_gather_with_grad`,
-whose backward returns the gradient to the rank that encoded it.
+Data parallelism (a `parallel/mesh.py:Grid`'s data axis): each data rank
+holds its rows of the global batch, and the losses are its shares of the
+global batch's (they sum to the one-process losses). The ITA rows meet the
+data ranks' momentum features (`concat_all_gather` over the data group),
+which also enter the queues, so every rank keeps the same queues. The hard
+negatives are drawn over the global batch: every rank computes the global
+similarities, draws the global (B,) index vectors from the same seeded
+generator and takes its slice; a negative video from another data rank
+reaches its ITM rows through `all_gather_with_grad`, whose backward
+returns the gradient to the rank that encoded it. Under the grid's model
+axis the towers (the momentum ones too) run on this rank's heads
+(`vit_forward`, `med_forward`); the model ranks of one data rank compute
+the same losses and queues.
 
 Hard negatives: the JAX package draws them with ``jax.random.categorical``
 over masked log-weights. Its key streams cannot be reproduced here, so the
@@ -37,7 +41,6 @@ from vidil_tpu_torch.models.layers import linear
 from vidil_tpu_torch.models.vit import vit_forward
 from vidil_tpu_torch.ops.generation import gumbel_argmax, gumbel_noise
 from vidil_tpu_torch.parallel.collectives import all_gather_with_grad, concat_all_gather
-from vidil_tpu_torch.utils.dist import get_rank, get_world_size
 
 MOMENTUM_KEYS = ("visual_encoder", "text_encoder", "vision_proj", "text_proj")
 
@@ -118,21 +121,21 @@ def _normalize(feat):
     return feat / feat.float().norm(dim=-1, keepdim=True).to(feat.dtype)
 
 
-def video_features(params, video, vit_cfg: ViTConfig, dtype=None):
+def video_features(params, video, vit_cfg: ViTConfig, dtype=None, grid=None):
     """(B, N, S, S, C) -> (video_embeds (B, N*(P+1), D), video_feat (B, E)):
     per-frame CLS features projected, mean-pooled over frames, normalized;
     the full token grid feeds cross-attention."""
     B, N = video.shape[:2]
     embeds = vit_forward(params["visual_encoder"], video.reshape((B * N,) + video.shape[2:]),
-                         vit_cfg, dtype=dtype)
+                         vit_cfg, dtype=dtype, grid=grid)
     feat = linear(params["vision_proj"], embeds[:, 0, :], dtype=dtype)
     feat = _normalize(feat.reshape(B, N, -1).mean(dim=1))
     return embeds.reshape(B, N * embeds.shape[1], embeds.shape[2]), feat
 
 
-def text_features(params, text_ids, text_mask, med_cfg: MedConfig, dtype=None):
+def text_features(params, text_ids, text_mask, med_cfg: MedConfig, dtype=None, grid=None):
     hidden = M.med_forward(params["text_encoder"], text_ids, text_mask, cfg=med_cfg,
-                           mode="text", dtype=dtype)
+                           mode="text", dtype=dtype, grid=grid)
     return _normalize(linear(params["text_proj"], hidden[:, 0, :], dtype=dtype))
 
 
@@ -150,11 +153,21 @@ def _global_mean(rows, n_global: int):
     return rows.sum() / n_global
 
 
-def _rank_offset(n_local: int, data_parallel: bool):
-    """(this rank's first row in the global batch, the global batch)."""
-    world = get_world_size() if data_parallel else 1
-    rank = get_rank() if data_parallel else 0
-    return rank * n_local, n_local * world
+def _rank_offset(n_local: int, grid):
+    """(this data rank's first row in the global batch, the global batch)."""
+    if grid is None:
+        return 0, n_local
+    return grid.data_rank * n_local, n_local * grid.data
+
+
+def _data_gather(x, grid, with_grad: bool = False):
+    """`x` gathered over the grid's data group (with its gradient when
+    `with_grad`); `x` itself without a data axis."""
+    if grid is None or not grid.data_parallel:
+        return x
+    if with_grad:
+        return all_gather_with_grad(x, grid.data_group)
+    return concat_all_gather(x, grid.data_group)
 
 
 def ita_loss(video_feat, text_feat, video_feat_m, text_feat_m, queue: QueueState, temp,
@@ -188,25 +201,25 @@ def ita_loss(video_feat, text_feat, video_feat_m, text_feat_m, queue: QueueState
 
 
 def itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx, neg_text_idx,
-             med_cfg: MedConfig, dtype=None, data_parallel: bool = False):
+             med_cfg: MedConfig, dtype=None, grid=None):
     """ITM over B positives and 2B negatives (each video with a sampled
     text, each text with a sampled video); the memory mask is all ones, as
     in the JAX package (so the cross-attention carries a zero bias).
 
     The inputs are this rank's rows; the negative indices (this rank's
     slice of the global index vectors) point into the global batch, whose
-    texts and video embeddings are gathered under `data_parallel` (the
+    texts and video embeddings are gathered over `grid`'s data axis (the
     embeddings with their gradient). Returns the rank's share of the mean
     over the global batch's 3B rows."""
     B = enc_ids.shape[0]
-    world_embeds = all_gather_with_grad(video_embeds) if data_parallel else video_embeds
-    world_ids = concat_all_gather(enc_ids) if data_parallel else enc_ids
-    world_mask = concat_all_gather(text_mask) if data_parallel else text_mask
+    world_embeds = _data_gather(video_embeds, grid, with_grad=True)
+    world_ids = _data_gather(enc_ids, grid)
+    world_mask = _data_gather(text_mask, grid)
     video_atts = torch.ones(video_embeds.shape[:2], dtype=torch.int32, device=enc_ids.device)
     pos_hidden = M.med_forward(params["text_encoder"], enc_ids, text_mask,
                                encoder_hidden_states=video_embeds,
                                encoder_attention_mask=video_atts, cfg=med_cfg,
-                               mode="multimodal", dtype=dtype)
+                               mode="multimodal", dtype=dtype, grid=grid)
     text_ids_all = torch.cat([enc_ids, world_ids[neg_text_idx]], dim=0)
     text_atts_all = torch.cat([text_mask, world_mask[neg_text_idx]], dim=0)
     video_embeds_all = torch.cat([world_embeds[neg_video_idx], video_embeds], dim=0)
@@ -214,7 +227,7 @@ def itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx, neg_text_i
     neg_hidden = M.med_forward(params["text_encoder"], text_ids_all, text_atts_all,
                                encoder_hidden_states=video_embeds_all,
                                encoder_attention_mask=video_atts_all, cfg=med_cfg,
-                               mode="multimodal", dtype=dtype)
+                               mode="multimodal", dtype=dtype, grid=grid)
     vl = torch.cat([pos_hidden[:, 0, :], neg_hidden[:, 0, :]], dim=0)
     logits = linear(params["itm_head"], vl, dtype=dtype).float()
     labels = torch.cat([torch.ones(B, dtype=torch.long, device=vl.device),
@@ -225,20 +238,19 @@ def itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx, neg_text_i
 
 
 def momentum_features(params_m, video, text_ids, text_mask, vit_cfg: ViTConfig,
-                      med_cfg: MedConfig, dtype=None, data_parallel: bool = False):
+                      med_cfg: MedConfig, dtype=None, grid=None):
     """The momentum towers' features of the global batch: this rank's rows,
-    gathered over the world under `data_parallel`."""
+    gathered over `grid`'s data axis."""
     with torch.no_grad():
-        _, video_feat_m = video_features(params_m, video, vit_cfg, dtype=dtype)
-        text_feat_m = text_features(params_m, text_ids, text_mask, med_cfg, dtype=dtype)
-    if data_parallel:
-        return concat_all_gather(video_feat_m), concat_all_gather(text_feat_m)
-    return video_feat_m, text_feat_m
+        _, video_feat_m = video_features(params_m, video, vit_cfg, dtype=dtype, grid=grid)
+        text_feat_m = text_features(params_m, text_ids, text_mask, med_cfg, dtype=dtype,
+                                    grid=grid)
+    return _data_gather(video_feat_m, grid), _data_gather(text_feat_m, grid)
 
 
 def retrieval_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids, text_mask,
                    alpha, idx, generator, vit_cfg: ViTConfig, med_cfg: MedConfig, dtype=None,
-                   negatives=None, data_parallel: bool = False):
+                   negatives=None, grid=None):
     """ITA + ITM losses. Returns (loss_ita, loss_itm, aux); aux holds the
     global batch's momentum features and idx for the queue update, and the
     negatives drawn (global index vectors).
@@ -247,27 +259,27 @@ def retrieval_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids
     enc_ids the same with [ENC] at position 0; idx (B,) video ids (texts
     of one video are not each other's negatives). negatives: None to draw
     them from `generator`, or (neg_video_idx, neg_text_idx), each (B,) over
-    the global batch. data_parallel: the inputs are this rank's rows of the
-    global batch and the losses its shares (module docstring).
+    the global batch. grid (`parallel/mesh.py:Grid`): the inputs are this
+    data rank's rows of the global batch and the losses its shares, the
+    towers on this rank's heads under a model axis (module docstring).
     """
     temp = params["temp"].clamp(0.001, 0.5)
-    offset, n_global = _rank_offset(video.shape[0], data_parallel)
+    offset, n_global = _rank_offset(video.shape[0], grid)
     rows = slice(offset, offset + video.shape[0])
 
-    video_embeds, video_feat = video_features(params, video, vit_cfg, dtype=dtype)
-    text_feat = text_features(params, text_ids, text_mask, med_cfg, dtype=dtype)
+    video_embeds, video_feat = video_features(params, video, vit_cfg, dtype=dtype, grid=grid)
+    text_feat = text_features(params, text_ids, text_mask, med_cfg, dtype=dtype, grid=grid)
     video_feat_m, text_feat_m = momentum_features(params_m, video, text_ids, text_mask, vit_cfg,
-                                                  med_cfg, dtype=dtype,
-                                                  data_parallel=data_parallel)
-    idx_all = concat_all_gather(idx) if data_parallel else idx
+                                                  med_cfg, dtype=dtype, grid=grid)
+    idx_all = _data_gather(idx, grid)
 
     loss_ita, _, _ = ita_loss(video_feat, text_feat, video_feat_m, text_feat_m, queue, temp,
                               alpha, offset=offset)
 
     if negatives is None:
         with torch.no_grad():
-            video_feat_all = concat_all_gather(video_feat) if data_parallel else video_feat
-            text_feat_all = concat_all_gather(text_feat) if data_parallel else text_feat
+            video_feat_all = _data_gather(video_feat, grid)
+            text_feat_all = _data_gather(text_feat, grid)
             same = idx_all.reshape(-1, 1) == idx_all.reshape(1, -1)
             sim_i2t_b = _div_temp(video_feat_all @ text_feat_all.t(), temp)
             sim_t2i_b = _div_temp(text_feat_all @ video_feat_all.t(), temp)
@@ -278,7 +290,7 @@ def retrieval_loss(params, params_m, queue: QueueState, video, text_ids, enc_ids
     neg_video_idx, neg_text_idx = negatives
     assert neg_video_idx.shape[0] == n_global, "negatives index the global batch"
     loss_itm = itm_loss(params, enc_ids, text_mask, video_embeds, neg_video_idx[rows],
-                        neg_text_idx[rows], med_cfg, dtype=dtype, data_parallel=data_parallel)
+                        neg_text_idx[rows], med_cfg, dtype=dtype, grid=grid)
     aux = {"video_feat_m": video_feat_m, "text_feat_m": text_feat_m, "idx": idx_all,
            "negatives": negatives}
     return loss_ita, loss_itm, aux

@@ -18,26 +18,27 @@ from vidil_tpu_torch.ops.generation import GenerationConfig, _topk_stable, beam_
 
 
 def encode_question(params, video_embeds, question_ids, question_mask,
-                    med_cfg: MedConfig, dtype=None):
+                    med_cfg: MedConfig, dtype=None, grid=None):
     """Question encoder over the video tokens ([ENC]-prefixed ids); every
     video token is attended (the reference's all-ones mask)."""
     video_atts = torch.ones(video_embeds.shape[:2], dtype=torch.int32, device=video_embeds.device)
     return M.med_forward(
         params["text_encoder"], question_ids, question_mask,
         encoder_hidden_states=video_embeds, encoder_attention_mask=video_atts,
-        cfg=med_cfg, mode="multimodal", dtype=dtype,
+        cfg=med_cfg, mode="multimodal", dtype=dtype, grid=grid,
     )
 
 
 def vqa_train_loss(params, video_embeds, question_ids, question_mask,
                    answer_ids, answer_mask, answer_question_index, weights,
-                   med_cfg: MedConfig, batch_size: int, dtype=None):
+                   med_cfg: MedConfig, batch_size: int, dtype=None, grid=None):
     """Weighted answer LM loss: the flattened answers carry
     ``answer_question_index`` (each answer's question row), gathered instead
     of the reference's per-question repeat. loss = sum(weights * per-answer
-    loss) / B."""
+    loss) / B. grid: the train step's (the towers on this rank's heads
+    under a model axis, `med_forward`)."""
     question_states = encode_question(params, video_embeds, question_ids,
-                                      question_mask, med_cfg, dtype=dtype)
+                                      question_mask, med_cfg, dtype=dtype, grid=grid)
     index = answer_question_index.long()
     q_states = question_states[index]
     q_mask = question_mask[index]
@@ -45,7 +46,7 @@ def vqa_train_loss(params, video_embeds, question_ids, question_mask,
     hidden = M.med_forward(
         params["text_decoder"], answer_ids, answer_mask,
         encoder_hidden_states=q_states, encoder_attention_mask=q_mask,
-        cfg=med_cfg, mode="multimodal", is_decoder=True, dtype=dtype,
+        cfg=med_cfg, mode="multimodal", is_decoder=True, dtype=dtype, grid=grid,
     )
     logits = M.med_lm_logits(params["text_decoder"], hidden, med_cfg, dtype=dtype)
     per_answer = M.med_lm_loss(logits, labels, label_smoothing=med_cfg.label_smoothing,

@@ -12,6 +12,7 @@ attention logits and softmax are always fp32.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,24 +20,43 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" policy's rule: keep the plain GEMMs' outputs (``aten.mm``
+    and ``aten.addmm``: the linears, whose products carry no batch
+    dimension), recompute the batched products (``bmm``/``baddbmm``: the
+    attention's) and the elementwise ops."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_policy(name):
-    """Resolve a config ``remat_policy``: None recomputes the whole layer in
-    the backward (the JAX package's classic remat). The JAX package's
-    "dots" policy (save the plain GEMM outputs) is not ported yet."""
+    """Resolve a config ``remat_policy`` to a checkpoint ``context_fn``:
+    None recomputes the whole layer in the backward (the JAX package's
+    classic remat); "dots" is JAX's ``dots_with_no_batch_dims_saveable``,
+    a selective checkpoint (`create_selective_checkpoint_contexts`) that
+    saves the plain GEMM outputs and recomputes the rest (`_dots_policy`),
+    trading memory for the GEMM recompute."""
     if name is None:
         return None
     if name == "dots":
-        raise NotImplementedError("vidil_tpu_torch: remat_policy='dots' is not ported yet")
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
     raise ValueError(f"unknown remat_policy: {name!r}")
 
 
-def remat(fn, enabled: bool):
+def remat(fn, enabled: bool, policy=None):
     """`fn` with its activations recomputed in the backward when `enabled`
-    (torch.utils.checkpoint, non-reentrant: the same numbers, less memory;
-    the configs admit only the full-recompute policy, see `remat_policy`)."""
+    (torch.utils.checkpoint, non-reentrant: the same numbers, less memory),
+    all of them, or all but what the named `policy` saves (`remat_policy`)."""
     if not enabled:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    context_fn = remat_policy(policy)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def linear(params, x, dtype=None):
@@ -49,6 +69,24 @@ def linear(params, x, dtype=None):
     # product and bias add are two roundings, as in the JAX package's
     # jnp.dot(x, kernel) + bias (F.linear would fuse the add into one)
     return torch.matmul(x, kernel) + bias
+
+
+def row_linear(params, x, group, dtype=None):
+    """A row-parallel linear over the model group: x holds this rank's
+    input columns and ``kernel`` the matching rows. The partial product is
+    kept in fp32 (the same sums as a bf16 tensor-core product with fp32
+    accumulation, `matmul_f32`), summed over the group
+    (`reduce_from_model`), rounded to `dtype` once, as the one-process
+    product is, and the replicated bias is added once, after the sum."""
+    from vidil_tpu_torch.parallel.collectives import reduce_from_model
+
+    kernel = params["kernel"]
+    bias = params["bias"]
+    if dtype is not None:
+        x = x.to(dtype)
+        kernel = kernel.to(dtype)
+        bias = bias.to(dtype)
+    return reduce_from_model(matmul_f32(x, kernel), group).to(x.dtype) + bias
 
 
 def layer_norm(params, x, eps: float = 1e-6):
@@ -132,6 +170,16 @@ def mlp(params, x, act=gelu, dtype=None):
     h = linear(params["fc1"], x, dtype=dtype)
     h = act(h)
     return linear(params["fc2"], h, dtype=dtype)
+
+
+def tp_mlp(params, x, group, act=gelu, dtype=None):
+    """The MLP over the model group: fc1 column-parallel (this rank's hidden
+    columns, its input through `copy_to_model`), fc2 row-parallel
+    (`row_linear`)."""
+    from vidil_tpu_torch.parallel.collectives import copy_to_model
+
+    h = act(linear(params["fc1"], copy_to_model(x, group), dtype=dtype))
+    return row_linear(params["fc2"], h, group, dtype=dtype)
 
 
 # The JAX package's gate (measured there on a TPU, v5e): the fused kernel at

@@ -15,6 +15,14 @@ generation, and may be stored as per-row int8 (`quantize_cross_kv`).
 
 ``self_fold`` is accepted and runs unfolded, which is the fold's exact
 result (see `med_forward`).
+
+Tensor parallelism (`med_forward` with a `parallel/mesh.py:Grid` whose
+model axis is > 1, the parameters sharded by
+`parallel/sharding.py:shard_params`): the self-attention, the
+cross-attention and the FFN run on this rank's heads and hidden columns,
+Megatron's pattern (the inputs of the query/key/value and fc1 projections
+through `copy_to_model`, out and fc2 row-parallel, `layers.row_linear`).
+That is the training forward; the decode (prefill and steps) is unsharded.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from vidil_tpu_torch.models.layers import (
     merge_heads,
     mlp_auto,
     remat,
+    row_linear,
     split_heads,
+    tp_mlp,
 )
 from vidil_tpu_torch.ops.flash_attention import attention_auto
 
@@ -102,19 +112,20 @@ def med_lm_logits(params, hidden, cfg: MedConfig, dtype=None):
 # attention sub-blocks (post-LN, BERT style)
 # ---------------------------------------------------------------------------
 
-def _grouped_attention(q, k, v, bias, group_size: int):
+def _grouped_attention(q, k, v, bias, group_size: int, grid=None):
     """Attention where ``group_size`` query rows share one K/V batch row.
 
     q: (B*G, H, L, Dh), k/v: (B, H, Lk, Dh). With no bias the group folds
     into the query axis, (B, H, G*L, Dh), and goes to `attention_auto` as
     a strided view (no copy when q is a split_heads view of a projection):
-    the flash kernel where the reference's gate sends the fold."""
+    the flash kernel where the reference's gate sends the fold (on `grid`'s
+    global shape, `attention_auto`)."""
     Bn, H, L, Dh = q.shape
     B = Bn // group_size
     if bias is None:
         qf = (q.reshape(B, group_size, H, L, Dh)
               .transpose(1, 2).reshape(B, H, group_size * L, Dh))
-        ctx = attention_auto(qf, k, v)
+        ctx = attention_auto(qf, k, v, grid=grid.gate if grid is not None else (1, 1))
         return (ctx.reshape(B, H, group_size, L, Dh)
                 .transpose(1, 2).reshape(Bn, H, L, Dh))
     # bias path: beams/groups become a broadcast dim (no K/V replication)
@@ -145,18 +156,32 @@ def _grouped_context(p5, v):
 
 
 def _attn_block(p, x, kv_states, bias, num_heads: int, eps: float, dtype=None,
-                group_size: int = 1):
+                group_size: int = 1, grid=None):
     """Project q from x, k/v from kv_states; attend; residual + LN.
     group_size > 1 (cross-attention only): x has batch B*group_size, and
-    each group attends one memory row without replicating it."""
-    q = split_heads(linear(p["query"], x, dtype=dtype), num_heads)
-    k = split_heads(linear(p["key"], kv_states, dtype=dtype), num_heads)
-    v = split_heads(linear(p["value"], kv_states, dtype=dtype), num_heads)
+    each group attends one memory row without replicating it. Under
+    `grid`'s model axis: this rank's heads; x enters the projections
+    through `copy_to_model` (a cross-attention's memory already has, in
+    `med_forward`) and out is row-parallel."""
+    tp = grid is not None and grid.tensor_parallel
+    xin = x
+    if tp:
+        from vidil_tpu_torch.parallel.collectives import copy_to_model
+
+        xin = copy_to_model(x, grid.model_group)
+        num_heads //= grid.model
+    kv_in = xin if kv_states is x else kv_states
+    q = split_heads(linear(p["query"], xin, dtype=dtype), num_heads)
+    k = split_heads(linear(p["key"], kv_in, dtype=dtype), num_heads)
+    v = split_heads(linear(p["value"], kv_in, dtype=dtype), num_heads)
     if group_size > 1:
-        ctx = merge_heads(_grouped_attention(q, k, v, bias, group_size))
+        ctx = merge_heads(_grouped_attention(q, k, v, bias, group_size, grid))
     else:
         ctx = merge_heads(dot_product_attention(q, k, v, bias=bias))
-    out = linear(p["out"], ctx, dtype=dtype)
+    if tp:
+        out = row_linear(p["out"], ctx, grid.model_group, dtype=dtype)
+    else:
+        out = linear(p["out"], ctx, dtype=dtype)
     return layer_norm(p["norm"], out + x, eps)
 
 
@@ -264,20 +289,25 @@ def _attn_block_precomputed_kv(p, x, k, v, bias, num_heads: int, eps: float,
     return layer_norm(p["norm"], out + x, eps)
 
 
-def _ffn_block(layer, x, cfg: MedConfig, dtype=None):
-    h = mlp_auto(layer["mlp"], x, act=ACT2FN[cfg.hidden_act], dtype=dtype,
-                 use_fused=cfg.use_fused_mlp)
+def _ffn_block(layer, x, cfg: MedConfig, dtype=None, grid=None):
+    act = ACT2FN[cfg.hidden_act]
+    if grid is not None and grid.tensor_parallel:
+        h = tp_mlp(layer["mlp"], x, grid.model_group, act=act, dtype=dtype)
+    else:
+        h = mlp_auto(layer["mlp"], x, act=act, dtype=dtype, use_fused=cfg.use_fused_mlp)
     return layer_norm(layer["mlp_norm"], h + x, cfg.layer_norm_eps)
 
 
 def med_layer_forward(layer, x, self_bias, cfg: MedConfig, encoder_hidden_states=None,
-                      cross_bias=None, dtype=None, group_size: int = 1):
+                      cross_bias=None, dtype=None, group_size: int = 1, grid=None):
     """One MED layer: self-attn [-> cross-attn] -> FFN."""
-    x = _attn_block(layer["self_attn"], x, x, self_bias, cfg.num_heads, cfg.layer_norm_eps, dtype)
+    x = _attn_block(layer["self_attn"], x, x, self_bias, cfg.num_heads, cfg.layer_norm_eps, dtype,
+                    grid=grid)
     if encoder_hidden_states is not None:
         x = _attn_block(layer["cross_attn"], x, encoder_hidden_states, cross_bias,
-                        cfg.num_heads, cfg.layer_norm_eps, dtype, group_size=group_size)
-    return _ffn_block(layer, x, cfg, dtype)
+                        cfg.num_heads, cfg.layer_norm_eps, dtype, group_size=group_size,
+                        grid=grid)
+    return _ffn_block(layer, x, cfg, dtype, grid)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +317,7 @@ def med_layer_forward(layer, x, self_bias, cfg: MedConfig, encoder_hidden_states
 def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None, *, cfg: MedConfig, mode: str = "multimodal",
                 is_decoder: bool = False, inputs_embeds=None, dtype=None,
-                group_size: int = 1, self_fold: int = 1):
+                group_size: int = 1, self_fold: int = 1, grid=None):
     """BertModel.forward equivalent. Returns the last hidden state (B, L, D).
 
     group_size > 1: input_ids has batch B*group_size while
@@ -299,7 +329,13 @@ def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=No
     0.0, so the fold's result is the unfolded run's bit for bit. Everything
     else in a layer is row-wise, and the grouped cross-attention hands
     `attention_auto` the same (B, H, G*L, Dh) query axis either way, so the
-    port runs unfolded and gets the fold's exact result."""
+    port runs unfolded and gets the fold's exact result.
+
+    grid: the train steps' (data, model) grid (`parallel/mesh.py:Grid`):
+    the attention gate reads the step's global shape, and a model axis runs
+    every layer tensor-parallel on sharded parameters (module docstring).
+    The remat (``cfg.remat``) recomputes each layer, or all but its GEMM
+    outputs under ``remat_policy: dots``."""
     if inputs_embeds is None:
         x = med_embeddings(params, input_ids, cfg, dtype=dtype)
         B, L = input_ids.shape
@@ -318,33 +354,41 @@ def med_forward(params, input_ids, attention_mask=None, encoder_hidden_states=No
         cross_bias = (None if encoder_attention_mask is None
                       else invert_attention_mask(encoder_attention_mask))
         enc = encoder_hidden_states if dtype is None else encoder_hidden_states.to(dtype)
+        if grid is not None and grid.tensor_parallel:
+            from vidil_tpu_torch.parallel.collectives import copy_to_model
+
+            # one copy for every layer's key/value columns: their partial
+            # input gradients are summed here, then over the model group once
+            enc = copy_to_model(enc, grid.model_group)
     else:
         cross_bias = None
         enc = None
 
     def run(layer, x):
         return med_layer_forward(layer, x, self_bias, cfg, encoder_hidden_states=enc,
-                                 cross_bias=cross_bias, dtype=dtype, group_size=group_size)
+                                 cross_bias=cross_bias, dtype=dtype, group_size=group_size,
+                                 grid=grid)
 
     # remat: recompute each layer in the backward instead of keeping its
     # activations (the trainers turn it on)
-    run = remat(run, cfg.remat)
+    run = remat(run, cfg.remat, cfg.remat_policy)
     for layer in params["layers"]:
         x = run(layer, x)
     return x
 
 
 def med_lm_loss(logits, labels, label_smoothing: float = 0.1, reduction: str = "mean",
-                data_parallel: bool = False):
+                grid=None):
     """Shifted next-token cross entropy with label smoothing, -100 = ignore
     (torch CrossEntropyLoss(label_smoothing=eps)):
     loss = (1 - eps) * nll + eps * mean_j(-log p_j).
 
     reduction "mean": over the valid tokens; "none": per-sample sums.
-    data_parallel (with "mean"): the rows are this rank's of a global batch;
-    the token sum is divided by the global batch's valid count (summed
-    over the ranks), so the ranks' losses add up to the global mean and
-    not to a mean of per-rank means."""
+    grid (with "mean"; `parallel/mesh.py:Grid`): under its data axis the
+    rows are this rank's of a global batch; the token sum is divided by
+    the global batch's valid count (summed over the data group), so the
+    data ranks' losses add up to the global mean and not to a mean of
+    per-rank means."""
     logits = logits[:, :-1, :].float()
     labels = labels[:, 1:]
     valid = labels != -100
@@ -356,10 +400,10 @@ def med_lm_loss(logits, labels, label_smoothing: float = 0.1, reduction: str = "
     per_tok = torch.where(valid, per_tok, torch.zeros_like(per_tok))
     if reduction == "mean":
         count = valid.sum()
-        if data_parallel:
+        if grid is not None and grid.data_parallel:
             from vidil_tpu_torch.parallel.collectives import psum
 
-            count = psum(count)
+            count = psum(count, grid.data_group)
         return per_tok.sum() / count.clamp_min(1)
     if reduction == "none":
         return per_tok.sum(dim=-1)

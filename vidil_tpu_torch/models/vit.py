@@ -13,6 +13,16 @@ and the MLP through `mlp_auto` (kernel K3 with
 ``ViTConfig.use_fused_mlp``). The fused-block schedule (``ViTConfig.use_fused_block``)
 runs each block through `fused_vit_block` (kernels K4, and K5 for the
 gradient with ``use_fused_block_bwd``).
+
+Tensor parallelism (a `parallel/mesh.py:Grid` with a model axis, the
+parameters sharded by `parallel/sharding.py:shard_params`): the classic
+block on this rank's heads and hidden columns, Megatron's pattern: the
+LayerNorm'd input enters the qkv and fc1 projections through
+`copy_to_model`, the attention runs on the local heads, and proj and fc2
+are row-parallel (`layers.row_linear`). The fused schedule computes a
+whole block with its residual in one call, which a head shard cannot (the
+projection's partial sums must be summed before the residual), so a
+model axis always takes the classic schedule.
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ from vidil_tpu_torch.models.layers import (
     merge_heads,
     mlp_auto,
     remat,
+    row_linear,
     split_heads,
+    tp_mlp,
 )
 from vidil_tpu_torch.ops.flash_attention import attention_auto
 from vidil_tpu_torch.ops.fused_vit_block import fused_vit_block
@@ -47,25 +59,38 @@ def patchify(x, patch_size: int):
     return x.reshape(B, nH * nW, P * P * C)
 
 
-def attention(params, x, num_heads: int, dtype=None, use_flash: bool = True):
+def attention(params, x, num_heads: int, dtype=None, use_flash: bool = True, grid=None):
     """Fused-QKV self-attention; q, k, v reach the kernel as strided views
-    of the QKV projection. ``use_flash=False`` keeps plain attention."""
+    of the QKV projection. ``use_flash=False`` keeps plain attention.
+    Under `grid`'s model axis the qkv columns are this rank's heads and
+    proj is row-parallel; the gate reads the grid's global shape."""
+    tp = grid is not None and grid.tensor_parallel
+    if tp:
+        from vidil_tpu_torch.parallel.collectives import copy_to_model
+
+        x = copy_to_model(x, grid.model_group)
+        num_heads //= grid.model
     qkv = linear(params["qkv"], x, dtype=dtype)
     q, k, v = qkv.chunk(3, dim=-1)
     q, k, v = (split_heads(t, num_heads) for t in (q, k, v))
-    out = attention_auto(q, k, v, use_flash=use_flash)
+    out = attention_auto(q, k, v, use_flash=use_flash,
+                         grid=grid.gate if grid is not None else (1, 1))
+    if tp:
+        return row_linear(params["proj"], merge_heads(out), grid.model_group, dtype=dtype)
     return linear(params["proj"], merge_heads(out), dtype=dtype)
 
 
 def block_forward(params, x, num_heads: int, eps: float, dtype=None,
-                  use_fused_mlp: bool = False, use_flash: bool = True):
+                  use_fused_mlp: bool = False, use_flash: bool = True, grid=None):
     """Pre-LN residual block; the MLP goes through `mlp_auto` (kernel K3
-    when `use_fused_mlp` and its gate allow)."""
+    when `use_fused_mlp` and its gate allow), or `tp_mlp` under `grid`'s
+    model axis."""
     x = x + attention(params["attn"], layer_norm(params["norm1"], x, eps), num_heads, dtype=dtype,
-                      use_flash=use_flash)
-    x = x + mlp_auto(params["mlp"], layer_norm(params["norm2"], x, eps), act=gelu, dtype=dtype,
-                     use_fused=use_fused_mlp)
-    return x
+                      use_flash=use_flash, grid=grid)
+    h = layer_norm(params["norm2"], x, eps)
+    if grid is not None and grid.tensor_parallel:
+        return x + tp_mlp(params["mlp"], h, grid.model_group, act=gelu, dtype=dtype)
+    return x + mlp_auto(params["mlp"], h, act=gelu, dtype=dtype, use_fused=use_fused_mlp)
 
 
 def use_fused_schedule(cfg: ViTConfig, x) -> bool:
@@ -99,7 +124,8 @@ def _forward_with_attn(params, x, cfg: ViTConfig, dtype=None):
     return layer_norm(params["norm"], x, cfg.layer_norm_eps), attns
 
 
-def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = False):
+def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = False,
+                grid=None):
     """images: (B, H, W, C) NHWC, already resized/normalized.
     Returns (B, num_patches + 1, hidden) embeddings (token 0 = [CLS]), and
     with ``return_attn`` also every layer's attention maps (the
@@ -112,7 +138,12 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = 
     ``use_fused_block_bwd`` the backward kernel recomputes each block from
     its input, so nothing wraps it in a checkpoint.
     Classic schedule: blocks one after another, each recomputed in the
-    backward when ``cfg.remat`` (blocks from ``cfg.remat_from_layer`` on)."""
+    backward when ``cfg.remat`` (blocks from ``cfg.remat_from_layer`` on;
+    all of it, or all but the GEMM outputs under ``remat_policy: dots``).
+
+    grid: the train steps' (data, model) grid (`parallel/mesh.py:Grid`):
+    the attention gate reads the step's global shape, and a model axis runs
+    the classic blocks tensor-parallel on sharded parameters."""
     B = images.shape[0]
     x = linear(params["patch_embed"], patchify(images, cfg.patch_size), dtype=dtype)
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
@@ -120,7 +151,8 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = 
     x = x + params["pos_embed"][:, : x.shape[1], :].to(x.dtype)
     if return_attn:
         return _forward_with_attn(params, x, cfg, dtype)
-    if use_fused_schedule(cfg, x):
+    tp = grid is not None and grid.tensor_parallel
+    if use_fused_schedule(cfg, x) and not tp:
         L = x.shape[1]
         lp = (L + 127) // 128 * 128
         x = F.pad(x, (0, 0, 0, lp - L))
@@ -131,8 +163,9 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = 
                                 bwd_frames=cfg.fused_block_bwd_frames)
         return layer_norm(params["norm"], x[:, :L], cfg.layer_norm_eps)
     for i, blk in enumerate(params["blocks"]):
-        fn = remat(block_forward, cfg.remat and i >= cfg.remat_from_layer)
-        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype, cfg.use_fused_mlp, cfg.use_flash)
+        fn = remat(block_forward, cfg.remat and i >= cfg.remat_from_layer, cfg.remat_policy)
+        x = fn(blk, x, cfg.num_heads, cfg.layer_norm_eps, dtype, cfg.use_fused_mlp, cfg.use_flash,
+               grid)
     return layer_norm(params["norm"], x, cfg.layer_norm_eps)
 
 

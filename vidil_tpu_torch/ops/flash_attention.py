@@ -369,18 +369,20 @@ def flash_attention(q, k, v):
 _LOGITS_SPILL_BYTES = 128 * 1024 * 1024
 
 
-def _flash_profitable(q, k, bias) -> bool:
+def _flash_profitable(q, k, bias, grid=(1, 1)) -> bool:
     """The TPU package's dispatch rule (``_flash_profitable``), as it is:
     no bias, Lq >= 128, a >= 512-long axis on either side, D <= 256 and
-    fp32 logits of at least `_LOGITS_SPILL_BYTES`."""
+    fp32 logits of at least `_LOGITS_SPILL_BYTES`, read on the shape the
+    JAX program sees: batch x ``grid[0]``, heads x ``grid[1]``."""
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
+    B, H = B * grid[0], H * grid[1]
     return (bias is None and Lq >= 128 and (Lq >= 512 or Lk >= 512)
             and q.shape[-1] <= 256
             and B * H * Lq * Lk * 4 >= _LOGITS_SPILL_BYTES)
 
 
-def attention_auto(q, k, v, bias=None, use_flash: bool = True):
+def attention_auto(q, k, v, bias=None, use_flash: bool = True, grid=(1, 1)):
     """The reference's routing (``vidil_tpu/ops/flash_attention.py:
     attention_auto``): `flash_attention` (the kernels on CUDA tensors, the
     twins on the CPU, where the reference runs its kernel with
@@ -395,7 +397,17 @@ def attention_auto(q, k, v, bias=None, use_flash: bool = True):
     measured on a TPU, is also the fastest one on an H100 is a separate
     question, left open (ROADMAP). ``use_flash=False`` (``ViTConfig.use_flash``)
     sends every shape to the plain path, as in the reference.
+
+    ``grid`` = (data, model): the gate reads the shape of the JAX package's
+    one program, whose train steps run over the global batch and every
+    head. The four train steps pass their grid (`parallel/mesh.py:Grid.gate`)
+    down through `vit_forward` and `med_forward`: a rank's batch times the
+    data axis, its local heads times the model axis. Every other caller
+    keeps (1, 1), because there the JAX counterpart also sees a chunk of
+    its own: the inference CLIs whose ranks each take their own videos
+    (CapFilt, visual tokenization), the evaluations, and the rank-sharded
+    retrieval rerank.
     """
-    if use_flash and _flash_profitable(q, k, bias):
+    if use_flash and _flash_profitable(q, k, bias, grid):
         return flash_attention(q, k, v)
     return dot_product_attention(q, k, v, bias=bias)

@@ -219,6 +219,18 @@ class ClipTokenizationEngine(_Engine):
         return clip_image_embeds(self.params, x, self.cfg, dtype=self.dtype)
 
     @torch.no_grad()
+    def pool_frames(self, frames_u8) -> np.ndarray:
+        """The vision pooler_output (F, D_vision) on the host: the
+        post-LayerNorm CLS states before the visual projection, the
+        reference's clip-kmeans clustering feature (reference:
+        data/video_pretrain_dataset.py:199-202)."""
+        from vidil_tpu_torch.models.clip import clip_vision_forward
+
+        x = preprocess_any(self._put(frames_u8), self.cfg.image_size)
+        pooled = clip_vision_forward(self.params, x, self.cfg, dtype=self.dtype)[1]
+        return pooled.float().cpu().numpy()
+
+    @torch.no_grad()
     def score(self, image_embeds, text_embeds) -> np.ndarray:
         """(F, n) cosine scores, an fp32 product on the device, to the host."""
         return torch.matmul(image_embeds.float(), text_embeds.float().t()).cpu().numpy()
@@ -415,8 +427,33 @@ def predict_videos(
 
 
 def make_clip_kmeans_selector(engine: ClipTokenizationEngine, downsample_ratio: int = 2):
-    """clip-kmeans frame selection (the JAX package's
-    ``make_clip_kmeans_selector``) needs scikit-learn's KMeans, which the
-    port does not depend on: not ported yet."""
-    raise NotImplementedError("vidil_tpu_torch: the clip-kmeans frame selector is not ported yet "
-                              "(it needs scikit-learn)")
+    """clip-kmeans frame selection (reference:
+    data/video_pretrain_dataset.py:189-216; the JAX package's
+    ``make_clip_kmeans_selector``): embed every `downsample_ratio`-th frame
+    with CLIP (`pool_frames`), cluster the features with scikit-learn's
+    ``KMeans(n_clusters=num_frm, random_state=0)``, and draw one frame per
+    cluster with np.random. selector(vr, num_frm) -> sorted frame indices.
+
+    scikit-learn is imported here, on the host, as the JAX package imports
+    it; where it is missing this raises ImportError saying so."""
+    try:
+        from sklearn.cluster import KMeans
+    except ImportError as e:
+        raise ImportError("vidil_tpu_torch: the clip-kmeans frame selector needs scikit-learn "
+                          "(sklearn.cluster.KMeans) on the host; install it or choose another "
+                          "frm_sampling_strategy") from e
+
+    def selector(vr, num_frm: int):
+        vlen = len(vr)
+        downsampled = np.arange(vlen, step=downsample_ratio, dtype=int)
+        frames = vr.get_batch(downsampled)
+        pre = clip_preprocess_pil(frames, engine.cfg.image_size)
+        emb = engine.pool_frames(pre)
+        labels = KMeans(n_clusters=num_frm, random_state=0).fit(emb).labels_
+        out = []
+        for i in range(num_frm):
+            masked = np.where(labels == i)[0]
+            out.append(downsampled[np.random.choice(masked)])
+        return sorted(out)
+
+    return selector

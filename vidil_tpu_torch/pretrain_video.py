@@ -23,8 +23,12 @@ batch is the reference's ``batch_size`` (8 when unset); a
 ``torchrun --nproc_per_node=N``: each rank takes its rows of every global
 batch, its losses are shares of the global batch's and the gradients are
 summed over the ranks (as in the retrieval trainer); ``data_parallel: N``
-must match the launch's world, ``optimizer_sharding: zero1`` shards the
-AdamW moments, and ``model_parallel > 1`` raises NotImplementedError.
+times ``model_parallel`` must be the launch's world, ``optimizer_sharding: zero1`` shards the
+AdamW moments. ``model_parallel: M`` adds a model axis: the launch's world is a (data,
+model) grid of ranks (torchrun ``--nproc_per_node`` = data x model), each
+model rank holding its shard of the towers' heads and hidden columns
+(`parallel/sharding.py`); the saved states hold whole leaves, and the
+evaluation runs on the gathered weights, split over the whole world.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ import argparse
 import dataclasses
 import json
 import os
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -67,8 +70,8 @@ def main(args, config):
     from vidil_tpu_torch.data.datasets import PrefetchLoader, RetrievalTrainDataset
     from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
-    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
-    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding, gather_params
     from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
@@ -78,22 +81,22 @@ def main(args, config):
 
     device = resolve_device(getattr(args, "device", "cuda"))
     owns_group = utils.init_distributed_mode(args, device=device)
-    data_parallel_from_config(config)
+    grid = grid_from_config(config)
     utils.seed_everything(args.seed)
 
     vit_cfg, med_cfg, tokenizer = build(config)
     dataset = RetrievalTrainDataset(dict(config), max_words=config.get("max_words", 30))
     B = resolve_train_batch(config, "batch_size", 8)
     loader = PrefetchLoader(dataset, B, shuffle=True, drop_last=True, seed=args.seed,
-                            **loader_shards())
+                            **loader_shards(grid=grid))
 
     queue_size = config.get("queue_size", 57600)
     queue_size -= queue_size % B
     state = create_pretrain_state(init_pretrain_params(vit_cfg, med_cfg), config["init_lr"],
                                   config.get("weight_decay", 0.05), queue_size=queue_size,
-                                  seed=args.seed, device=device)
+                                  seed=args.seed, device=device, grid=grid)
     state = apply_optimizer_sharding(state, config)
-    step_fn = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
+    step_fn = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16, grid=grid)
 
     start_epoch = 0
     resume_path = config.get("resume", "")
@@ -129,9 +132,10 @@ def main(args, config):
         logger.synchronize_between_processes()
         save_train_state(os.path.join(args.output_dir, "checkpoint_last"), state,
                          meta={"epoch": epoch})
+        whole = gather_params(state.params, grid)
         if utils.is_main_process():
             save_checkpoint(os.path.join(args.output_dir, f"checkpoint_{epoch:02d}"),
-                            state.params, meta={"epoch": epoch})
+                            whole, meta={"epoch": epoch})
             with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
                 stats = {k: m.global_avg for k, m in logger.meters.items()}
                 f.write(json.dumps({**stats, "epoch": epoch}) + "\n")
@@ -154,12 +158,9 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    import yaml
+    from vidil_tpu_torch.config import dump_yaml_config, load_yaml_config
 
     args = parse_args()
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    config = load_yaml_config(args.config)
+    dump_yaml_config(config, args.output_dir, sort_keys=True)
     main(args, config)

@@ -34,7 +34,6 @@ import argparse
 import json
 import os
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,10 +44,10 @@ def build_engine(config, device="cuda", dtype=None):
     from vidil_tpu_torch.pipeline.capfilt import CapFiltEngine, resolve_device
     from vidil_tpu_torch.tokenizer import BlipTokenizer
 
-    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
 
     device = resolve_device(device)
-    data_parallel_from_config(config)
+    grid_from_config(config)
     if "vit_config" in config:  # custom architecture (tests / non-standard sizes)
         vit_cfg = ViTConfig(image_size=config["image_size"], **config["vit_config"])
     else:
@@ -294,12 +293,9 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    import yaml
+    from vidil_tpu_torch.config import dump_yaml_config, load_yaml_config
 
     args = parse_args()
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    config = load_yaml_config(args.config)
+    dump_yaml_config(config, args.output_dir, sort_keys=True)
     main(args, config)

@@ -30,27 +30,20 @@ import argparse
 import json
 import os
 import time
-from pathlib import Path
 
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _refuse_unported(config) -> None:
-    """The data axis the config asks for must be the launch's world."""
-    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
-
-    data_parallel_from_config(config)
-
-
 def build_clip_engine(config, dtype=None, device="cuda"):
     from vidil_tpu_torch.config import CLIPConfig, compute_dtype_from_config
     from vidil_tpu_torch.models.convert import convert_clip, load_torch_state_dict
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
     from vidil_tpu_torch.pipeline.visual_tokenization import ClipTokenizationEngine
     from vidil_tpu_torch.tokenizer import ClipBPETokenizer
 
-    _refuse_unported(config)
+    grid_from_config(config)  # the launch's world; the chunks split over all of it
     if "clip_config" in config:
         clip_cfg = CLIPConfig(**config["clip_config"])
     else:
@@ -66,10 +59,11 @@ def build_clip_engine(config, dtype=None, device="cuda"):
 def build_blip_engine(config, dtype=None, device="cuda"):
     from vidil_tpu_torch.config import MedConfig, ViTConfig, compute_dtype_from_config
     from vidil_tpu_torch.models.convert import convert_blip_retrieval, load_torch_state_dict
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
     from vidil_tpu_torch.pipeline.visual_tokenization import BlipTokenizationEngine
     from vidil_tpu_torch.tokenizer import BlipTokenizer
 
-    _refuse_unported(config)
+    grid_from_config(config)  # the launch's world; the chunks split over all of it
     if "vit_config" in config:
         vit_cfg = ViTConfig(image_size=config["image_size"], **config["vit_config"])
     else:
@@ -269,13 +263,10 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    import yaml
+    from vidil_tpu_torch.config import dump_yaml_config, load_yaml_config
 
     args = parse_args()
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_yaml_config(args.config)
     config["num_frm_train"] = config["num_frm_visual_tokenization"]
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    dump_yaml_config(config, args.output_dir, sort_keys=True)
     main(args, config)

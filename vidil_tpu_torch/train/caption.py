@@ -13,14 +13,15 @@ import torch
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import blip as B
-from vidil_tpu_torch.parallel.collectives import psum
 from vidil_tpu_torch.train.common import (
     TrainState,
     apply_gradients,
     create_train_state,
+    model_batch,
+    step_grid,
+    step_metrics,
     training_cfgs,
 )
-from vidil_tpu_torch.utils.dist import is_dist_avail_and_initialized
 
 
 # the JAX package's names for the trainers' shared state
@@ -29,7 +30,7 @@ create_caption_train_state = create_train_state
 
 
 def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_length: int,
-                            dtype=None, med_remat: bool = True):
+                            dtype=None, med_remat: bool = True, grid=None):
     """step(state, batch) -> (state, {"loss"}); updates `state` in place.
 
     batch: video (B, N, S, S, C) normalized, input_ids (B, L) starting with
@@ -37,23 +38,28 @@ def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_lengt
     batches expose the chosen frame as N == 1. After a step the parameters'
     ``.grad`` hold that step's gradients.
 
-    Under a process group (one rank included) the batch is this rank's rows
-    of the global batch; the loss is the rank's share of the global token
-    mean, the gradients are summed over the ranks, and the reported loss is
-    the global batch's.
+    The step runs on the state's grid (`common.step_grid`; `grid` here is
+    that grid, for the ViT's schedule: `training_cfgs`). Under its data
+    axis (a process group, one rank included) the batch is this data rank's
+    rows of the global batch; the loss is the rank's share of the global
+    token mean, the gradients are summed over the data group, and the
+    reported loss is the global batch's. Under its model axis the towers
+    run on this rank's heads and hidden columns.
     """
-    vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat)
+    vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat,
+                                     model_parallel=grid.model if grid is not None else 1)
 
     def train_step(state: TrainState, batch):
-        dp = is_dist_avail_and_initialized()
+        g = step_grid(state)
         dev = state.device
-        video = torch.as_tensor(batch["video"], dtype=torch.float32, device=dev)
-        ids = torch.as_tensor(batch["input_ids"], device=dev).long()
-        mask = torch.as_tensor(batch["attention_mask"], device=dev).long()
-        embeds = B.encode_video_frames(state.params, video, vit_cfg, dtype=dtype)
+        b = model_batch({"video": torch.as_tensor(batch["video"], dtype=torch.float32, device=dev),
+                         "ids": torch.as_tensor(batch["input_ids"], device=dev).long(),
+                         "mask": torch.as_tensor(batch["attention_mask"], device=dev).long()}, g)
+        video, ids, mask = b["video"], b["ids"], b["mask"]
+        embeds = B.encode_video_frames(state.params, video, vit_cfg, dtype=dtype, grid=g)
         loss = B.blip_caption_loss(state.params, embeds, ids, mask, med_cfg,
-                                   prompt_length=prompt_length, dtype=dtype, data_parallel=dp)
-        return apply_gradients(state, loss, dp), {"loss": psum(loss) if dp else loss.detach()}
+                                   prompt_length=prompt_length, dtype=dtype, grid=g)
+        return apply_gradients(state, loss, g), step_metrics(g, loss=loss)
 
     return train_step
 

@@ -4,11 +4,15 @@ the train state of the caption and VQA trainers.
 Counterpart of ``vidil_tpu/train/common.py`` (`training_cfgs`,
 `resolve_train_batch`) and of ``vidil_tpu/train/retrieval.py:make_optimizer``.
 
-Data parallelism: each rank's step takes its rows of the global batch and
+The (data, model) grid (`parallel/mesh.py:Grid`, carried by the train
+state): each data rank's step takes its rows of the global batch and
 computes its share of the global batch's loss (a mean over the global
-batch's tokens or rows, whose counts come from an all-reduce); the
-gradients are summed over the ranks before AdamW (`apply_gradients`), so
-every rank takes the one-process global-batch step.
+batch's tokens or rows, whose counts come from an all-reduce over the data
+group); the gradients are summed over the data group before AdamW
+(`apply_gradients`), so every rank takes the one-process global-batch
+step. Under a model axis the state holds this rank's shards of the
+parameters (`parallel/sharding.py:shard_params`), the towers run
+tensor-parallel, and every model rank computes the same global loss.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 from vidil_tpu_torch.models.convert import named_leaves
 
 
-def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: bool = True):
+def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: bool = True,
+                  model_parallel: int = 1):
     """Return (vit_cfg, med_cfg) adjusted for autodiff training, as the JAX
     package's `training_cfgs` does:
 
@@ -43,6 +48,12 @@ def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: b
     The fused schedule self-gates in `vit_forward`: it runs on the card at
     a width that is a multiple of 128, so off the card (or at the 32-wide
     test sizes) the same config trains on the classic schedule.
+
+    Under ``model_parallel > 1`` the ViT takes the classic schedule, and one
+    printed line says so: K4 and K5 compute a whole block with its residual
+    in one call, and a head shard cannot, since the projection's partial
+    sums must be summed over the model ranks before the residual. The
+    towers' heads and widths must divide the model axis (ValueError).
     """
     if med_remat and not med_cfg.remat:
         med_cfg = dataclasses.replace(med_cfg, remat=True)
@@ -50,6 +61,19 @@ def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: b
         vit_cfg = dataclasses.replace(vit_cfg, use_fused_mlp=False)
     if med_cfg.use_fused_mlp:
         med_cfg = dataclasses.replace(med_cfg, use_fused_mlp=False)
+    if model_parallel > 1:
+        widths = {"vit num_heads": vit_cfg.num_heads, "vit hidden_size": vit_cfg.hidden_size,
+                  "vit mlp width": int(vit_cfg.hidden_size * vit_cfg.mlp_ratio),
+                  "med num_heads": med_cfg.num_heads, "med hidden_size": med_cfg.hidden_size,
+                  "med intermediate_size": med_cfg.intermediate_size}
+        bad = {k: v for k, v in widths.items() if v % model_parallel}
+        if bad:
+            raise ValueError(f"model_parallel {model_parallel} does not divide {bad}")
+        print(f"model_parallel {model_parallel}: the ViT trains on the classic schedule (its "
+              f"attention through K1/K2 on {vit_cfg.num_heads // model_parallel} local heads); "
+              f"the fused block pair K4/K5 does not split by heads", flush=True)
+        return dataclasses.replace(vit_cfg, use_fused_block=False,
+                                   use_fused_block_bwd=False), med_cfg
     fused_env = os.environ.get("VIDIL_TPU_TRAIN_FUSED_BLOCK")
     if fused_env == "0":
         vit_cfg = dataclasses.replace(vit_cfg, use_fused_block=False, use_fused_block_bwd=False)
@@ -90,10 +114,11 @@ def resolve_train_batch(config: dict, key: str, default: int | None = None) -> i
     return int(base)
 
 
-def loader_shards(n_items: int | None = None) -> dict:
-    """`PrefetchLoader` keywords of this rank over the world of ranks:
-    its rows of each global train batch (no `n_items`), or its
-    `shard_range` of an eval set of `n_items`. Empty on one rank."""
+def loader_shards(n_items: int | None = None, grid=None) -> dict:
+    """`PrefetchLoader` keywords of this rank: its rows of each global train
+    batch over the grid's data axis (no `n_items`; `grid` default: the
+    world's), or its `shard_range` of an eval set of `n_items` over the
+    whole world. Empty on one rank."""
     from vidil_tpu_torch.utils.dist import get_rank, get_world_size
     from vidil_tpu_torch.utils.io import shard_range
 
@@ -101,6 +126,8 @@ def loader_shards(n_items: int | None = None) -> dict:
     if world == 1:
         return {}
     if n_items is None:
+        if grid is not None and grid.data_group is not None:
+            return {} if grid.data == 1 else {"rank_rows": (grid.data_rank, grid.data)}
         return {"rank_rows": (get_rank(), world)}
     return {"item_range": shard_range(n_items)}
 
@@ -121,21 +148,34 @@ def set_lr(optimizer, lr: float) -> None:
 
 @dataclass
 class TrainState:
-    params: dict  # port tree of fp32 leaves that require grad
+    params: dict  # port tree of fp32 leaves that require grad (this rank's shards)
     optimizer: torch.optim.Optimizer
     device: torch.device
     step: int = 0
+    grid: object = None  # parallel/mesh.py:Grid; None: the world's data axis
+
+
+def step_grid(state):
+    """The grid a step runs on: the state's, else the data axis over the
+    world (`mesh.world_grid`: no collective without a process group)."""
+    from vidil_tpu_torch.parallel.mesh import world_grid
+
+    return state.grid if state.grid is not None else world_grid()
 
 
 def create_train_state(params, init_lr: float, weight_decay: float = 0.05,
-                       device="cuda") -> TrainState:
+                       device="cuda", grid=None) -> TrainState:
     """Copy `params` to `device` as fp32 leaves that require grad (the
     caller's tensors are left as they are), and build the AdamW optimizer
     over them. CUDA unless the caller asks for the CPU; raises when CUDA is
-    asked for and missing."""
+    asked for and missing. Under `grid`'s model axis (a
+    `parallel/mesh.py:Grid`) the state keeps this rank's shards
+    (`shard_params`)."""
+    from vidil_tpu_torch.parallel.sharding import shard_params
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
 
     device = resolve_device(device)
+    params = shard_params(params, grid)
 
     def leaf(t):
         if t.dtype != torch.float32:
@@ -150,23 +190,52 @@ def create_train_state(params, init_lr: float, weight_decay: float = 0.05,
         return leaf(node)
 
     params = copy(params)
-    return TrainState(params, make_optimizer(params, init_lr, weight_decay), device)
+    return TrainState(params, make_optimizer(params, init_lr, weight_decay), device, grid=grid)
 
 
-def apply_gradients(state: TrainState, loss, data_parallel: bool = False) -> TrainState:
+def model_batch(tensors: dict, grid) -> dict:
+    """The batch's tensors, under `grid`'s model axis those of the first
+    model rank of this data rank (`broadcast_first`): every model rank
+    computes its heads of the same rows, whatever augmentations its own
+    loader drew."""
+    from vidil_tpu_torch.parallel.collectives import broadcast_first
+
+    if grid is None or not grid.tensor_parallel:
+        return tensors
+    return broadcast_first(tensors, grid.model_group)
+
+
+def step_metrics(grid, **losses) -> dict:
+    """The step's losses, detached; the global batch's (the data ranks'
+    shares summed over the data group) under `grid`'s data axis."""
+    from vidil_tpu_torch.parallel.collectives import psum
+
+    if grid is None or not grid.data_parallel:
+        return {k: v.detach() for k, v in losses.items()}
+    return {k: psum(v, grid.data_group) for k, v in losses.items()}
+
+
+def apply_gradients(state: TrainState, loss, grid=None) -> TrainState:
     """Backward of `loss` into fresh ``.grad`` and one AdamW step, in place;
     the parameters' ``.grad`` keep this step's gradients.
 
-    data_parallel: `loss` is this rank's share of the global batch's loss
-    (the shares sum to it), so the gradients are summed over the ranks
-    (`all_reduce_grads`, bucketed) before the step: every rank then takes
-    the one-process global-batch step."""
-    from vidil_tpu_torch.parallel.collectives import all_reduce_grads
+    grid (`parallel/mesh.py:Grid`): under its data axis `loss` is this
+    rank's share of the global batch's loss (the shares sum to it), so the
+    gradients are summed over the data group (`all_reduce_grads`,
+    bucketed) before the step: every rank then takes the one-process
+    global-batch step. Under its model axis the leaves it replicates first
+    take the first model rank's gradient (`broadcast_grads`): the model
+    ranks compute them alike, but a kernel's atomic adds may round them
+    otherwise, and the replicas must stay equal."""
+    from vidil_tpu_torch.parallel.collectives import all_reduce_grads, broadcast_grads
+    from vidil_tpu_torch.parallel.sharding import replicated_leaves
 
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    if data_parallel:
-        all_reduce_grads([p for _, p in named_leaves(state.params)])
+    if grid is not None and grid.tensor_parallel:
+        broadcast_grads(replicated_leaves(state.params), grid.model_group)
+    if grid is not None and grid.data_parallel:
+        all_reduce_grads([p for _, p in named_leaves(state.params)], grid.data_group)
     state.optimizer.step()
     state.step += 1
     return state

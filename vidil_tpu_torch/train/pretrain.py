@@ -13,14 +13,12 @@ from __future__ import annotations
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models.blip_pretrain import pretrain_loss
 from vidil_tpu_torch.models.blip_retrieval import momentum_update
-from vidil_tpu_torch.train.common import training_cfgs
-from vidil_tpu_torch.utils.dist import is_dist_avail_and_initialized
+from vidil_tpu_torch.train.common import model_batch, step_grid, step_metrics, training_cfgs
 from vidil_tpu_torch.train.retrieval import (
     RetrievalTrainState,
     batch_tensors,
     create_train_state,
     finish_step,
-    step_metrics,
 )
 
 # the JAX package's names: the state has the retrieval state's fields
@@ -29,24 +27,25 @@ create_pretrain_state = create_train_state
 
 
 def make_pretrain_step(vit_cfg: ViTConfig, med_cfg: MedConfig, momentum: float = 0.995,
-                       dtype=None, med_remat: bool = True):
+                       dtype=None, med_remat: bool = True, grid=None):
     """step(state, batch, alpha, generator, negatives=None) -> (state, metrics),
     updating `state` in place. batch: video, text_ids, enc_ids, dec_ids,
-    text_mask. The queue's idx slots are written as -100. Under a process
-    group, and the metrics' ``negatives``: as the retrieval step's."""
-    vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat)
+    text_mask. The queue's idx slots are written as -100. The grid, and
+    the metrics' ``negatives``: as the retrieval step's."""
+    vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat,
+                                     model_parallel=grid.model if grid is not None else 1)
 
     def train_step(state: PretrainState, batch, alpha, generator, negatives=None):
-        dp = is_dist_avail_and_initialized()
-        b = batch_tensors(batch, state.device)
+        g = step_grid(state)
+        b = model_batch(batch_tensors(batch, state.device), g)
         momentum_update(state.params, state.params_m, momentum)
         ita, itm, lm, aux = pretrain_loss(
             state.params, state.params_m, state.queue, b["video"], b["text_ids"], b["enc_ids"],
             b["dec_ids"], b["text_mask"], alpha, generator, vit_cfg, med_cfg, dtype=dtype,
-            negatives=negatives, data_parallel=dp)
+            negatives=negatives, grid=g)
         loss = ita + itm + lm
-        state = finish_step(state, loss, aux, dp)
-        metrics = step_metrics(dp, loss=loss, loss_ita=ita, loss_itm=itm, loss_lm=lm)
+        state = finish_step(state, loss, aux, g)
+        metrics = step_metrics(g, loss=loss, loss_ita=ita, loss_itm=itm, loss_lm=lm)
         return state, {**metrics, "negatives": aux["negatives"]}
 
     return train_step

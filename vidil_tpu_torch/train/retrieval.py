@@ -27,14 +27,16 @@ from vidil_tpu_torch.models.blip_retrieval import (
     retrieval_loss,
 )
 from vidil_tpu_torch.models.convert import to_device
-from vidil_tpu_torch.parallel.collectives import psum
+from vidil_tpu_torch.parallel.sharding import shard_params
 from vidil_tpu_torch.train.common import (
     TrainState,
     apply_gradients,
     create_train_state as create_base_state,
+    model_batch,
+    step_grid,
+    step_metrics,
     training_cfgs,
 )
-from vidil_tpu_torch.utils.dist import is_dist_avail_and_initialized
 from vidil_tpu_torch.utils.seeding import make_generator
 
 
@@ -47,23 +49,27 @@ class RetrievalTrainState(TrainState):
 def create_train_state(params, init_lr: float, weight_decay: float = 0.05, *,
                        embed_dim: int = 256, queue_size: int = 57600, seed: int = 0,
                        params_m=None, queue: QueueState | None = None,
-                       device="cuda") -> RetrievalTrainState:
+                       device="cuda", grid=None) -> RetrievalTrainState:
     """Master parameters on `device` (``temp`` = 0.07 when missing), their
     momentum copies (or `params_m`, copied) and the queues (or `queue`,
-    copied; else drawn from ``make_generator(seed, -1)``)."""
+    copied; else drawn from ``make_generator(seed, -1)``). Under `grid`'s
+    model axis the parameters and the momentum towers are this rank's
+    shards (`shard_params`, as JAX shards both); the queues are whole on
+    every rank."""
     if "temp" not in params:
         params = {**params, "temp": torch.tensor(0.07, dtype=torch.float32)}
-    base = create_base_state(params, init_lr, weight_decay, device=device)
+    base = create_base_state(params, init_lr, weight_decay, device=device, grid=grid)
     dev = base.device
     if params_m is None:
         params_m = init_momentum_params(base.params)
     else:
-        params_m = init_momentum_params(to_device(params_m, dev))
+        params_m = init_momentum_params(to_device(shard_params(params_m, grid), dev))
     if queue is None:
         queue = init_queue(make_generator(seed, -1, dev), embed_dim, queue_size, device=dev)
     else:
         queue = QueueState(*(t.to(dev, copy=True) for t in queue[:3]), int(queue.ptr))
-    return RetrievalTrainState(base.params, base.optimizer, dev, base.step, params_m, queue)
+    return RetrievalTrainState(base.params, base.optimizer, dev, base.step, grid=grid,
+                               params_m=params_m, queue=queue)
 
 
 def batch_tensors(batch: dict, device) -> dict:
@@ -73,12 +79,11 @@ def batch_tensors(batch: dict, device) -> dict:
             else torch.as_tensor(v, device=device).long() for k, v in batch.items()}
 
 
-def finish_step(state: RetrievalTrainState, loss, aux,
-                data_parallel: bool = False) -> RetrievalTrainState:
+def finish_step(state: RetrievalTrainState, loss, aux, grid=None) -> RetrievalTrainState:
     """The step's tail shared with pretraining: backward (the gradients
-    summed over the ranks under `data_parallel`) and AdamW, the temperature
-    clamp, the queue update from the global batch's momentum features."""
-    apply_gradients(state, loss, data_parallel)
+    summed over `grid`'s data group) and AdamW, the temperature clamp, the
+    queue update from the global batch's momentum features."""
+    apply_gradients(state, loss, grid)
     with torch.no_grad():
         state.params["temp"].clamp_(0.001, 0.5)
     state.queue = dequeue_and_enqueue(state.queue, aux["video_feat_m"], aux["text_feat_m"],
@@ -86,14 +91,8 @@ def finish_step(state: RetrievalTrainState, loss, aux,
     return state
 
 
-def step_metrics(data_parallel: bool, **losses) -> dict:
-    """The step's losses, detached; the global batch's (summed over the
-    ranks' shares) under `data_parallel`."""
-    return {k: psum(v) if data_parallel else v.detach() for k, v in losses.items()}
-
-
 def make_retrieval_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, momentum: float = 0.995,
-                              dtype=None, med_remat: bool = True):
+                              dtype=None, med_remat: bool = True, grid=None):
     """step(state, batch, alpha, generator, negatives=None) -> (state, metrics),
     updating `state` in place.
 
@@ -102,24 +101,27 @@ def make_retrieval_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, momentum: 
     `negatives` gives them (see `retrieval_loss`). After a step the
     parameters' ``.grad`` hold its gradients.
 
-    Under a process group (one rank included) the batch is this rank's rows
-    of the global batch, every rank passes a generator seeded alike, and
-    the metrics are the global batch's losses. The metrics also hold the
-    step's ``negatives``, (neg_video_idx, neg_text_idx) over the global
-    batch."""
-    vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat, default_fused_bwd=False)
+    The step runs on the state's grid (`common.step_grid`; `grid` here for
+    the ViT's schedule). Under its data axis (a process group, one rank
+    included) the batch is this data rank's rows of the global batch, every
+    rank passes a generator seeded alike, and the metrics are the global
+    batch's losses; under its model axis the towers run on this rank's
+    heads. The metrics also hold the step's ``negatives``, (neg_video_idx,
+    neg_text_idx) over the global batch."""
+    vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat, default_fused_bwd=False,
+                                     model_parallel=grid.model if grid is not None else 1)
 
     def train_step(state: RetrievalTrainState, batch, alpha, generator, negatives=None):
-        dp = is_dist_avail_and_initialized()
-        b = batch_tensors(batch, state.device)
+        g = step_grid(state)
+        b = model_batch(batch_tensors(batch, state.device), g)
         momentum_update(state.params, state.params_m, momentum)
         loss_ita, loss_itm, aux = retrieval_loss(
             state.params, state.params_m, state.queue, b["video"], b["text_ids"], b["enc_ids"],
             b["text_mask"], alpha, b["idx"], generator, vit_cfg, med_cfg, dtype=dtype,
-            negatives=negatives, data_parallel=dp)
+            negatives=negatives, grid=g)
         loss = loss_ita + loss_itm
-        state = finish_step(state, loss, aux, dp)
-        metrics = step_metrics(dp, loss=loss, loss_ita=loss_ita, loss_itm=loss_itm)
+        state = finish_step(state, loss, aux, g)
+        metrics = step_metrics(g, loss=loss, loss_ita=loss_ita, loss_itm=loss_itm)
         return state, {**metrics, "negatives": aux["negatives"]}
 
     return train_step

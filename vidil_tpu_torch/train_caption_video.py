@@ -19,9 +19,13 @@ Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
 takes its rows of every global batch of ``train_batch_size`` (which N
 must divide) and the gradients are summed over the ranks, so the step is
 the one-process step at that batch; the val/test captions are split
-across the ranks and merged by rank 0. ``data_parallel: N`` must match
-the launch's world; ``optimizer_sharding: zero1`` shards the AdamW
-moments (ZeRO-1); ``model_parallel > 1`` raises NotImplementedError.
+across the ranks and merged by rank 0. ``data_parallel: N`` times ``model_parallel``
+must be the launch's world; ``optimizer_sharding: zero1`` shards the AdamW
+moments (ZeRO-1). ``model_parallel: M`` adds a model axis: the launch's world is a (data,
+model) grid of ranks (torchrun ``--nproc_per_node`` = data x model), each
+model rank holding its shard of the towers' heads and hidden columns
+(`parallel/sharding.py`); the saved states hold whole leaves, and the
+evaluation runs on the gathered weights, split over the whole world.
 """
 
 from __future__ import annotations
@@ -110,8 +114,8 @@ def main(args, config):
         make_caption_train_step,
         select_frame_itm,
     )
-    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
-    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding, gather_params
     from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
     from vidil_tpu_torch.utils.logging import MetricLogger
@@ -119,7 +123,7 @@ def main(args, config):
 
     device = resolve_device(getattr(args, "device", "cuda"))
     owns_group = utils.init_distributed_mode(args, device=device)
-    data_parallel_from_config(config)
+    grid = grid_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
 
@@ -140,17 +144,19 @@ def main(args, config):
 
     train_B = resolve_train_batch(config, "train_batch_size")
     train_loader = PrefetchLoader(train_dataset, train_B, shuffle=True,
-                                  drop_last=True, seed=args.seed, **loader_shards())
+                                  drop_last=True, seed=args.seed, **loader_shards(grid=grid))
     val_loader = PrefetchLoader(val_dataset, config["test_batch_size"],
                                 **loader_shards(len(val_dataset)))
     test_loader = PrefetchLoader(test_dataset, config["test_batch_size"],
                                  **loader_shards(len(test_dataset)))
 
     state = create_caption_train_state(params, config["init_lr"],
-                                       config.get("weight_decay", 0.05), device=device)
+                                       config.get("weight_decay", 0.05), device=device,
+                                       grid=grid)
     state = apply_optimizer_sharding(state, config)
     del params
-    train_step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=dtype)
+    train_step = make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=dtype,
+                                         grid=grid)
 
     # 'single_frame' mode: pick the best-matching frame per caption with the
     # ITM filterer (reference: train_caption_video.py:30-36,137-143)
@@ -205,12 +211,13 @@ def main(args, config):
         if epoch == config["max_epoch"] - 1 or args.evaluate:
             skip_val = config.get("skip_val", False)
             log_stats = {}
+            eval_params = gather_params(state.params, grid)
             if not skip_val:
-                val_result = evaluate(state.params, val_loader, tokenizer, vit_cfg, med_cfg,
+                val_result = evaluate(eval_params, val_loader, tokenizer, vit_cfg, med_cfg,
                                       config, dtype=dtype)
                 val_file = save_result(val_result, args.result_dir, f"val_epoch{epoch}",
                                        remove_duplicate="video_id")
-            test_result = evaluate(state.params, test_loader, tokenizer, vit_cfg, med_cfg,
+            test_result = evaluate(eval_params, test_loader, tokenizer, vit_cfg, med_cfg,
                                    config, dtype=dtype)
             test_file = save_result(test_result, args.result_dir, f"test_epoch{epoch}",
                                     remove_duplicate="video_id")
@@ -230,7 +237,7 @@ def main(args, config):
                             best = video_val["CIDEr"] + video_val["Bleu_4"]
                             best_epoch = epoch
                         save_checkpoint(
-                            os.path.join(args.output_dir, "checkpoint_best"), state.params,
+                            os.path.join(args.output_dir, "checkpoint_best"), eval_params,
                             meta={"epoch": epoch, "config": {
                                 k: v for k, v in config.items()
                                 if isinstance(v, (str, int, float, bool, type(None)))}})
@@ -260,14 +267,11 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    import yaml
+    from vidil_tpu_torch.config import dump_yaml_config, load_yaml_config
 
     args = parse_args()
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_yaml_config(args.config)
     args.result_dir = os.path.join(args.output_dir, "result")
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     Path(args.result_dir).mkdir(parents=True, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    dump_yaml_config(config, args.output_dir, sort_keys=True)
     main(args, config)

@@ -25,9 +25,13 @@ takes its rows of every global batch, the losses are its shares of the
 global batch's (the world's momentum features enter the queues; the hard
 negatives are drawn over the global batch from a generator seeded alike
 on every rank) and the gradients are summed over the ranks; the eval
-reranks each rank's rows and combines them. ``data_parallel: N`` must
-match the launch's world, ``optimizer_sharding: zero1`` shards the AdamW
-moments (ZeRO-1), and ``model_parallel > 1`` raises NotImplementedError.
+reranks each rank's rows and combines them. ``data_parallel: N`` times
+``model_parallel`` must be the launch's world, ``optimizer_sharding: zero1`` shards the AdamW
+moments (ZeRO-1). ``model_parallel: M`` adds a model axis: the launch's world is a (data,
+model) grid of ranks (torchrun ``--nproc_per_node`` = data x model), each
+model rank holding its shard of the towers' heads and hidden columns
+(`parallel/sharding.py`); the saved states hold whole leaves, and the
+evaluation runs on the gathered weights, split over the whole world.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,8 +97,8 @@ def main(args, config):
         RetrievalTrainDataset,
     )
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
-    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
-    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding, gather_params
     from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.train.retrieval import create_train_state, make_retrieval_train_step
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
@@ -105,7 +108,7 @@ def main(args, config):
 
     device = resolve_device(getattr(args, "device", "cuda"))
     owns_group = utils.init_distributed_mode(args, device=device)
-    data_parallel_from_config(config)
+    grid = grid_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
 
@@ -125,15 +128,16 @@ def main(args, config):
 
     B = resolve_train_batch(config, "batch_size_train")
     train_loader = PrefetchLoader(train_dataset, B, shuffle=True, drop_last=True, seed=args.seed,
-                                  **loader_shards())
+                                  **loader_shards(grid=grid))
     # the queue must be a multiple of the batch (reference :546)
     queue_size = config["queue_size"] - config["queue_size"] % B
     state = create_train_state(params, config["init_lr"], config.get("weight_decay", 0.05),
                                embed_dim=params["vision_proj"]["kernel"].shape[1],
-                               queue_size=queue_size, seed=args.seed, device=device)
+                               queue_size=queue_size, seed=args.seed, device=device,
+                               grid=grid)
     state = apply_optimizer_sharding(state, config)
     del params
-    train_step = make_retrieval_train_step(vit_cfg, med_cfg, dtype=dtype)
+    train_step = make_retrieval_train_step(vit_cfg, med_cfg, dtype=dtype, grid=grid)
 
     # full-state resume: params, AdamW moments, momentum towers, queues
     start_epoch = 0
@@ -144,8 +148,8 @@ def main(args, config):
         start_epoch = (ck_meta or {}).get("epoch", -1) + 1
         print(f"resumed full train state from {resume_path} at epoch {start_epoch}")
 
-    def evaluate(dataset):
-        return run_eval(state.params, dataset, tokenizer, vit_cfg, med_cfg, config, dtype)
+    def evaluate(params, dataset):
+        return run_eval(params, dataset, tokenizer, vit_cfg, med_cfg, config, dtype)
 
     best, best_epoch = 0.0, 0
     n_steps_per_epoch = len(train_loader)
@@ -168,9 +172,10 @@ def main(args, config):
                 logger.update(loss_ita=float(metrics["loss_ita"]),
                               loss_itm=float(metrics["loss_itm"]), lr=lr)
 
-        val_metrics = evaluate(val_dataset)
+        eval_params = gather_params(state.params, grid)
+        val_metrics = evaluate(eval_params, val_dataset)
         print("val:", val_metrics)
-        test_metrics = evaluate(test_dataset)
+        test_metrics = evaluate(eval_params, test_dataset)
         print("test:", test_metrics)
         if utils.is_main_process():
             log_stats = {**{f"val_{k}": v for k, v in val_metrics.items()},
@@ -178,7 +183,7 @@ def main(args, config):
             if not args.evaluate and val_metrics["r_mean"] > best:
                 best = val_metrics["r_mean"]
                 best_epoch = epoch
-                save_checkpoint(os.path.join(args.output_dir, "checkpoint_best"), state.params,
+                save_checkpoint(os.path.join(args.output_dir, "checkpoint_best"), eval_params,
                                 meta={"epoch": epoch})
             log_stats["best_epoch"] = best_epoch
             name = "evaluate.txt" if args.evaluate else "log.txt"
@@ -215,13 +220,10 @@ def parse_args(argv=None, evaluate_flag: bool = True,
 
 def run_cli(args):
     """Read the yaml, write it into the output dir, run `main`."""
-    import yaml
+    from vidil_tpu_torch.config import dump_yaml_config, load_yaml_config
 
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    config = load_yaml_config(args.config)
+    dump_yaml_config(config, args.output_dir, sort_keys=True)
     return main(args, config)
 
 

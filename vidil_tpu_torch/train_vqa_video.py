@@ -23,9 +23,13 @@ Several GPUs: launch under ``torchrun --nproc_per_node=N``. Each rank
 takes its questions of every global batch (and their answers), the answer
 loss is divided by the global batch's questions and the gradients are
 summed over the ranks; the test answers are split across the ranks and
-merged by rank 0. ``data_parallel: N`` must match the launch's world,
+merged by rank 0. ``data_parallel: N`` times ``model_parallel`` must be the launch's world,
 ``optimizer_sharding: zero1`` shards the AdamW moments (ZeRO-1), and
-``model_parallel > 1`` raises NotImplementedError.
+``model_parallel: M`` adds a model axis: the launch's world is a (data,
+model) grid of ranks (torchrun ``--nproc_per_node`` = data x model), each
+model rank holding its shard of the towers' heads and hidden columns
+(`parallel/sharding.py`); the saved states hold whole leaves, and the
+evaluation runs on the gathered weights, split over the whole world.
 """
 
 from __future__ import annotations
@@ -129,8 +133,8 @@ def main(args, config):
     from vidil_tpu_torch.data.datasets import PrefetchLoader, VQADataset, vqa_collate
     from vidil_tpu_torch.data.text_utils import save_result
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
-    from vidil_tpu_torch.parallel.mesh import data_parallel_from_config
-    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding
+    from vidil_tpu_torch.parallel.mesh import grid_from_config
+    from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding, gather_params
     from vidil_tpu_torch.train.common import loader_shards, resolve_train_batch, set_lr
     from vidil_tpu_torch.train.vqa import create_vqa_train_state, make_vqa_train_step
     from vidil_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint, save_train_state
@@ -139,7 +143,7 @@ def main(args, config):
 
     device = resolve_device(getattr(args, "device", "cuda"))
     owns_group = utils.init_distributed_mode(args, device=device)
-    data_parallel_from_config(config)
+    grid = grid_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
     params, tokenizer, vit_cfg, med_cfg = build(config)
@@ -147,16 +151,16 @@ def main(args, config):
     train_loader = PrefetchLoader(VQADataset(config, split="train"),
                                   resolve_train_batch(config, "batch_size_train", 16),
                                   shuffle=True, drop_last=True, collate_fn=vqa_collate,
-                                  seed=args.seed, **loader_shards())
+                                  seed=args.seed, **loader_shards(grid=grid))
     test_dataset = VQADataset(config, split="test")
     test_loader = PrefetchLoader(test_dataset, config.get("batch_size_test", 16),
                                  **loader_shards(len(test_dataset)))
 
     state = create_vqa_train_state(params, config["init_lr"], config.get("weight_decay", 0.05),
-                                   device=device)
+                                   device=device, grid=grid)
     state = apply_optimizer_sharding(state, config)
     del params
-    train_step = make_vqa_train_step(vit_cfg, med_cfg, dtype=dtype)
+    train_step = make_vqa_train_step(vit_cfg, med_cfg, dtype=dtype, grid=grid)
 
     start_epoch = 0
     resume_path = config.get("resume", "")
@@ -177,12 +181,13 @@ def main(args, config):
                 state, metrics = train_step(state, vqa_batch(tokenizer, *item))
                 logger.update(loss=float(metrics["loss"]), lr=lr)
 
-        result = evaluate(state.params, test_loader, tokenizer, vit_cfg, med_cfg, config,
+        eval_params = gather_params(state.params, grid)
+        result = evaluate(eval_params, test_loader, tokenizer, vit_cfg, med_cfg, config,
                           dtype=dtype)
         save_result(result, args.result_dir, f"vqa_result_epoch{epoch}")
         if not args.evaluate:
             utils.save_on_master(save_checkpoint, os.path.join(args.output_dir, "checkpoint_best"),
-                                 state.params, meta={"epoch": epoch})
+                                 eval_params, meta={"epoch": epoch})
             save_train_state(os.path.join(args.output_dir, "checkpoint_last"),
                              state, meta={"epoch": epoch})
         if args.evaluate:
@@ -207,14 +212,11 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    import yaml
+    from vidil_tpu_torch.config import dump_yaml_config, load_yaml_config
 
     args = parse_args()
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_yaml_config(args.config)
     args.result_dir = os.path.join(args.output_dir, "result")
-    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     Path(args.result_dir).mkdir(parents=True, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    dump_yaml_config(config, args.output_dir, sort_keys=True)
     main(args, config)

@@ -18,6 +18,13 @@
   in the layout of optax 0.2. The JAX package's `load_train_state` reads
   these files, and `load_train_state` here reads them back: their momentum
   towers and queues carry across to the JAX package.
+* A tensor-parallel state (a grid with a model axis, the parameters,
+  momentum towers and moments held as this rank's shards) is saved in the
+  same layouts with every leaf whole: the shards are gathered over the
+  model group first (`parallel/sharding.py:join_leaf`), so the file is the
+  one a single process writes and the JAX package's `load_train_state`
+  reads it. A resume reads the whole leaves and slices this rank's shards
+  again.
 * Why two layouts: a caption or VQA state has nothing that must cross to
   the JAX package (its parameters do, through `save_checkpoint`), and its
   named keys keep each parameter's own AdamW step count, which the leaf
@@ -28,6 +35,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -93,12 +101,19 @@ def save_train_state(path: str, state, meta: dict | None = None) -> None:
     pretraining state, see the module docstring) -> ``path`` (.npz).
 
     Every rank calls it: under ZeRO-1 the moments are first consolidated on
-    rank 0 (`parallel.sharding.optimizer_state`, a collective); only rank 0
+    the data group's first rank (`parallel.sharding.optimizer_state`, a
+    collective), and under a model axis the first data rank's model ranks
+    gather their shards into whole leaves (`_whole_state`); only rank 0
     writes."""
     from vidil_tpu_torch.parallel.sharding import optimizer_state
     from vidil_tpu_torch.utils.dist import is_main_process
 
     opt_state = optimizer_state(state.optimizer)
+    grid = getattr(state, "grid", None)
+    if grid is not None and grid.tensor_parallel:
+        if grid.data_rank != 0:
+            return
+        state, opt_state = _whole_state(state, opt_state)
     if not is_main_process():
         return
     if getattr(state, "params_m", None) is not None:
@@ -117,9 +132,86 @@ def save_train_state(path: str, state, meta: dict | None = None) -> None:
     np.savez(path, **_with_meta(flat, meta))
 
 
+def _whole_state(state, opt_state):
+    """A tensor-parallel state with whole leaves: (a copy of `state` whose
+    params and params_m are gathered over the model group, the AdamW state
+    keyed by the whole parameters with whole moments). A collective of the
+    model group."""
+    from vidil_tpu_torch.parallel.sharding import (
+        rebuild_tree,
+        leaf_paths,
+        gather_params,
+        join_leaf,
+        model_partition_spec,
+    )
+
+    grid = state.grid
+    specs = model_partition_spec(state.params)
+    whole_opt, leaves = {}, []
+    for path, names, p, _ in leaf_paths(state.params):
+        whole = join_leaf(p, names, specs[path], grid.model_group)
+        leaves.append(whole)
+        st = opt_state.get(p)
+        if st:
+            whole_opt[whole] = {"step": st["step"], **{
+                k: join_leaf(st[k], names, specs[path], grid.model_group)
+                for k in ("exp_avg", "exp_avg_sq")}}
+    kw = {"params": rebuild_tree(state.params, leaves)}
+    if getattr(state, "params_m", None) is not None:
+        kw["params_m"] = gather_params(state.params_m, grid)
+    return dataclasses.replace(state, **kw), whole_opt
+
+
+def _load_sharded(path: str, state):
+    """`load_train_state` of a tensor-parallel state: the file's whole
+    leaves loaded into a whole copy of the state (gathered, a collective),
+    then this rank's shards of the parameters, momentum towers and moments
+    sliced from it (`split_leaf`)."""
+    from vidil_tpu_torch.parallel.sharding import (
+        leaf_paths,
+        gather_params,
+        model_partition_spec,
+        set_param_state,
+        split_leaf,
+    )
+
+    grid = state.grid
+    kw = {"params": gather_params(state.params, grid), "grid": None}
+    if getattr(state, "params_m", None) is not None:
+        kw["params_m"] = gather_params(state.params_m, grid)
+    kw["optimizer"] = torch.optim.AdamW([t for _, t in named_leaves(kw["params"])])
+    whole, meta = load_train_state(path, dataclasses.replace(state, **kw))
+    with torch.no_grad():
+        for key in ("params", "params_m"):
+            if key not in kw:
+                continue
+            specs = model_partition_spec(getattr(state, key))
+            pairs = zip(leaf_paths(getattr(state, key)), leaf_paths(getattr(whole, key)))
+            for (path_, names, local, _), (_, _, full, _) in pairs:
+                def piece(t):
+                    return split_leaf(t, names, specs[path_], grid.model,
+                                      grid.model_rank).to(local.device)
+
+                local.copy_(piece(full))
+                st = whole.optimizer.state.get(full) if key == "params" else None
+                if st:
+                    set_param_state(state.optimizer, local, {
+                        "step": st["step"], "exp_avg": piece(st["exp_avg"]),
+                        "exp_avg_sq": piece(st["exp_avg_sq"])})
+    if getattr(state, "queue", None) is not None:
+        state.queue = whole.queue
+    state.step = whole.step
+    return state, meta
+
+
 def load_train_state(path: str, state):
     """Restore a file of `save_train_state` into `state` (built fresh for
-    the same configuration) in place. Returns (state, meta or None)."""
+    the same configuration) in place. Returns (state, meta or None). A
+    tensor-parallel state takes its shards of the file's whole leaves
+    (`_load_sharded`; every rank calls it)."""
+    grid = getattr(state, "grid", None)
+    if grid is not None and grid.tensor_parallel:
+        return _load_sharded(path, state)
     data, meta = _read(path)
     if "leaf_00000" in data.files:
         return _load_jax_state(data, state), meta

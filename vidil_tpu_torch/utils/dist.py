@@ -160,6 +160,35 @@ def barrier() -> None:
         dist.barrier()
 
 
+def grid_groups(data: int, model: int):
+    """The process groups of a (data, model) grid of the world's ranks, in
+    the JAX package's mesh order (``make_mesh``: rank = d * model + m):
+    (data_group, data_rank, model_group, model_rank). This rank's data
+    group holds the ranks of its model index m, one per data index; its
+    model group the ranks of its data index d. `dist.new_group` is a
+    collective, so every rank calls this with the same sizes; the groups
+    of one grid are made once per process group and reused. A model axis
+    of 1 has no model group (None), and a data axis that is the whole world
+    is the world's own group."""
+    import torch.distributed as dist
+
+    key = (data, model)
+    if key not in _GRIDS:
+        rank = get_rank()
+        if model == 1:
+            _GRIDS[key] = (dist.group.WORLD, rank, None, 0)
+        else:
+            data_group, _ = dist.new_subgroups_by_enumeration(
+                [[d * model + m for d in range(data)] for m in range(model)])
+            model_group, _ = dist.new_subgroups_by_enumeration(
+                [[d * model + m for m in range(model)] for d in range(data)])
+            _GRIDS[key] = (data_group, rank // model, model_group, rank % model)
+    return _GRIDS[key]
+
+
+_GRIDS: dict = {}
+
+
 def destroy_distributed() -> None:
     """Leave the process group (the CLIs' exit); a no-op without one.
     Restores the builtin print."""
@@ -168,6 +197,7 @@ def destroy_distributed() -> None:
 
         barrier()
         dist.destroy_process_group()
+    _GRIDS.clear()
     builtins.print = _BUILTIN_PRINT
 
 
