@@ -23,10 +23,11 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      and ptxas's registers and spills; the counts of HGMMA (wgmma), UTMALDG
      (TMA loads), SYNCS (mbarrier) and HMMA (mma.sync) instructions in the
      SASS (cuobjdump) of the bf16 flash-attention forward, which must keep
-     its counts, of the bf16 flash-attention backward's two kernels and of
+     its counts, of the bf16 flash-attention backward's two kernels, of
      every instance of the fused block's bf16 attention (K4, K5's
-     recompute), each of which must hold HGMMA, UTMALDG and SYNCS and no
-     HMMA, and of every bf16 GEMM instance of K3, K4 and K5
+     recompute) and of K5's bf16 dq and dk/dv passes, each of which must
+     hold HGMMA, UTMALDG and SYNCS and no HMMA, and of every bf16 GEMM
+     instance of K3, K4 and K5
      (csrc/gemm_sm90.cuh), each of which must hold HGMMA and UTMALDG;
   3. kernel check: the flash-attention kernel (K1) against its twin at the
      ViT self-attention shape (32, 12, 577, 64) and the grouped-ITM fold
@@ -57,8 +58,7 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
   8. fused ViT block: K4 against fused_block_ref at the trainers' block
      (48, 256, 768), 197 true tokens, and the CapFilt encode's (32, 640,
      768), 577 true tokens; K5 against fused_block_bwd_ref (dx and the 12
-     gradients) at the trainers' block; both run to run bitwise; bf16 and
-     fp32;
+     gradients) at both; both run to run bitwise; bf16 and fp32;
      with the times of the kernel, the twin and a library block
      (F.layer_norm, F.linear, SDPA, F.gelu; a yardstick only); and, from
      torch.profiler, each call's device ms beside the library block's, its
@@ -66,7 +66,10 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      split-K sums) and its GEMMs' TFLOP/s; then the block's attention
      launch alone (K4's, and with its statistics K5's recompute) against
      its twin at both shapes, bf16 and fp32, run to run bitwise, beside
-     SDPA with the key mask;
+     SDPA with the key mask; then K5's attention backward alone (its dq and
+     dk/dv passes with dbqkv) against block_attention_bwd_ref at both
+     shapes, bf16 and fp32, run to run bitwise, with its device ms beside
+     its bound and SDPA backward's, and its TFLOP/s;
   9. caption training at full width (ViT-B/16 224 px, MED from
      configs/med_config.json), synthetic weights, one fixed batch of 12
      videos x 4 frames with 40-token captions, bf16, MED remat on: 4 steps
@@ -186,14 +189,20 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      frames a chunk, 36 K1 a chunk).
  18. tensor parallelism, remat "dots" and profiling: (a) two gloo ranks
      on cuda:0 as a 1 x 2 (data, model) grid run P18_STEPS caption steps
-     (ViT-B/16 384 px, MED-base, bf16, classic schedule, 4 videos x 4
-     frames), each rank on 6 of 12 heads: per step exactly 12 K1 with lse
-     rows and 12 K2, all at q (16, 6, 577, 64) (phase 7 holds both kernels
-     there against their twins, run-to-run bitwise), the two ranks' losses
-     bitwise equal, the first step's loss and gathered gradients against
-     one process at the P18 bars; parameter bytes and peak memory per rank
-     and step ms are printed. (b) The same step in one process with the
-     ViT's and MED's remat full and then "dots": the gradients bitwise
+     (ViT-B/16 384 px, MED-base, bf16, 4 videos x 4 frames) on each ViT
+     schedule, then one fp32 step: the classic one
+     (VIDIL_TPU_TRAIN_FUSED_BLOCK=0), each rank on 6 of 12 heads, per step
+     exactly 12 K1 with lse rows and 12 K2, all at q (16, 6, 577, 64)
+     (phase 7 holds both kernels there against their twins, run-to-run
+     bitwise); the default fused one, each block whole on every rank's
+     gathered weights as in the reference, per step exactly 12 K4 and 12
+     K5 at x (16, 640, 768) and no K1 or K2, each block's whole gradient
+     bitwise equal across the ranks before it is sliced; on both, the two
+     ranks' losses bitwise equal, the first step's loss and gathered
+     gradients against one process at the P18 bars; parameter bytes and
+     peak memory per rank and step ms are printed. (b) The classic step in
+     one process with the ViT's and MED's remat full and then "dots": the
+     gradients bitwise
      equal; peak memory and step ms of each. (c) utils/profiling.trace
      around one CapFilt chunk inside an annotate range: the trace names K1's
      kernel and the range; device_memory_stats(). With --phase18-world N,
@@ -327,13 +336,16 @@ SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA")
 # K1's counts in each bf16 instance of its wgmma + TMA kernel (moving its
 # PTX wrappers into csrc/sm90.cuh left them as they were)
 K1_SASS = {"HGMMA": 13, "UTMALDG": 3, "SYNCS": 24, "HMMA": 0}
-# the bf16 attention kernels on wgmma + TMA, by library: K2's two passes and
+# the bf16 attention kernels on wgmma + TMA, by library: K2's two passes,
 # the fused block's attention (6 instances: with and without statistics, at
-# 1, 2 or more key chunks). K5's own dq and dk/dv passes (attn_bwd_*) still
-# run mma.sync and are not checked here
+# 1, 2 or more key chunks) and K5's own dq and dk/dv passes
 WGMMA_ATTENTION = {"flash_attention_bwd": (("flash_bwd_dq_bf16", 1), ("flash_bwd_dkdv_bf16", 1)),
                    "fused_vit_block_fwd": (("attn_fwd_wgmma", 6),),
-                   "fused_vit_block_bwd": (("attn_fwd_wgmma", 6),)}
+                   "fused_vit_block_bwd": (("attn_fwd_wgmma", 6), ("attn_bwd_dq_wgmma", 1),
+                                           ("attn_bwd_dkdv_wgmma", 1))}
+# the mma.sync attention kernels these replaced (the block attention's, then
+# K5's two passes): none may come back
+MMA_SYNC_ATTENTION = ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16")
 # the bf16 GEMM (csrc/gemm_sm90.cuh) in the libraries of K3, K4 and K5
 GEMM_LIBS = ("fused_mlp_fwd", "fused_vit_block_fwd", "fused_vit_block_bwd")
 
@@ -343,7 +355,7 @@ def _sass_label(kernel, name):
     flag; a GEMM instance by its tile width, operand majors and epilogue."""
     if kernel == "flash_fwd_bf16":
         return f"{kernel}<{'lse' if 'ILb1E' in name else 'no lse'}>"
-    if kernel.startswith("flash_bwd_"):
+    if kernel.startswith(("flash_bwd_", "attn_bwd_")):
         return kernel
     if kernel == "attn_fwd_wgmma":
         m = re.search(r"ILb([01])ELi(\d)E", name)
@@ -374,8 +386,9 @@ def sass_counts(lib, kernel="flash_fwd_bf16"):
 def check_sass(libs):
     """Phase 2's SASS checks: both bf16 K1 instances keep their wgmma, TMA
     and mbarrier counts; K2's two bf16 kernels and every instance of the
-    fused block's bf16 attention run wgmma from TMA loads on mbarriers, with
-    no mma.sync left (the mma.sync block attention was attn_fwd_bf16); every
+    fused block's bf16 attention and K5's bf16 dq and dk/dv passes run wgmma
+    from TMA loads on mbarriers, with no mma.sync left (MMA_SYNC_ATTENTION,
+    the kernels they replaced); every
     bf16 GEMM instance of K3, K4 and K5 runs wgmma from TMA loads; no
     mma.sync GEMM is left (its kernel was vit_block::gemm_bf16)."""
     sass = {"flash_attention_fwd": sass_counts(libs["flash_attention_fwd"])}
@@ -389,7 +402,8 @@ def check_sass(libs):
             got = sass_counts(libs[lib], kernel)
             sass[f"{lib}:{kernel}"] = got
             log(f"sass ({lib}, {kernel}):", json.dumps(got))
-            old = sass_counts(libs[lib], "attn_fwd_bf16")
+            old = {k: c for name in MMA_SYNC_ATTENTION
+                   for k, c in sass_counts(libs[lib], name).items()}
             if len(got) != instances or old or not all(
                     c["HGMMA"] and c["UTMALDG"] and c["SYNCS"] and not c["HMMA"]
                     for c in got.values()):
@@ -929,7 +943,7 @@ def run_caption_training(fa, fvb, device, schedule, steps):
     # reference's gate: plain attention, no K1 or K2, as in the reference
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
             "fused_vit_block_fwd": n if fused else 0, "fused_vit_block_bwd": n if fused else 0,
-            "fused_vit_block_attention": 0}
+            "fused_vit_block_attention": 0, "fused_vit_block_attention_bwd": 0}
     out = train_loop(f"training ({schedule})", step, state, batch, steps, fa, fvb, want,
                      TRAIN_VIDEOS)
     out.update(schedule=schedule, videos=TRAIN_VIDEOS, frames=TRAIN_FRAMES, tokens=TRAIN_TOKENS,
@@ -1096,8 +1110,8 @@ def block_device_times(kernel, library, B, Lp, dtype, backward=False):
 
 
 def check_fused_block(fvb, device):
-    """Phase 8: K4 against fused_block_ref at both block shapes, K5 against
-    fused_block_bwd_ref (dx and the 12 gradients) at the trainers' shape,
+    """Phase 8: K4 against fused_block_ref and K5 against
+    fused_block_bwd_ref (dx and the 12 gradients) at both block shapes,
     bf16 and fp32, K4 and K5 twice on the same inputs (bitwise equal), with
     the CUDA-event times of the kernel, the twin and the library block."""
     fwd_rows, bwd_rows = [], []
@@ -1127,8 +1141,6 @@ def check_fused_block(fvb, device):
             fwd_rows.append(row)
             if not (bool(torch.isfinite(got).all()) and bitwise and rel <= BLOCK_FWD_RTOL[dtype]):
                 raise SystemExit(f"fused_vit_block_fwd disagrees with its twin: {row}")
-            if label != "train_224":
-                continue
             g = torch.randn((B, Lp, BLOCK_D), generator=gen, device=device).to(dtype)
             g[:, true_len:] = 0  # the sliced-off pad rows get no gradient
             got = fvb._launch_bwd(args, g, true_len, H, eps)
@@ -1144,6 +1156,8 @@ def check_fused_block(fvb, device):
                                        for a, b in zip(got, want)),
                        rel_err=max(errs.values()), rel_errs=errs, rtol=BLOCK_BWD_RTOL[dtype],
                        run_to_run_bitwise=bitwise,
+                       workspace_bytes=fvb._kernel_fns()["bwd_ws"](
+                           fvb._DTYPE_CODE[dtype], B, Lp, BLOCK_D, 4 * BLOCK_D, H),
                        ms=time_ms(lambda: fvb._launch_bwd(args, g, true_len, H, eps)),
                        plain_ms=time_ms(lambda: fvb.fused_block_bwd_ref(
                            *args, g, true_len=true_len, num_heads=H, eps=eps)),
@@ -1229,6 +1243,88 @@ def check_block_attention(fvb, device):
     return rows
 
 
+# K5's attention backward alone vs block_attention_bwd_ref, per part (dq,
+# dk, dv; D; dbqkv), max abs error over that part's max |twin|. bf16: both
+# round at the same points (p for p^T do, dsb, the output); the fp32 sums
+# (s, dp: 64 terms; D, dq, dk, dv: up to 640) run in another order, which
+# can flip the output's one rounding (2**-8 of an element) and, rarely, a
+# rounding of p or dsb (2**-8 of one product term): 2**-7 of the part's
+# max. fp32 (and D, formed in fp32 from fp32 p and dp in both dtypes): the
+# order alone, 1e-5. dbqkv sums the unrounded values over every row: the
+# bar of the values it sums
+ATTN_BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+ATTN_BWD_DELTA_TOL = 1e-5
+
+
+def block_attention_bwd_bound_ms(B, Lp, true_len, dtype, D=BLOCK_D):
+    """Least time for K5's attention backward alone: qkv and do read once,
+    dqkv written once, the row max and sum read and D written (fp32), or
+    the five products it needs (s, dp, dv, dq, dk: 2 Lp true_len 64 each
+    per frame and head; the pad rows are real rows, the keys past true_len
+    contribute nothing) at the dtype's peak rate."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 7 * B * Lp * D * itemsize + 3 * B * BLOCK_H * Lp * 4 + 3 * D * 4
+    flops = 10 * B * Lp * true_len * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_block_attention_bwd(fvb, device):
+    """Phase 8: K5's attention backward alone (its dq and dk/dv passes with
+    dbqkv) on K4's attention statistics, against block_attention_bwd_ref at
+    both block shapes, bf16 and fp32, run to run bitwise; the times of the
+    kernel, the twin and SDPA's backward with the key mask (a yardstick
+    only), device ms by torch.profiler, and TFLOP/s over the five products
+    it needs and the nine it runs (the dq pass walks its key tiles twice;
+    keys padded to 128)."""
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(11)
+    H, D = BLOCK_H, BLOCK_D
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, (B, Lp, true_len) in BLOCK_SHAPES.items():
+            qkv = torch.randn((B, Lp, 3 * D), generator=gen, device=device).to(dtype)
+            do = (torch.randn((B, Lp, D), generator=gen, device=device) * 0.1).to(dtype)
+            _, row_max, row_sum = fvb._launch_attention(qkv, true_len, H, with_stats=True)
+            kernel = lambda: fvb._launch_attention_bwd(qkv, do, row_max, row_sum, true_len, H)
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            want = fvb.block_attention_bwd_ref(qkv, do, row_max, row_sum, true_len=true_len,
+                                               num_heads=H)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = {name: _rel_err(got[0][..., i * D:(i + 1) * D], want[0][..., i * D:(i + 1) * D])
+                    for i, name in enumerate(("dq", "dk", "dv"))}
+            errs.update(delta=_rel_err(got[1], want[1]), dbqkv=_rel_err(got[2], want[2]))
+            tol = ATTN_BWD_TOL[dtype]
+            ok = (bitwise and bool(torch.isfinite(got[0]).all())
+                  and all(errs[k] <= tol for k in ("dq", "dk", "dv", "dbqkv"))
+                  and errs["delta"] <= ATTN_BWD_DELTA_TOL)
+            q, k, v = (t.reshape(B, Lp, H, D // H).transpose(1, 2).detach().requires_grad_(True)
+                       for t in qkv.split(D, dim=-1))
+            mask = (torch.arange(Lp, device=device) < true_len)[None, None, None, :]
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            g = do.reshape(B, Lp, H, D // H).transpose(1, 2)
+            library = lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+            bound, bound_by = block_attention_bwd_bound_ms(B, Lp, true_len, dtype)
+            dev_ms, kernels = device_profile(kernel)
+            k_pad = -(-true_len // 128) * 128
+            row = dict(shape=label, dtype=str(dtype).replace("torch.", ""),
+                       qkv=[B, Lp, 3 * D], true_len=true_len, rel_errs=errs,
+                       max_abs_err=(got[0].float() - want[0].to(dtype).float()).abs().max().item(),
+                       rtol=tol, delta_rtol=ATTN_BWD_DELTA_TOL, run_to_run_bitwise=bitwise,
+                       ms=time_ms(kernel), plain_ms=time_ms(lambda: fvb.block_attention_bwd_ref(
+                           qkv, do, row_max, row_sum, true_len=true_len, num_heads=H)),
+                       library_ms=time_ms(library), bound_ms=bound, bound_by=bound_by,
+                       device_ms=dev_ms, library_device_ms=device_profile(library)[0],
+                       kernels={name[:60]: v for name, v in kernels.items()},
+                       tflops_5_products=10 * B * Lp * true_len * D / (dev_ms * 1e-3) / 1e12,
+                       tflops_9_products=18 * B * Lp * k_pad * D / (dev_ms * 1e-3) / 1e12)
+            log("kernel check (fused block attention bwd):", json.dumps(row))
+            rows.append(row)
+            if not ok:
+                raise SystemExit(f"fused_vit_block_attention_bwd disagrees with its twin: {row}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the VQA fine-tune
 # ---------------------------------------------------------------------------
@@ -1293,7 +1389,8 @@ def run_vqa(fa, fvb, device):
     step = make_vqa_train_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
     n = vit_cfg.num_layers
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
-            "fused_vit_block_fwd": n, "fused_vit_block_bwd": n, "fused_vit_block_attention": 0}
+            "fused_vit_block_fwd": n, "fused_vit_block_bwd": n, "fused_vit_block_attention": 0,
+            "fused_vit_block_attention_bwd": 0}
     out = train_loop("vqa training", step, state, batch, VQA_STEPS, fa, fvb, want, VQA_QUESTIONS)
     out.update(questions=VQA_QUESTIONS, frames=VQA_FRAMES, answers=int(batch["weights"].shape[0]),
                question_tokens=VQA_Q_TOKENS, answer_tokens=VQA_A_TOKENS)
@@ -1384,7 +1481,8 @@ def in_situ_fused_block(fvb, device, blk=None, frames=None):
     before = dict(fvb.launch_counts)
     got = grads()
     if {k: fvb.launch_counts[k] - before[k] for k in before} != {
-            "fused_vit_block_fwd": 1, "fused_vit_block_bwd": 1, "fused_vit_block_attention": 0}:
+            "fused_vit_block_fwd": 1, "fused_vit_block_bwd": 1, "fused_vit_block_attention": 0,
+            "fused_vit_block_attention_bwd": 0}:
         raise SystemExit("in-situ fused block: the kernels did not run")
     launch_fwd, launch_bwd = fvb._launch_fwd, fvb._launch_bwd
     fvb._launch_fwd = lambda args, tl, nh, eps: fvb.fused_block_ref(
@@ -3481,14 +3579,25 @@ def run_phase17(fa, device, card, tok):
 # ---------------------------------------------------------------------------
 
 P18_VIDEOS, P18_FRAMES, P18_STEPS, P18_MODEL = 4, 4, 3, 2
-# every step of a tensor-parallel rank: the classic ViT-B/384 schedule, one
-# K1 with lse rows and one K2 per block on the rank's 6 heads; no K1 without
-# lse rows, no fused block (training_cfgs under model_parallel > 1)
-P18_LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 12,
-                "flash_attention_bwd": 12, "fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0}
+P18_SCHEDULES = ("classic", "fused")
+# every step of a tensor-parallel rank on each ViT-B/384 schedule: the
+# classic one, one K1 with lse rows and one K2 per block on the rank's 6
+# heads, no K1 without lse rows; the fused one (the trainers' default), one
+# K4 and one K5 per block, whole, and no K1 or K2
+P18_LAUNCHES = {
+    "classic": {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 12,
+                "flash_attention_bwd": 12, "fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0,
+                "fused_vit_block_attention": 0, "fused_vit_block_attention_bwd": 0},
+    "fused": {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0,
+              "fused_vit_block_fwd": 12, "fused_vit_block_bwd": 12,
+              "fused_vit_block_attention": 0, "fused_vit_block_attention_bwd": 0}}
+# the fused schedule's gathered block leaves a step (12 blocks x 6 sharded
+# leaves: qkv, fc1 kernels and biases, proj and fc2 kernels)
+P18_WHOLE_LEAVES = {"classic": 0, "fused": 72}
 # The ranks against one process at the global batch, the first step in
-# bf16 and again in fp32. Each row-parallel product (the ViT's proj and
-# fc2, the MED's out and fc2: 60 in all) sums the two ranks' fp32 partial
+# bf16 and again in fp32. Each row-parallel product (the classic ViT's proj
+# and fc2, the MED's out and fc2: 60 in all; the fused schedule's MED
+# alone, its ViT blocks running whole) sums the two ranks' fp32 partial
 # products and rounds once, as the one process's product rounds its own
 # fp32 sum in another order: the steps differ by rounding alone, at most
 # one unit of the compute dtype in an element of those products, and the
@@ -3525,18 +3634,19 @@ def _p18_setup(device):
     return vit_cfg, med_cfg, params, batch, prompt_length
 
 
-def _classic_step(vit_cfg, med_cfg, prompt_length, grid=None, dtype=torch.bfloat16):
-    """The caption step on the classic schedule (VIDIL_TPU_TRAIN_FUSED_BLOCK=0
-    while it is made; a grid with a model axis takes it anyway), computing
-    in `dtype` (None: fp32)."""
+def _p18_step(schedule, vit_cfg, med_cfg, prompt_length, grid=None, dtype=torch.bfloat16):
+    """The caption step on a ViT schedule, computing in `dtype` (None:
+    fp32): "classic" sets VIDIL_TPU_TRAIN_FUSED_BLOCK=0 while the step is
+    made, "fused" unsets it (the trainers' default pair, K4 and K5)."""
     from vidil_tpu_torch.train.caption import make_caption_train_step
 
-    env = os.environ.get("VIDIL_TPU_TRAIN_FUSED_BLOCK")
-    os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = "0"
+    env = os.environ.pop("VIDIL_TPU_TRAIN_FUSED_BLOCK", None)
+    if schedule == "classic":
+        os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = "0"
     try:
         return make_caption_train_step(vit_cfg, med_cfg, prompt_length, dtype=dtype, grid=grid)
     finally:
-        os.environ.pop("VIDIL_TPU_TRAIN_FUSED_BLOCK")
+        os.environ.pop("VIDIL_TPU_TRAIN_FUSED_BLOCK", None)
         if env is not None:
             os.environ["VIDIL_TPU_TRAIN_FUSED_BLOCK"] = env
 
@@ -3577,12 +3687,18 @@ def _timed_steps(step, state, batch, fa, fvb, steps, first):
 
 def p18_rank(root, backend, model):
     """One rank of phase 18 (a): the caption step over a (world / model) x
-    model grid, env rendezvous (gloo on cuda:0, or NCCL on cuda:LOCAL_RANK);
-    P18_STEPS bf16 steps with their launch counts and the q shapes that
-    reached the flash kernels, then one fp32 step from fresh weights; rank
-    0 saves each first step's gathered gradients."""
+    model grid, env rendezvous (gloo on cuda:0, or NCCL on cuda:LOCAL_RANK),
+    on each ViT schedule: P18_STEPS bf16 steps with their launch counts, the
+    q shapes that reached the flash kernels and the x shapes that reached
+    K4, and the SHA-1 of each fused block's whole gradient (as the gathers'
+    backward receives it, before it is sliced) in the first step; then one
+    fp32 step from fresh weights; rank 0 saves each first step's gathered
+    gradients."""
+    import hashlib
+
     from vidil_tpu_torch.models.convert import named_leaves
     from vidil_tpu_torch.ops import flash_attention as fa, fused_vit_block as fvb
+    from vidil_tpu_torch.parallel import collectives
     from vidil_tpu_torch.parallel.dryrun import rank_batch
     from vidil_tpu_torch.parallel.mesh import make_grid
     from vidil_tpu_torch.parallel.sharding import gather_params
@@ -3596,44 +3712,66 @@ def p18_rank(root, backend, model):
         dist.init_distributed_mode(backend=backend, device="cuda")
         device = torch.device("cuda", torch.cuda.current_device())
     grid = make_grid(dist.get_world_size() // model, model)
-    shapes = []
-    flash = fa.flash_attention
+    shapes = {"flash": [], "block": []}
+    flash, launch_fwd, gather = fa.flash_attention, fvb._launch_fwd, collectives.gather_from_model
+    hashes, capture = [], [True]
 
     def recorded(q, k, v):
-        shapes.append(tuple(q.shape))
+        shapes["flash"].append(tuple(q.shape))
         return flash(q, k, v)
 
-    fa.flash_attention = recorded
-    vit_cfg, med_cfg, params, batch, prompt_length = _p18_setup(device)
-    state = create_caption_train_state(params, 1e-4, 0.05, device=device, grid=grid)
-    del params
-    step = _classic_step(vit_cfg, med_cfg, prompt_length, grid)
-    batch = rank_batch(batch, grid=grid)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    gathered = lambda st: _flat(gather_params(_grad_tree(st.params), grid))  # noqa: E731
-    state, out = _timed_steps(step, state, batch, fa, fvb, P18_STEPS, gathered)
-    out["s"] = time.time() - t0
-    grads = out.pop("first")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    param_bytes = sum(p.numel() * p.element_size() for _, p in named_leaves(state.params))
-    del state
-    _, _, params, _, _ = _p18_setup(device)
-    state = create_caption_train_state(params, 1e-4, 0.05, device=device, grid=grid)
-    del params
-    state, out32 = _timed_steps(_classic_step(vit_cfg, med_cfg, prompt_length, grid, None), state,
-                                batch, fa, fvb, 1, gathered)
-    grads32 = out32.pop("first")
-    if dist.get_rank() == 0:
-        torch.save({"bf16": [(n, g.cpu()) for n, g in grads],
-                    "fp32": [(n, g.cpu()) for n, g in grads32]},
-                   os.path.join(root, "tp_grads.pt"))
-    out["fp32"] = out32
+    def block_recorded(args, *rest):
+        shapes["block"].append(tuple(args[0].shape))
+        return launch_fwd(args, *rest)
+
+    def hashed(x, dim, group):
+        out = gather(x, dim, group)
+        if capture[0]:
+            out.register_hook(lambda g: hashes.append(
+                hashlib.sha1(g.detach().cpu().numpy().tobytes()).hexdigest()))
+        return out
+
+    def first(st):
+        capture[0] = False
+        return _flat(gather_params(_grad_tree(st.params), grid)), list(hashes)
+
+    fa.flash_attention, fvb._launch_fwd = recorded, block_recorded
+    collectives.gather_from_model = hashed
+    out = {}
+    for schedule in P18_SCHEDULES:
+        shapes["flash"].clear()
+        shapes["block"].clear()
+        runs, grads = {}, {}
+        for name, dtype, steps in (("bf16", torch.bfloat16, P18_STEPS), ("fp32", None, 1)):
+            vit_cfg, med_cfg, params, batch, prompt_length = _p18_setup(device)
+            state = create_caption_train_state(params, 1e-4, 0.05, device=device, grid=grid)
+            del params
+            step = _p18_step(schedule, vit_cfg, med_cfg, prompt_length, grid, dtype)
+            batch = rank_batch(batch, grid=grid)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hashes.clear()
+            capture[0] = True
+            t0 = time.time()
+            state, run = _timed_steps(step, state, batch, fa, fvb, steps, first)
+            run["s"] = time.time() - t0
+            grads[name], run["whole_grad_sha1"] = run.pop("first")
+            run.update(peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       param_bytes=sum(p.numel() * p.element_size()
+                                       for _, p in named_leaves(state.params)))
+            runs[name] = run
+            del state
+            torch.cuda.empty_cache()
+        if dist.get_rank() == 0:
+            torch.save({k: [(n, g.cpu()) for n, g in v] for k, v in grads.items()},
+                       os.path.join(root, f"tp_grads_{schedule}.pt"))
+        del grads
+        out[schedule] = dict(runs["bf16"], fp32=runs["fp32"],
+                             flash_q_shapes=[list(x) for x in sorted(set(shapes["flash"]))],
+                             flash_calls=len(shapes["flash"]),
+                             block_x_shapes=[list(x) for x in sorted(set(shapes["block"]))])
     out.update(rank=dist.get_rank(), world=dist.get_world_size(), data=grid.data,
-               model=grid.model, backend=torch.distributed.get_backend(),
-               flash_q_shapes=[list(x) for x in sorted(set(shapes))], flash_calls=len(shapes),
-               param_bytes=param_bytes, peak_memory_gib=peak)
+               model=grid.model, backend=torch.distributed.get_backend())
     with open(os.path.join(root, f"rank{dist.get_rank()}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_distributed()
@@ -3642,10 +3780,11 @@ def p18_rank(root, backend, model):
 def p18_tensor_parallel(device, root, world=P18_MODEL, backend="gloo"):
     """(a) the caption step over `world` ranks with a model axis of 2 (two
     gloo ranks on cuda:0, or NCCL on one GPU a rank with `--phase18-world`)
-    against one process at the global batch on `device`: the launches per
-    step and the flash kernels' q shapes per rank, the model ranks' losses
-    bitwise equal, the first step's loss and gathered gradients in bf16
-    and in fp32 within the P18 bars."""
+    against one process at the global batch on `device`, on each ViT
+    schedule: the launches per step, the flash kernels' q shapes and K4's x
+    shapes per rank, the model ranks' losses (and, fused, each block's
+    whole gradient) bitwise equal, the first step's loss and gathered
+    gradients in bf16 and in fp32 within the P18 bars."""
     from vidil_tpu_torch.models.convert import named_leaves
     from vidil_tpu_torch.ops import flash_attention as fa, fused_vit_block as fvb
     from vidil_tpu_torch.parallel.dryrun import spawn_ranks
@@ -3661,16 +3800,14 @@ def p18_tensor_parallel(device, root, world=P18_MODEL, backend="gloo"):
         raise SystemExit("phase 18 (a): " + "\n".join(failed))
     recs = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(world)]
 
-    tp_grads = torch.load(os.path.join(root, "tp_grads.pt"))
-    one, agree, unit = {}, {}, {}
-
-    def one_step(dtype, scale=1.0):
+    def one_step(schedule, dtype, scale=1.0):
         vit_cfg, med_cfg, params, batch, prompt_length = _p18_setup(device)
         batch["video"] = batch["video"] * scale
         state = create_caption_train_state(params, 1e-4, 0.05, device=device)
         del params
         torch.cuda.reset_peak_memory_stats()
-        state, run = _timed_steps(_classic_step(vit_cfg, med_cfg, prompt_length, dtype=dtype),
+        state, run = _timed_steps(_p18_step(schedule, vit_cfg, med_cfg, prompt_length,
+                                            dtype=dtype),
                                   state, batch, fa, fvb, 1, lambda st: _flat(_grad_tree(st.params)))
         run.update(peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                    param_bytes=sum(p.numel() * p.element_size()
@@ -3684,42 +3821,62 @@ def p18_tensor_parallel(device, root, world=P18_MODEL, backend="gloo"):
         d["loss_rel"] = abs(loss - ref["losses"][0]) / abs(ref["losses"][0])
         return d
 
-    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
-        one[name] = one_step(dtype)
-        nudged = one_step(dtype, 1.0 + P18_UNIT_EPS[name])
-        ranks_loss = recs[0]["losses"][0] if name == "bf16" else recs[0]["fp32"]["losses"][0]
-        agree[name] = distance(tp_grads[name], ranks_loss, one[name])
-        unit[name] = distance(nudged["first"], nudged["losses"][0], one[name])
-        one[name].pop("first")
     data = world // P18_MODEL
-    local = [P18_VIDEOS * P18_FRAMES // data, 12 // P18_MODEL, 577, 64]
-    out = {"ranks_s": ranks_s, "grid": [data, P18_MODEL], "backend": backend,
-           "one_process": one["bf16"], "one_process_fp32": one["fp32"], "agreement": agree,
-           "unit_yardstick": unit,
-           "ranks": [{k: r[k] for k in ("rank", "losses", "step_ms", "launches", "s",
-                                        "flash_q_shapes", "flash_calls", "param_bytes",
-                                        "peak_memory_gib", "fp32")} for r in recs]}
+    frames = P18_VIDEOS * P18_FRAMES // data
+    local = {"classic": ([[frames, 12 // P18_MODEL, 577, 64]], []),
+             "fused": ([], [[frames, 640, 768]])}
+    out = {"ranks_s": ranks_s, "grid": [data, P18_MODEL], "backend": backend}
     bad = []
-    for r in recs:
-        if r["flash_q_shapes"] != [local]:
-            bad.append(f"rank {r['rank']}: flash q shapes {r['flash_q_shapes']}, want {local}")
-        for i, counts in enumerate(r["launches"]):
-            bad += _p17_counts_bad(f"rank {r['rank']} step {i}", counts, P18_LAUNCHES)
-        if (r["data"], r["model"], r["backend"]) != (data, P18_MODEL, backend):
-            bad.append(f"rank {r['rank']}: grid {r['data']} x {r['model']} {r['backend']}")
-    for d in range(data):  # the model ranks of one data rank: the same global loss
-        group = [r["losses"] + r["fp32"]["losses"] for r in recs if r["rank"] // P18_MODEL == d]
-        if any(g != group[0] for g in group):
-            bad.append(f"data rank {d}: the model ranks' losses differ: {group}")
-    bad += _p17_counts_bad("one-process classic step", one["bf16"]["launches"][0], P18_LAUNCHES)
-    for name in ("bf16", "fp32"):
-        for key in ("loss_rel", "grad_norm_rel", "grad_leaf_rel_max"):
-            bar = P18_UNIT_FACTOR * max(unit[name][key], P18_UNIT_EPS[name])
-            if not agree[name][key] <= bar:
-                bad.append(f"{name} {key} {agree[name][key]} over {bar} "
-                           f"({P18_UNIT_FACTOR} x one unit's {unit[name][key]})")
-    if not all(np.isfinite(r["losses"]).all() for r in recs):
-        bad.append("a rank's loss is not finite")
+    for schedule in P18_SCHEDULES:
+        want = P18_LAUNCHES[schedule]
+        tp_grads = torch.load(os.path.join(root, f"tp_grads_{schedule}.pt"))
+        one, agree, unit = {}, {}, {}
+        for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+            one[name] = one_step(schedule, dtype)
+            nudged = one_step(schedule, dtype, 1.0 + P18_UNIT_EPS[name])
+            rec = recs[0][schedule] if name == "bf16" else recs[0][schedule]["fp32"]
+            agree[name] = distance(tp_grads[name], rec["losses"][0], one[name])
+            unit[name] = distance(nudged["first"], nudged["losses"][0], one[name])
+            one[name].pop("first")
+        del tp_grads
+        keys = ("losses", "step_ms", "launches", "s", "flash_q_shapes", "flash_calls",
+                "block_x_shapes", "param_bytes", "peak_memory_gib")
+        out[schedule] = {"one_process": one["bf16"], "one_process_fp32": one["fp32"],
+                         "agreement": agree, "unit_yardstick": unit,
+                         "ranks": [{"rank": r["rank"], **{k: r[schedule][k] for k in keys},
+                                    "fp32": r[schedule]["fp32"]} for r in recs]}
+        for r in recs:
+            run = r[schedule]
+            if (run["flash_q_shapes"], run["block_x_shapes"]) != local[schedule]:
+                bad.append(f"{schedule} rank {r['rank']}: flash q shapes {run['flash_q_shapes']}"
+                           f", K4 x shapes {run['block_x_shapes']}, want {local[schedule]}")
+            for i, counts in enumerate(run["launches"] + run["fp32"]["launches"]):
+                bad += _p17_counts_bad(f"{schedule} rank {r['rank']} step {i}", counts, want)
+            for sha in (run["whole_grad_sha1"], run["fp32"]["whole_grad_sha1"]):
+                if len(sha) != P18_WHOLE_LEAVES[schedule]:
+                    bad.append(f"{schedule} rank {r['rank']}: {len(sha)} whole block leaves, "
+                               f"want {P18_WHOLE_LEAVES[schedule]}")
+            if (r["data"], r["model"], r["backend"]) != (data, P18_MODEL, backend):
+                bad.append(f"rank {r['rank']}: grid {r['data']} x {r['model']} {r['backend']}")
+            if not np.isfinite(run["losses"]).all():
+                bad.append(f"{schedule} rank {r['rank']}: a loss is not finite")
+        for d in range(data):  # the model ranks of one data rank: the same loss and gradients
+            group = [(r[schedule]["losses"] + r[schedule]["fp32"]["losses"],
+                      r[schedule]["whole_grad_sha1"] + r[schedule]["fp32"]["whole_grad_sha1"])
+                     for r in recs if r["rank"] // P18_MODEL == d]
+            if any(g[0] != group[0][0] for g in group):
+                bad.append(f"{schedule} data rank {d}: the model ranks' losses differ: "
+                           f"{[g[0] for g in group]}")
+            if any(g[1] != group[0][1] for g in group):
+                bad.append(f"{schedule} data rank {d}: the model ranks' whole block gradients "
+                           f"differ")
+        bad += _p17_counts_bad(f"one-process {schedule} step", one["bf16"]["launches"][0], want)
+        for name in ("bf16", "fp32"):
+            for key in ("loss_rel", "grad_norm_rel", "grad_leaf_rel_max"):
+                bar = P18_UNIT_FACTOR * max(unit[name][key], P18_UNIT_EPS[name])
+                if not agree[name][key] <= bar:
+                    bad.append(f"{schedule} {name} {key} {agree[name][key]} over {bar} "
+                               f"({P18_UNIT_FACTOR} x one unit's {unit[name][key]})")
     log(f"phase 18 (a) tensor parallel, {data} x {P18_MODEL} {backend} ranks:", json.dumps(out))
     if bad:
         raise SystemExit("phase 18 (a): " + "; ".join(bad))
@@ -3744,8 +3901,8 @@ def p18_remat_dots(device, fa, fvb):
         del params
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        state, run = _timed_steps(_classic_step(vit_cfg, med_cfg, prompt_length), state, batch,
-                                  fa, fvb, 2, lambda st: _flat(_grad_tree(st.params)))
+        state, run = _timed_steps(_p18_step("classic", vit_cfg, med_cfg, prompt_length), state,
+                                  batch, fa, fvb, 2, lambda st: _flat(_grad_tree(st.params)))
         grads[str(policy)] = run.pop("first")
         out[str(policy)] = {"peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
                             "step_ms": run["step_ms"][1], "losses": run["losses"],
@@ -3809,16 +3966,18 @@ def run_phase18(fa, fvb, device, card):
         out["profiling"] = p18_profiling(device, fa, root)
     out["phase_s"] = time.time() - t_phase
     tp = out["tensor_parallel"]
-    log(f"phase 18: {out['phase_s']:.1f} s (ranks {tp['ranks_s']:.1f} s); tensor-parallel "
-        f"parameter bytes per rank {[r['param_bytes'] for r in tp['ranks']]} against "
-        f"{tp['one_process']['param_bytes']} in one process, peak memory per rank "
-        f"{[round(r['peak_memory_gib'], 3) for r in tp['ranks']]} GiB (one process "
-        f"{tp['one_process']['peak_memory_gib']:.3f}), step ms per rank "
-        f"{[r['step_ms'] for r in tp['ranks']]} (one process {tp['one_process']['step_ms']}); "
-        f"distance from one process (one unit at the input): bf16 {tp['agreement']['bf16']} "
-        f"({tp['unit_yardstick']['bf16']}), fp32 {tp['agreement']['fp32']} "
-        f"({tp['unit_yardstick']['fp32']}); "
-        f"card {card}")
+    log(f"phase 18: {out['phase_s']:.1f} s (ranks {tp['ranks_s']:.1f} s); card {card}")
+    for schedule in P18_SCHEDULES:
+        t = tp[schedule]
+        log(f"phase 18 ({schedule} ViT): tensor-parallel parameter bytes per rank "
+            f"{[r['param_bytes'] for r in t['ranks']]} against "
+            f"{t['one_process']['param_bytes']} in one process, peak memory per rank "
+            f"{[round(r['peak_memory_gib'], 3) for r in t['ranks']]} GiB (one process "
+            f"{t['one_process']['peak_memory_gib']:.3f}), step ms per rank "
+            f"{[r['step_ms'] for r in t['ranks']]} (one process {t['one_process']['step_ms']}); "
+            f"distance from one process (one unit at the input): bf16 {t['agreement']['bf16']} "
+            f"({t['unit_yardstick']['bf16']}), fp32 {t['agreement']['fp32']} "
+            f"({t['unit_yardstick']['fp32']}); card {card}")
     return out
 
 
@@ -3917,6 +4076,7 @@ def main():
     bwd_rows = check_bwd(fa, device)
     block_fwd_rows, block_bwd_rows = check_fused_block(fvb, device)
     attn_rows = check_block_attention(fvb, device)
+    attn_bwd_rows = check_block_attention_bwd(fvb, device)
 
     trains = {}
     for schedule, steps in (("classic", CLASSIC_STEPS), ("fused", TRAIN_STEPS)):
@@ -3986,7 +4146,8 @@ def main():
 
     p17 = run_phase17(fa, device, card, tok)
     p18 = run_phase18(fa, fvb, device, card)
-    p18_ranks = p18["tensor_parallel"]["ranks"]
+    p18_ranks = p18["tensor_parallel"]["classic"]["ranks"]
+    p18_fused_ranks = p18["tensor_parallel"]["fused"]["ranks"]
 
     def tp_row(rs):
         """A K1/K2 bf16 check row at a tensor-parallel rank's shape."""
@@ -4015,6 +4176,13 @@ def main():
     def device(rs, shape, keys=("device_ms", "library_device_ms", "gemm_tflops")):
         r = next(x for x in rs if x["dtype"] == "bfloat16" and x["shape"] == shape)
         return {k: r[k] for k in keys}
+
+    def attention_bwd():
+        """K5's bf16 attention backward alone at both block shapes."""
+        keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms",
+                "bound_by", "tflops_5_products", "tflops_9_products", "max_abs_err", "rel_errs")
+        return {r["shape"]: {k: r[k] for k in keys} for r in attn_bwd_rows
+                if r["dtype"] == "bfloat16"}
 
     def attention(stats):
         """The bf16 block attention launch alone at the trainer block."""
@@ -4094,6 +4262,8 @@ def main():
                   for r in p17["two_ranks"]["ranks"]],
               launches_phase17_nccl_world_of_one=p17["nccl_world_of_one"]["all_reduce"][
                   "launches"]["fused_vit_block_fwd"],
+              launches_phase18_tensor_parallel_per_rank_per_step=[
+                  [c["fused_vit_block_fwd"] for c in r["launches"]] for r in p18_fused_ranks],
               **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd"),
               attention=attention(False), attention_with_stats=attention(True),
               sass_attention=sass["fused_vit_block_fwd:attn_fwd_wgmma"]),
@@ -4109,7 +4279,17 @@ def main():
                   for r in p17["two_ranks"]["ranks"]],
               launches_phase17_nccl_world_of_one=p17["nccl_world_of_one"]["all_reduce"][
                   "launches"]["fused_vit_block_bwd"],
-              **device(block_bwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_bwd")),
+              launches_phase18_tensor_parallel_per_rank_per_step=[
+                  [c["fused_vit_block_bwd"] for c in r["launches"]] for r in p18_fused_ranks],
+              **device(block_bwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_bwd"),
+              parts=device(block_bwd_rows, "train_224", ("parts",))["parts"],
+              capfilt_384=device(block_bwd_rows, "capfilt_384",
+                                 ("ms", "device_ms", "library_device_ms", "parts")),
+              workspace_bytes={r["shape"]: r["workspace_bytes"] for r in block_bwd_rows
+                               if r["dtype"] == "bfloat16"},
+              attention_bwd=attention_bwd(),
+              sass_attention={k: v for k, v in sass.items()
+                              if k.startswith("fused_vit_block_bwd:attn_")}),
         entry("fused_mlp_fwd", "vidil_tpu_torch/csrc/fused_mlp_fwd.cu",
               "vidil_tpu/ops/fused_mlp.py:69", vt["blip"]["launches"]["fused_mlp_fwd"],
               mlp_rows, "vit_encode",

@@ -361,6 +361,55 @@ def test_fused_block_attention_matches_twin(cuda_device, dtype, with_stats, B, L
         torch.testing.assert_close(got[2], want[2], atol=0, rtol=ATTN_SUM_RTOL)
 
 
+# (tolerance) K5's attention backward alone vs its twin, per part (dq, dk,
+# dv; dbqkv), max abs error over that part's max |twin|: both round at the
+# same points (p for p^T do, dsb, the output); the fp32 sums run in another
+# order, which can flip the output's one rounding (2**-8 of an element) and,
+# rarely, a rounding of p or dsb (2**-8 of one product term): 2**-7 in
+# bf16; fp32 order alone, 1e-5. D is formed in fp32 from fp32 p and dp in
+# both dtypes: 1e-5.
+ATTN_BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+ATTN_BWD_DELTA_TOL = 1e-5
+# (B, Lp, D, H, true_len): a key item wholly past true_len (100 of 256), a
+# last 128-key tile holding one key (257 of 384), the trainers' 197 of 256,
+# the unpadded 256, the 384-px 577 of 640
+ATTN_BWD_SHAPES = [(2, 256, 128, 2, 100), (2, 384, 256, 4, 257), (3, 256, 256, 4, 197),
+                   (2, 256, 128, 2, 256), (1, 640, 128, 2, 577)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Lp,D,H,true_len", ATTN_BWD_SHAPES)
+def test_fused_block_attention_bwd_matches_twin(cuda_device, dtype, B, Lp, D, H, true_len):
+    """K5's attention backward alone (its dq and dk/dv passes with dbqkv) on
+    K4's statistics: its twin's dqkv, D and dbqkv, bitwise run to run, and
+    exact zeros at the masked keys' dk and dv."""
+    rng = np.random.default_rng(19)
+    qkv = torch.from_numpy(rng.standard_normal((B, Lp, 3 * D), dtype=np.float32)).to(
+        cuda_device, dtype)
+    do = torch.from_numpy(rng.standard_normal((B, Lp, D), dtype=np.float32) * 0.1).to(
+        cuda_device, dtype)
+    _, row_max, row_sum = fvb._launch_attention(qkv, true_len, H, with_stats=True)
+    before = fvb.launch_counts["fused_vit_block_attention_bwd"]
+    got = fvb._launch_attention_bwd(qkv, do, row_max, row_sum, true_len, H)
+    again = fvb._launch_attention_bwd(qkv, do, row_max, row_sum, true_len, H)
+    torch.cuda.synchronize()
+    assert fvb.launch_counts["fused_vit_block_attention_bwd"] == before + 2
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    want = fvb.block_attention_bwd_ref(qkv, do, row_max, row_sum, true_len=true_len,
+                                       num_heads=H)
+    dqkv = got[0]
+    assert dqkv.shape == (B, Lp, 3 * D) and dqkv.dtype == dtype
+    assert bool(torch.isfinite(dqkv).all())
+    for i in range(3):
+        part = slice(i * D, (i + 1) * D)
+        assert _rel_err(dqkv[..., part], want[0][..., part]) <= ATTN_BWD_TOL[dtype], i
+    assert _rel_err(got[2], want[2]) <= ATTN_BWD_TOL[dtype]
+    assert _rel_err(got[1], want[1]) <= ATTN_BWD_DELTA_TOL
+    assert not dqkv[:, true_len:, D:].float().any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,Lp,D,H,true_len", BLOCK_SHAPES)

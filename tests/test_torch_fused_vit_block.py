@@ -76,6 +76,9 @@ def _rel(got, want):
 
 
 SHAPES = [(3, 130, 128, 2), (2, 70, 256, 4)]  # (B, L, D, H): L pads to 256 and 128
+# the backward at the trainers' padded 256 (197 tokens) and at 384, whose
+# last 128-key tile holds one unmasked key
+BWD_SHAPES = SHAPES + [(2, 197, 128, 2), (1, 257, 128, 2)]
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +119,7 @@ def test_fwd_twin_matches_jax_kernel_bf16(B, L, D, H):
     assert np.abs(got[:, :L] - want[:, :L]).max() <= 2 * ulp
 
 
-@pytest.mark.parametrize("B,L,D,H", SHAPES)
+@pytest.mark.parametrize("B,L,D,H", BWD_SHAPES)
 def test_bwd_twin_matches_jax_kernel(B, L, D, H):
     """dx and all 12 gradients of the backward twin against the JAX backward
     kernel in interpret mode, fp32. (tolerance) 2e-4 of each gradient's max
@@ -182,6 +185,65 @@ def test_attention_twin_matches_jax_attention_with_key_bias(B, Lp, D, H, true_le
     want_sum = np.exp(logits - logits.max(-1, keepdims=True)).sum(-1)
     np.testing.assert_allclose(row_sum.numpy(), want_sum, atol=0, rtol=1e-5)
     assert (row_sum.numpy() >= 1).all()
+
+
+# (Lp, true_len): true_len at the 128-key tiles' edges and at the trainers'
+# and the 384-px blocks' token counts
+ATTN_BWD_CASES = [(128, 128), (256, 128), (256, 129), (256, 197), (640, 128), (640, 129),
+                  (640, 197), (640, 577)]
+
+
+@pytest.mark.parametrize("Lp,true_len", ATTN_BWD_CASES)
+def test_attention_bwd_twin_is_the_gradient_fp64(Lp, true_len):
+    """In fp64 no rounding point rounds, so K5's attention backward twin,
+    fed the forward twin's statistics, is autograd's gradient of
+    block_attention_ref with the key mask (tolerance 1e-10 of the largest
+    entry): dq, dk, dv, dbqkv their column sums, and D = sum_k dp p the
+    rows' do . o per head."""
+    B, D, H = 2, 128, 2
+    rng = np.random.default_rng(Lp + true_len)
+    qkv = torch.from_numpy(rng.standard_normal((B, Lp, 3 * D)))
+    do = torch.from_numpy(rng.standard_normal((B, Lp, D)))
+    out, row_max, row_sum = F.block_attention_ref(qkv, true_len=true_len, num_heads=H,
+                                                  with_stats=True)
+    dqkv, delta, dbqkv = F.block_attention_bwd_ref(qkv, do, row_max, row_sum,
+                                                   true_len=true_len, num_heads=H)
+    leaf = qkv.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(F.block_attention_ref(leaf, true_len=true_len, num_heads=H),
+                                  leaf, do)
+    assert _rel(dqkv.numpy(), want.numpy()) <= 1e-10
+    assert _rel(dbqkv.numpy(), want.sum(dim=(0, 1)).numpy()) <= 1e-10
+    heads = lambda t: t.reshape(B, Lp, H, D // H).transpose(1, 2)  # noqa: E731
+    want_delta = (heads(do) * heads(out)).sum(-1).reshape(B * H, Lp)
+    assert _rel(delta.numpy(), want_delta.numpy()) <= 1e-10
+    if true_len < Lp:  # masked keys get no gradient
+        assert not dqkv[:, true_len:, D:].any()
+
+
+def test_attn_bwd_args_follow_the_c_entry():
+    """The attention backward C entry's arguments: qkv, do, row max, row
+    sum, stats, dqkv, part, dbqkv, dtype code, device, B, Lp, D, H,
+    true_len, stream; one per argtype that `_kernel_fns` declares."""
+    qkv = torch.zeros((3, 256, 3 * 128), dtype=torch.bfloat16)
+    tensors = (qkv, torch.zeros((3, 256, 128), dtype=torch.bfloat16), torch.zeros((6, 256)),
+               torch.ones((6, 256)), torch.empty((6, 4, 4, 64)), torch.empty_like(qkv),
+               torch.empty((12, 384)), torch.empty(384))
+    args = F._attn_bwd_args(*tensors, 197, 2, 1234)
+    assert len(args) == 8 + 7 + 1
+    assert args == (*(t.data_ptr() for t in tensors), 0, None, 3, 256, 128, 2, 197, 1234)
+
+
+@pytest.mark.parametrize("D,H", [(128, 4), (256, 2)])
+def test_attention_bwd_launch_rejects_head_dims_other_than_64(D, H):
+    """The attention backward wrapper checks the head dim (64 only)
+    before it builds or launches anything, and counts no launch."""
+    qkv = torch.zeros((1, 128, 3 * D), dtype=torch.bfloat16)
+    do = torch.zeros((1, 128, D), dtype=torch.bfloat16)
+    stats = torch.ones((H, 128))
+    before = dict(F.launch_counts)
+    with pytest.raises(ValueError, match="head dim"):
+        F._launch_attention_bwd(qkv, do, stats, stats, 100, H)
+    assert F.launch_counts == before
 
 
 @pytest.mark.parametrize("with_stats", [False, True])
@@ -352,3 +414,30 @@ def test_training_cfgs_turns_the_fused_mlp_off_under_autodiff(monkeypatch):
     assert not v.use_fused_mlp and not m.use_fused_mlp and v.use_fused_block
     assert (v.use_fused_mlp, m.use_fused_mlp, v.use_fused_block) == (
         jv.use_fused_mlp, jm.use_fused_mlp, jv.use_fused_block)
+
+
+def test_chip_smoke_holds_k5_attention_passes_to_wgmma():
+    """chip_smoke.py's phase 2 SASS table lists every bf16 attention kernel
+    of K5's source (the recompute's and K5's own dq and dk/dv passes), so
+    each must show wgmma, TMA loads and mbarriers and no mma.sync on the
+    card: no kernel is exempt, and the mma.sync passes it replaced may not
+    come back."""
+    import importlib.util
+    import os
+    import re
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke_table",
+                                                  os.path.join(repo, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    table = dict(cs.WGMMA_ATTENTION["fused_vit_block_bwd"])
+    assert table == {"attn_fwd_wgmma": 6, "attn_bwd_dq_wgmma": 1, "attn_bwd_dkdv_wgmma": 1}
+    assert {"attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"} <= set(cs.MMA_SYNC_ATTENTION)
+    src = open(os.path.join(repo, "vidil_tpu_torch", "csrc", "fused_vit_block_bwd.cu")).read()
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s+(attn_\w+)", src))
+    assert kernels == {"attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma", "attn_bwd_dq_f32",
+                       "attn_bwd_dkdv_f32"}
+    assert {k for k in kernels if not k.endswith("_f32")} <= set(table)
+    assert cs._sass_label("attn_bwd_dq_wgmma", "_ZN4attn9017attn_bwd_dq_wgmmaE") == \
+        "attn_bwd_dq_wgmma"

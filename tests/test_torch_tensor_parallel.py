@@ -681,3 +681,155 @@ def test_attention_gate_reads_the_global_shape(monkeypatch):
         calls.clear()
         V.vit_forward(params, images, cfg, grid=grid)
         assert calls == [(want, (8, 12, 577, 64))], grid
+
+
+# ---------------------------------------------------------------------------
+# the fused ViT schedule under a model axis
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("env", ["0", "1", None])
+@pytest.mark.parametrize("start", ["plain", "forward_only", "pair"])
+def test_training_cfgs_under_a_model_axis_match_jax(monkeypatch, env, start):
+    """JAX's `training_cfgs` has no model-axis branch: under
+    ``model_parallel: 2`` the port's picks the ViT's schedule (and the
+    MED's remat and fused MLP) exactly as JAX's does, under every
+    ``VIDIL_TPU_TRAIN_FUSED_BLOCK`` setting."""
+    from vidil_tpu.train.common import training_cfgs as j_training_cfgs
+    from vidil_tpu_torch.train.common import training_cfgs
+
+    if env is None:
+        monkeypatch.delenv("VIDIL_TPU_TRAIN_FUSED_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("VIDIL_TPU_TRAIN_FUSED_BLOCK", env)
+    kw = dict(FUSED_VIT_KW, **{"plain": {}, "forward_only": {"use_fused_block": True},
+                               "pair": {"use_fused_block": True,
+                                        "use_fused_block_bwd": True}}[start])
+    fields = ("use_fused_block", "use_fused_block_bwd", "use_fused_mlp", "remat")
+    jv, jm = j_training_cfgs(JViT(**kw), JMed(**FUSED_MED_KW))
+    v, m = training_cfgs(ViTConfig(**kw), MedConfig(**FUSED_MED_KW), model_parallel=2)
+    assert {f: getattr(v, f) for f in fields} == {f: getattr(jv, f) for f in fields}
+    assert (m.remat, m.use_fused_mlp) == (jm.remat, jm.use_fused_mlp)
+
+
+# a ViT the fused schedule takes (128 wide, 2 heads of 64; the blocks' twins
+# on the CPU with fused_block_interpret), a MED whose cross-attention is as
+# wide
+FUSED_VIT_KW = dict(VIT_KW, hidden_size=128, num_heads=2, fused_block_interpret=True)
+FUSED_MED_KW = dict(MED_KW, encoder_width=128)
+
+
+def _fused_caption(spec, grid=None):
+    """The caption step with the fused ViT schedule on the params and batch
+    under `spec`, on `grid` (None: one process), fp32, then the caption
+    loss evaluated in float64 on the same weights (`.float()` patched to
+    float64, as `_float64_grads` does). Returns the step's loss, each
+    fused block's whole gradient as the gathers' backward received it (a
+    list, in call order), the number of fused block calls, and the float64
+    loss and gradients: this rank's ViT leaves and the gathered whole ones."""
+    from vidil_tpu_torch.models import blip, vit
+    from vidil_tpu_torch.parallel import collectives
+    from vidil_tpu_torch.train import caption as C
+    from vidil_tpu_torch.train.common import training_cfgs
+
+    vit_cfg, med_cfg = ViTConfig(**FUSED_VIT_KW), MedConfig(**FUSED_MED_KW)
+    model = grid.model if grid is not None else 1
+    batch = {k: v for k, v in np.load(os.path.join(spec, "fused_batch.npz")).items()}
+    load = lambda: sharding.shard_params(  # noqa: E731
+        D.load_tree(os.path.join(spec, "fused_params.npz")), grid)
+    whole, calls = [], []
+    gather, block = collectives.gather_from_model, vit.fused_vit_block
+    mp = pytest.MonkeyPatch()
+    mp.delenv("VIDIL_TPU_TRAIN_FUSED_BLOCK", raising=False)
+    mp.setattr(vit, "fused_vit_block", lambda *a, **k: calls.append(1) or block(*a, **k))
+
+    def captured(x, dim, group):
+        out = gather(x, dim, group)
+        out.register_hook(lambda g: whole.append(g.detach().clone()))
+        return out
+
+    mp.setattr(collectives, "gather_from_model", captured)
+    try:
+        step = C.make_caption_train_step(vit_cfg, med_cfg, prompt_length=3, grid=grid)
+        state = C.create_caption_train_state(load(), LR, device="cpu", grid=grid)
+        _, metrics = step(state, D.rank_batch(batch, grid=grid))
+        out = {"loss": np.asarray(float(metrics["loss"]), np.float32), "calls": len(calls)}
+        out.update({f"whole{i}": g.numpy() for i, g in enumerate(whole)})
+        vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, model_parallel=model)
+        mp.setattr(torch.Tensor, "float", lambda self, *a, **k: self.to(torch.float64))
+        params = convert.from_jax_params(convert.to_jax_params(load()))
+        for _, t in convert.named_leaves(params):
+            t.data = t.data.to(torch.float64)
+            t.requires_grad_(True)
+        video = torch.from_numpy(batch["video"]).to(torch.float64)
+        ids, mask = (torch.from_numpy(batch[k]).long() for k in ("input_ids", "attention_mask"))
+        embeds = blip.encode_video_frames(params, video, vit_cfg, grid=grid)
+        loss = blip.blip_caption_loss(params, embeds, ids, mask, med_cfg, prompt_length=3,
+                                      grid=grid)
+        loss.backward()
+        out["loss64"] = loss.detach().numpy()
+        grads = {"visual_encoder": D._grads(params["visual_encoder"])}
+        out.update({f"local/{k}": v for k, v in D.jax_flat(grads).items()})
+        out.update({f"grad/{k}": v for k, v in
+                    D.jax_flat(sharding.gather_params(grads, grid)).items()})
+        return out
+    finally:
+        mp.undo()
+
+
+def test_fused_vit_steps_whole_blocks_under_a_model_axis(tmp_path):
+    """A 1 x 2 gloo grid caption step with the fused ViT schedule (the
+    blocks' twins on the CPU): both model ranks run every block whole on
+    the gathered weights (2 fused calls a step), their losses are bitwise
+    equal and so is each block's whole gradient before it is sliced; in
+    float64 the loss and the gathered ViT gradients are one process's to
+    1e-13 (of the largest gradient; the model axis changes only the MED's
+    rounding), and each
+    rank keeps its `split_leaf` slice of the one process's whole gradient
+    (a summed or reduce-scattered gradient would be twice it)."""
+    import sys
+
+    from vidil_tpu.models.blip import init_blip_decoder as j_init
+
+    params = _np_tree(j_init(jax.random.PRNGKey(21), JViT(**FUSED_VIT_KW),
+                             JMed(**FUSED_MED_KW)))
+    save_checkpoint(str(tmp_path / "fused_params.npz"), convert.from_jax_params(params))
+    np.savez(tmp_path / "fused_batch.npz", **_batches(np.random.RandomState(22))["caption"])
+    worker = tmp_path / "worker.py"
+    worker.write_text(f'''
+import sys, numpy as np, torch
+sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+import test_torch_tensor_parallel as T
+from vidil_tpu_torch.parallel.mesh import make_grid
+from vidil_tpu_torch.utils import dist
+torch.set_num_threads(1)
+dist.init_distributed_mode(backend="gloo", device="cpu")
+out = T._fused_caption({str(tmp_path)!r}, make_grid(1, 2))
+np.savez({str(tmp_path)!r} + f"/rank{{dist.get_rank()}}.npz", **out)
+dist.destroy_distributed()
+''')
+    res = D.spawn_ranks(2, [sys.executable, str(worker)], str(tmp_path / "logs"), 300,
+                        env={"OMP_NUM_THREADS": "1"})
+    for rank, (rc, out, err) in enumerate(res):
+        assert rc == 0, f"rank {rank} exited {rc}\n{out[-3000:]}\n{err[-3000:]}"
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    one = _fused_caption(str(tmp_path))
+    n_whole = sum(k.startswith("whole") for k in ranks[0])
+    assert one["calls"] == ranks[0]["calls"] == ranks[1]["calls"] == 2
+    assert n_whole == sum(k.startswith("whole") for k in ranks[1]) == 2 * 6  # 6 a block
+    assert ranks[0]["loss"].tobytes() == ranks[1]["loss"].tobytes()
+    np.testing.assert_allclose(ranks[0]["loss64"], one["loss64"], rtol=1e-13)
+    for i in range(n_whole):
+        assert ranks[0][f"whole{i}"].tobytes() == ranks[1][f"whole{i}"].tobytes(), i
+    want = {k[5:]: v for k, v in one.items() if k.startswith("grad/")}
+    g_max = max(float(np.abs(g).max()) for g in want.values())
+    assert len(want) == 18 and {k[5:] for k in ranks[0] if k.startswith("grad/")} == set(want)
+    sliced = 0
+    for path, g in want.items():
+        assert float(np.abs(ranks[0][f"grad/{path}"] - g).max()) <= 1e-13 * g_max, path
+        names = tuple(path.split("/"))
+        spec = sharding._jax_spec(names, g.shape, 2)  # the JAX layout's own rule
+        for m, rank in enumerate(ranks):
+            mine = sharding.split_leaf(torch.from_numpy(g), names, spec, 2, m).numpy()
+            assert float(np.abs(rank[f"local/{path}"] - mine).max()) <= 1e-13 * g_max, (path, m)
+            sliced += mine.shape != g.shape
+    assert sliced == 2 * 6  # the blocks' 6 sharded (stacked) leaves, on both ranks

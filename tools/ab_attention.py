@@ -1,6 +1,6 @@
 """A/B device times of K2 (flash-attention backward) and of the fused ViT
-block (K4, its attention alone, K5) between two trees of the port, on one
-card.
+block (K4, its attention alone, K5 with its workspace bytes, at both block
+shapes) between two trees of the port, on one card.
 
     python tools/ab_attention.py <tree root> <label>
 
@@ -43,12 +43,18 @@ for shape, (B, Lp, tl) in cs.BLOCK_SHAPES.items():
     d = cs.block_device_times(lambda: fvb._launch_fwd(args, tl, 12, 1e-6),
                               lambda: cs.library_block(args, tl), B, Lp, torch.bfloat16)
     out[f"k4_{shape}"] = {"device_ms": d["device_ms"], "attention_ms": d["parts"]["attention"]["ms"]}
-    if shape == "train_224":
-        g = torch.randn((B, Lp, 768), generator=gen, device=dev).to(torch.bfloat16)
-        g[:, tl:] = 0
-        d = cs.block_device_times(lambda: fvb._launch_bwd(args, g, tl, 12, 1e-6),
-                                  lambda: cs.library_block(args, tl), B, Lp, torch.bfloat16,
-                                  backward=True)
-        out["k5_train_224"] = {"device_ms": d["device_ms"],
-                               "parts": {k: round(v["ms"], 4) for k, v in d["parts"].items()}}
+    g = torch.randn((B, Lp, 768), generator=gen, device=dev).to(torch.bfloat16)
+    g[:, tl:] = 0
+    want = fvb.fused_block_bwd_ref(*args, g, true_len=tl, num_heads=12, eps=1e-6)
+    err = max(cs._rel_err(a, b) for a, b in zip(fvb._launch_bwd(args, g, tl, 12, 1e-6), want))
+    assert err <= cs.BLOCK_BWD_RTOL[torch.bfloat16], err
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    d = cs.block_device_times(lambda: fvb._launch_bwd(args, g, tl, 12, 1e-6),
+                              lambda: torch.autograd.grad(cs.library_block(leaves, tl), leaves, g),
+                              B, Lp, torch.bfloat16, backward=True)
+    out[f"k5_{shape}"] = {"device_ms": d["device_ms"], "library_device_ms": d["library_device_ms"],
+                          "rel_err": err,
+                          "workspace_bytes": fvb._kernel_fns()["bwd_ws"](0, B, Lp, 768, 3072, 12),
+                          "parts": {k: [round(v["ms"], 4), v["launches"]]
+                                    for k, v in d["parts"].items()}}
 print("AB", json.dumps(out), flush=True)

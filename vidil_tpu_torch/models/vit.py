@@ -19,10 +19,11 @@ parameters sharded by `parallel/sharding.py:shard_params`): the classic
 block on this rank's heads and hidden columns, Megatron's pattern: the
 LayerNorm'd input enters the qkv and fc1 projections through
 `copy_to_model`, the attention runs on the local heads, and proj and fc2
-are row-parallel (`layers.row_linear`). The fused schedule computes a
-whole block with its residual in one call, which a head shard cannot (the
-projection's partial sums must be summed before the residual), so a
-model axis always takes the classic schedule.
+are row-parallel (`layers.row_linear`). The fused schedule runs each block
+whole on every model rank, as the JAX package does (its kernel has no
+sharding rule, so the partitioner gathers the block's weights): the
+block's shards are gathered (`sharding.gather_block`), and each leaf's
+gradient comes back as this rank's slice of the whole one.
 """
 
 from __future__ import annotations
@@ -143,7 +144,8 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = 
 
     grid: the train steps' (data, model) grid (`parallel/mesh.py:Grid`):
     the attention gate reads the step's global shape, and a model axis runs
-    the classic blocks tensor-parallel on sharded parameters."""
+    the classic blocks tensor-parallel on sharded parameters, or each fused
+    block whole on the gathered ones."""
     B = images.shape[0]
     x = linear(params["patch_embed"], patchify(images, cfg.patch_size), dtype=dtype)
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
@@ -152,11 +154,15 @@ def vit_forward(params, images, cfg: ViTConfig, dtype=None, return_attn: bool = 
     if return_attn:
         return _forward_with_attn(params, x, cfg, dtype)
     tp = grid is not None and grid.tensor_parallel
-    if use_fused_schedule(cfg, x) and not tp:
+    if use_fused_schedule(cfg, x):
+        from vidil_tpu_torch.parallel.sharding import gather_block
+
         L = x.shape[1]
         lp = (L + 127) // 128 * 128
         x = F.pad(x, (0, 0, 0, lp - L))
         for blk in params["blocks"]:
+            if tp:
+                blk = gather_block(blk, grid.model_group)
             x = fused_vit_block(blk, x, cfg.num_heads, cfg.layer_norm_eps, true_len=L,
                                 frames_per_program=cfg.fused_block_frames,
                                 pallas_bwd=cfg.use_fused_block_bwd,

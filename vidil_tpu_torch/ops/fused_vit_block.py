@@ -18,8 +18,11 @@ backward ``csrc/fused_vit_block_bwd.cu`` (the counterpart of
 ``_fused_block_backward``, K5): each is one C call per layer that runs a
 short chain of kernel launches on the current stream. On CPU tensors the
 same Function runs the plain twins, `fused_block_ref` and
-`fused_block_bwd_ref`, which keep the TPU kernels' rounding points. Nothing
-falls back: a CUDA launch that cannot run raises.
+`fused_block_bwd_ref`, which keep the TPU kernels' rounding points. The
+block's attention and K5's attention backward also launch alone
+(`_launch_attention`, `_launch_attention_bwd`), against their twins
+`block_attention_ref` and `block_attention_bwd_ref`. Nothing falls back: a
+CUDA launch that cannot run raises.
 
 Rounding points of the forward (``_block_kernel``): LN statistics in fp32,
 its output rounded to the input dtype; each GEMM accumulates in fp32, adds
@@ -48,10 +51,11 @@ KERNEL_HEAD_DIM = 64
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # launches of the CUDA kernels by this process, one per layer call (or, for
-# fused_vit_block_attention, per call of the block's attention alone), for
-# showing that a run went through them; `reset_launch_counts` sets them to 0
+# fused_vit_block_attention and fused_vit_block_attention_bwd, per call of
+# the block's attention or attention backward alone), for showing that a run
+# went through them; `reset_launch_counts` sets them to 0
 launch_counts = {"fused_vit_block_fwd": 0, "fused_vit_block_bwd": 0,
-                 "fused_vit_block_attention": 0}
+                 "fused_vit_block_attention": 0, "fused_vit_block_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -151,6 +155,46 @@ def block_attention_ref(qkv, *, true_len: int, num_heads: int, with_stats: bool 
     return f["attn"], f["row_max"].reshape(B * H, Lp), f["row_sum"].reshape(B * H, Lp)
 
 
+def _attention_bwd(p32, q, k, v, do, scale, dt):
+    """K5's attention backward per head at its rounding points, from the
+    fp32 probabilities p32 (B, H, Lp, Lp) and q, k, v, do (B, H, Lp, Dh):
+    the fp32 dq, dk, dv merged into (B, Lp, 3D), unrounded, and D (B, H,
+    Lp)."""
+    acc = p32.dtype
+    dv = torch.matmul(p32.to(dt).to(acc).transpose(-1, -2), do.to(acc))
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    delta = (dp * p32).sum(dim=-1, keepdim=True)
+    dsb = (p32 * (dp - delta) * scale).to(dt).to(acc)
+    dq = torch.matmul(dsb, k.to(acc))
+    dk = torch.matmul(dsb.transpose(-1, -2), q.to(acc))
+    return torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1), delta[..., 0]
+
+
+def block_attention_bwd_ref(qkv, do, row_max, row_sum, *, true_len: int, num_heads: int):
+    """Plain PyTorch version of K5's attention backward launch alone (its
+    dq and dk/dv passes, with dbqkv): qkv (B, Lp, 3D) and the rounded
+    output gradient do (B, Lp, D) in one dtype, the recompute's row max and
+    row sum (B*H, Lp) -> (dqkv (B, Lp, 3D), D (B*H, Lp), dbqkv (3D,)), all
+    in the accumulation dtype and unrounded. p32 = exp(s - m) / l is
+    rebuilt from the statistics (s the scaled scores, -1e30 past
+    true_len); D = sum_k dp * p32; dsb = round(p32 (dp - D) scale);
+    dv = round(p32)^T do, dq = dsb k, dk = dsb^T q with q unscaled;
+    dbqkv = colsum(dqkv)."""
+    dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
+    B, Lp, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
+    scale = 1.0 / math.sqrt(D // num_heads)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    bias = _key_bias(Lp, true_len, acc, qkv.device)
+    if bias is not None:
+        s = s + bias
+    stat = lambda t: t.reshape(B, num_heads, Lp, 1).to(acc)  # noqa: E731
+    p32 = torch.exp(s - stat(row_max)) / stat(row_sum)
+    dqkv, delta = _attention_bwd(p32, q, k, v, _heads(do, num_heads), scale, dt)
+    return dqkv, delta.reshape(B * num_heads, Lp), dqkv.reshape(-1, D3).sum(dim=0)
+
+
 def _recompute(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1,
                *, true_len, num_heads, eps):
     """The block's forward up to the GELU, at the kernels' rounding points;
@@ -235,14 +279,7 @@ def fused_block_bwd_ref(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1,
     dwproj = tn(f["attn"], dyb)
     do = _heads(nt(dyb, wproj).to(dt), num_heads)
 
-    p32, q, k, v = f["p32"], f["q"], f["k"], f["v"]
-    dv = torch.matmul(p32.to(dt).to(acc).transpose(-1, -2), do.to(acc))
-    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
-    ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
-    dsb = (ds * f["scale"]).to(dt).to(acc)
-    dq = torch.matmul(dsb, k.to(acc))
-    dk = torch.matmul(dsb.transpose(-1, -2), q.to(acc))
-    dqkv32 = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
+    dqkv32, _ = _attention_bwd(f["p32"], f["q"], f["k"], f["v"], do, f["scale"], dt)
     dqkvb = dqkv32.to(dt)
     dbqkv = colsum(dqkv32)
     dwqkv = tn(f["h1"], dqkvb)
@@ -390,10 +427,10 @@ def _attn_args(qkv, out, row_max, row_sum, true_len, num_heads, stream):
             qkv.device.index, B, Lp, D3 // 3, num_heads, true_len, stream)
 
 
-def _launch_attention(qkv, true_len, num_heads, with_stats=False):
-    """Run the block's attention launch alone on a CUDA (B, Lp, 3D) QKV
-    workspace: (B, Lp, D) out, and with `with_stats` the (B*H, Lp) fp32 row
-    max and row sum that the backward's recompute keeps."""
+def _check_attention_operands(qkv, true_len, num_heads):
+    """The attention launches take a bf16/fp32 (B, Lp, 3D) QKV workspace
+    with head dim 64, D and the token axis multiples of 128 and
+    0 < true_len <= Lp: (B, Lp, D)."""
     if qkv.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_vit_block attention takes bf16 or fp32, got {qkv.dtype}")
     B, Lp, D3 = qkv.shape
@@ -404,6 +441,14 @@ def _launch_attention(qkv, true_len, num_heads, with_stats=False):
     if D % 128 or Lp % 128 or not 0 < true_len <= Lp:
         raise ValueError(f"fused_vit_block attention wants D and the token axis in multiples "
                          f"of 128 and 0 < true_len <= Lp, got D={D}, Lp={Lp}, true_len={true_len}")
+    return B, Lp, D
+
+
+def _launch_attention(qkv, true_len, num_heads, with_stats=False):
+    """Run the block's attention launch alone on a CUDA (B, Lp, 3D) QKV
+    workspace: (B, Lp, D) out, and with `with_stats` the (B*H, Lp) fp32 row
+    max and row sum that the backward's recompute keeps."""
+    B, Lp, D = _check_attention_operands(qkv, true_len, num_heads)
     qkv = qkv.contiguous()
     out = torch.empty((B, Lp, D), dtype=qkv.dtype, device=qkv.device)
     stats = (torch.empty((2, B * num_heads, Lp), dtype=torch.float32, device=qkv.device)
@@ -415,6 +460,45 @@ def _launch_attention(qkv, true_len, num_heads, with_stats=False):
         raise RuntimeError(f"fused_vit_block_attention launch failed: cudaError {err}")
     launch_counts["fused_vit_block_attention"] += 1
     return (out, stats[0], stats[1]) if with_stats else out
+
+
+def _attn_bwd_args(qkv, do, row_max, row_sum, stats, dqkv, part, dbqkv, true_len, num_heads,
+                   stream):
+    """The attention backward C entry's arguments, in its order."""
+    B, Lp, D3 = qkv.shape
+    return (qkv.data_ptr(), do.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+            stats.data_ptr(), dqkv.data_ptr(), part.data_ptr(), dbqkv.data_ptr(),
+            _DTYPE_CODE[qkv.dtype], qkv.device.index, B, Lp, D3 // 3, num_heads, true_len, stream)
+
+
+def _launch_attention_bwd(qkv, do, row_max, row_sum, true_len, num_heads):
+    """Run K5's attention backward alone (its dq and dk/dv passes, with
+    dbqkv) on a CUDA (B, Lp, 3D) QKV workspace, the rounded (B, Lp, D)
+    output gradient and the recompute's (B*H, Lp) fp32 row max and row sum:
+    (dqkv (B, Lp, 3D) rounded to qkv's dtype, D (B*H, Lp) fp32, dbqkv (3D,)
+    fp32)."""
+    B, Lp, D = _check_attention_operands(qkv, true_len, num_heads)
+    H, D3 = num_heads, 3 * D
+    if do.shape != (B, Lp, D) or do.dtype != qkv.dtype:
+        raise ValueError(f"fused_vit_block attention backward: do {tuple(do.shape)} {do.dtype}, "
+                         f"want {(B, Lp, D)} {qkv.dtype}")
+    stats_in = []
+    for t in (row_max, row_sum):
+        if t.shape != (B * H, Lp) or t.dtype != torch.float32:
+            raise ValueError(f"fused_vit_block attention backward: statistics "
+                             f"{tuple(t.shape)} {t.dtype}, want {(B * H, Lp)} fp32")
+        stats_in.append(t.contiguous())
+    qkv, do = qkv.contiguous(), do.contiguous()
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=qkv.device)  # noqa: E731
+    stats, part, dbqkv = f32(B * H, Lp // 64, 4, 64), f32(B * Lp // 64, D3), f32(D3)
+    dqkv = torch.empty_like(qkv)
+    err = _kernel_fns()["attention_bwd"](*_attn_bwd_args(
+        qkv, do, *stats_in, stats, dqkv, part, dbqkv, true_len, H,
+        torch.cuda.current_stream(qkv.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"fused_vit_block_attention_bwd launch failed: cudaError {err}")
+    launch_counts["fused_vit_block_attention_bwd"] += 1
+    return dqkv, stats[:, :, 3].reshape(B * H, Lp), dbqkv
 
 
 _fns: dict = {}
@@ -442,11 +526,14 @@ def _kernel_fns():
         attention = fwd_lib.vidil_fused_block_attention
         attention.restype = ctypes.c_int
         attention.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        attention_bwd = bwd_lib.vidil_fused_block_attention_bwd
+        attention_bwd.restype = ctypes.c_int
+        attention_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         splits = bwd_lib.vidil_fused_block_bwd_wgrad_splits
         splits.restype = ctypes.c_int
         splits.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
         _fns.update(fwd=fwd, bwd=bwd, fwd_ws=fwd_ws, bwd_ws=bwd_ws, wgrad_splits=splits,
-                    attention=attention)
+                    attention=attention, attention_bwd=attention_bwd)
     return _fns
 
 

@@ -13,6 +13,10 @@ tensor-parallel linears.
   `reduce_from_model` (all-reduce forward, identity backward): a
   column-parallel linear's input and a row-parallel linear's output over
   the model group (`models/layers.py`).
+* `gather_from_model` (all-gather forward, this rank's slice of the
+  cotangent backward): a sharded leaf made whole for a computation every
+  model rank repeats on the same inputs (the fused ViT block,
+  `models/vit.py`).
 
 Every collective takes a `group` (None: the whole world, torch's default);
 the trainers pass their grid's data group (`parallel/mesh.py:Grid`) to the
@@ -144,6 +148,29 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.n, ctx.rank = dim, x.shape[dim], dist.get_rank(group)
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The model group's tensors concatenated along `dim` in rank order,
+    differentiable, for a computation that every rank of the group repeats
+    on the same inputs: each rank then holds the same whole cotangent, so
+    the backward keeps this rank's slice of it. Neither an all-reduce nor a
+    reduce-scatter, which would multiply the gradient by the group's
+    size (`all_gather_with_grad` is for ranks with different inputs)."""
+    return _GatherFromModel.apply(x, dim, group)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

@@ -121,20 +121,34 @@ def split_leaf(t: torch.Tensor, names: tuple, spec: tuple, model: int, model_ran
     return t.narrow(axis, model_rank * n, n).clone()
 
 
-def join_leaf(t: torch.Tensor, names: tuple, spec: tuple, group) -> torch.Tensor:
+def join_leaf(t: torch.Tensor, names: tuple, spec: tuple, group, grad: bool = False):
     """The full leaf from every model rank's slice `t` (`split_leaf`'s
-    inverse): an all-gather over the model group, a collective."""
-    from vidil_tpu_torch.parallel.collectives import gather_along
+    inverse): an all-gather over the model group, a collective. With
+    `grad`, differentiable: the backward keeps this rank's `split_leaf`
+    slice of the whole leaf's gradient (`gather_from_model`), for a
+    computation that every model rank repeats."""
+    from vidil_tpu_torch.parallel.collectives import gather_along, gather_from_model
 
     axis = _axis(spec)
     if axis is None:
-        return t.detach()
+        return t if grad else t.detach()
+    gather = gather_from_model if grad else gather_along
     shape = tuple(t.shape)
     if any(_endswith(names, s) for s in _FUSED_QKV):
-        v = t.detach().reshape(shape[:axis] + (3, shape[axis] // 3) + shape[axis + 1:])
-        full = gather_along(v, axis + 1, group)
+        v = t.reshape(shape[:axis] + (3, shape[axis] // 3) + shape[axis + 1:])
+        full = gather(v, axis + 1, group)
         return full.reshape(shape[:axis] + (-1,) + shape[axis + 1:])
-    return gather_along(t, axis, group)
+    return gather(t, axis, group)
+
+
+def gather_block(block, group):
+    """One layer's whole parameters (a per-layer dict of a tower's
+    ``blocks``) from this rank's shards, differentiable (`join_leaf` with
+    `grad`): the fused ViT block runs whole on every model rank, as the
+    JAX package's partitioner runs its kernel on the gathered weights."""
+    specs = model_partition_spec([block])
+    return rebuild_tree(block, [join_leaf(leaf, names, specs[path], group, grad=True)
+                                for path, names, leaf, _ in leaf_paths([block])])
 
 
 def rebuild_tree(tree, leaves):

@@ -49,11 +49,10 @@ def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: b
     a width that is a multiple of 128, so off the card (or at the 32-wide
     test sizes) the same config trains on the classic schedule.
 
-    Under ``model_parallel > 1`` the ViT takes the classic schedule, and one
-    printed line says so: K4 and K5 compute a whole block with its residual
-    in one call, and a head shard cannot, since the projection's partial
-    sums must be summed over the model ranks before the residual. The
-    towers' heads and widths must divide the model axis (ValueError).
+    Under ``model_parallel > 1`` the towers' heads and widths must divide
+    the model axis (ValueError); the schedule is chosen as above, with no
+    model-axis branch, as in the JAX package: a fused block runs whole on
+    every model rank (`vit_forward`).
     """
     if med_remat and not med_cfg.remat:
         med_cfg = dataclasses.replace(med_cfg, remat=True)
@@ -69,11 +68,6 @@ def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: b
         bad = {k: v for k, v in widths.items() if v % model_parallel}
         if bad:
             raise ValueError(f"model_parallel {model_parallel} does not divide {bad}")
-        print(f"model_parallel {model_parallel}: the ViT trains on the classic schedule (its "
-              f"attention through K1/K2 on {vit_cfg.num_heads // model_parallel} local heads); "
-              f"the fused block pair K4/K5 does not split by heads", flush=True)
-        return dataclasses.replace(vit_cfg, use_fused_block=False,
-                                   use_fused_block_bwd=False), med_cfg
     fused_env = os.environ.get("VIDIL_TPU_TRAIN_FUSED_BLOCK")
     if fused_env == "0":
         vit_cfg = dataclasses.replace(vit_cfg, use_fused_block=False, use_fused_block_bwd=False)
