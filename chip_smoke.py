@@ -8,9 +8,10 @@ SBERT MPNet encoder (all-mpnet-base-v2 width), and the BLIP retrieval
 eval, retrieval fine-tuning and video pretraining; then CapFilt's
 sampling, on-device resize and decode variants, NLVR2, the embedding
 extractor and the ViT's attention maps; then the multi-process runtime
-(a world of one under NCCL, two gloo ranks on the one card); last, tensor
+(a world of one under NCCL, two gloo ranks on the one card); then tensor
 parallelism (two gloo ranks as a 1 x 2 grid on the one card), remat
-"dots" and profiling.
+"dots" and profiling; last, the random initialisation of the JAX
+package's distributions, and pretraining and captioning from it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase17-world 4   # phase 17 (b) over 4 NCCL ranks, 4 cards
@@ -207,6 +208,28 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      around one CapFilt chunk inside an annotate range: the trace names K1's
      kernel and the range; device_memory_stats(). With --phase18-world N,
      (a) alone over N NCCL ranks, one card each, an N/2 x 2 grid.
+ 19. from-scratch initialisation: (a) init_pretrain_params at
+     pretrain_video.yaml's model (ViT-B/16 224 px, bert_config.json's MED
+     widened to 30524 ids) and init_clip at ViT-L/14, fp32, CUDA
+     generators, with the parameter counts and seconds: constant leaves
+     exact, every truncated leaf within 2 sigma and its std within 1% of
+     0.8796 sigma (6 standard errors for a leaf too small for 1%), every
+     plain-normal leaf's within 1% of sigma; create_pretrain_state's own
+     draw from the seed the same tree bit for bit; (c) on the init, the
+     ViT-B/384 encode of a chunk's 32 frames through K1 (12 launches)
+     against its twin, bf16 and fp32, and with use_fused_block (K4, 12
+     launches) against the classic one, and one fused pretraining step's
+     gathered ViT gradients (24 K4 + 12 K5) against fused_block_ref /
+     fused_block_bwd_ref, each by relative Frobenius distance within 12
+     units of its dtype (twice that for the gradients) times the growth
+     of a 1e-3 pixel perturbation from 1 block to 12 measured in the run
+     (P19_UNIT); (b) 6 pretraining steps from the init on phase 15's
+     batch, bf16, fused: 24 K4 + 12 K5 a step, finite losses, the first
+     step's loss_itm and loss_lm within p19_loss_bars, loss_lm falling,
+     the median step ms; (d) CapFiltEngine.caption_frames over 32 frames
+     at 384 px through the init captioner: 32 strings, 12 K1 launches,
+     the same run to run, sample mode fixed by its seed and changed by
+     another.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold) and at the retrieval rerank's fold (its text length from
 phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
@@ -2562,7 +2585,7 @@ def run_pretraining(fa, fvb, device, tok):
     import os
 
     from vidil_tpu_torch.config import MedConfig, ViTConfig
-    from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params
+    from vidil_tpu_torch.models.blip_pretrain import synth_pretrain_params
     from vidil_tpu_torch.train.pretrain import create_pretrain_state, make_pretrain_step
 
     vit_cfg = ViTConfig.from_name("base", 224, remat=True)
@@ -2570,7 +2593,7 @@ def run_pretraining(fa, fvb, device, tok):
     med_cfg = MedConfig.from_json(os.path.join(repo, "configs", "bert_config.json"),
                                   encoder_width=vit_cfg.hidden_size)
     med_cfg = dataclasses.replace(med_cfg, vocab_size=tok.vocab_size)
-    state = create_pretrain_state(init_pretrain_params(vit_cfg, med_cfg, device=device, salt=6.0),
+    state = create_pretrain_state(synth_pretrain_params(vit_cfg, med_cfg, device=device, salt=6.0),
                                   1e-4, 0.05, queue_size=RET_QUEUE, seed=0, device=device)
     step = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
     n = vit_cfg.num_layers
@@ -3981,6 +4004,372 @@ def run_phase18(fa, fvb, device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: from-scratch initialisation (the JAX package's distributions)
+# ---------------------------------------------------------------------------
+
+# the init's draws (models/layers.py): std 0.02, truncated at 2 sigma, where a
+# unit normal keeps std 0.8796 and kurtosis 2.3656; CLIP's plain normals keep
+# std 0.02 and kurtosis 3
+P19_STD = 0.02
+P19_TRUNC = {"scale": 0.8796, "kurtosis": 2.3656}
+P19_STD_RTOL = 0.01
+# a leaf's sample std is within 1% of its distribution's where that is 6
+# standard errors or more (n >= 1.2e5 truncated); a smaller leaf within 6
+# standard errors, sqrt((kurtosis - 1) / (4 n)) relative
+P19_STD_SIGMAS = 6.0
+P19_PLAIN = {"vision/patch_embed/kernel", "vision/class_embedding", "vision/pos_embed",
+             "text/pos_embed", "visual_projection/kernel", "text_projection/kernel"}
+P19_CONSTANTS = {"temp": 0.07, "logit_scale": 2.6592}
+# (c): the kernels against their plain twins after all 12 blocks, relative
+# Frobenius distance. One call differs from its twin by at most one unit of
+# its output's rounding (bf16: the unit roundoff 2**-8; fp32: K1's fp32 check
+# bar, 2e-5 at |o| < 1); the init's ViT carries a difference from block to
+# block with the growth g measured in this run (a 1e-3 pixel perturbation's
+# relative effect after 12 blocks over that after 1), so 12 blocks add up to
+# at most 12 g units. A gradient carries the forward's sum and the
+# backward's own: twice that.
+P19_UNIT = {torch.bfloat16: 2.0 ** -8, torch.float32: 2e-5}
+P19_LAYERS = 12
+P19_FRAMES = N_VIDEOS * N_FRAMES  # a CapFilt chunk's frames at 384 px
+# (b): the first step's ITM loss at the init: the head's logit difference d =
+# (w1 - w0) . h over a LayerNorm'd [CLS] state (|h|^2 = D) has std
+# s = 0.8796 * 0.02 * sqrt(2 D); a third of the rows are positives, so the
+# loss is ln(1 + e^d) - d / 3 when the rows move together, at least its
+# minimum ln 1.5 + ln 2 / 3 = 0.6365, at most its value at d = 3 s (1.50 at
+# D = 768); row-to-row spread only pulls it towards the mean (0.75). Bars: ln 2
+# - 0.15 to that value at 3 s. The LM loss over V words: logits of std
+# s_lm = 0.8796 * 0.02 * sqrt(D), ln V + s_lm^2 / 2 = ln V + 0.12 at D = 768,
+# label smoothing alike; bars ln V - 0.3 to ln V + 0.6
+P19_ITM_LOW = math.log(2.0) - 0.15
+P19_LM_BARS = (-0.3, 0.6)
+
+
+def p19_loss_bars(hidden: int, vocab: int) -> dict:
+    """The first pretraining step's loss bars at the init (see P19_ITM_LOW)."""
+    s = P19_TRUNC["scale"] * P19_STD * math.sqrt(2 * hidden)
+    d = 3 * s
+    return {"loss_itm": (P19_ITM_LOW, math.log1p(math.exp(d)) - d / 3),
+            "loss_lm": tuple(math.log(vocab) + b for b in P19_LM_BARS),
+            "itm_logit_diff_std": s}
+
+
+def _rel_frob(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _p19_expect(label, counts, want):
+    """Fail unless the launches `counts` (its zero entries dropped) are
+    exactly `want`; return them."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise SystemExit(f"phase 19 {label}: launches {got}, want {want}")
+    return got
+
+
+def p19_check_leaves(label, tree, plain=()):
+    """The init's leaves against its distributions: constants exact (biases
+    zeros, LayerNorm scales ones, P19_CONSTANTS), every truncated leaf within
+    2 sigma with its std within the P19_STD_* tolerance of 0.8796 sigma,
+    every plain-normal leaf (`plain`) with its std within that of sigma.
+    Returns the counts and the worst relative std error."""
+    from vidil_tpu_torch.models.convert import named_leaves
+
+    counts = {"constant": 0, "truncated": 0, "plain": 0}
+    worst = {"truncated": 0.0, "plain": 0.0}
+    for path, t in named_leaves(tree):
+        name = path.rsplit("/", 1)[-1]
+        want = ({"bias": 0.0, "scale": 1.0}.get(name) if name in ("bias", "scale")
+                else P19_CONSTANTS.get(name))
+        if want is not None:
+            if not torch.equal(t, torch.full_like(t, want)):
+                raise SystemExit(f"phase 19 (a) {label}: {path} is not {want}")
+            counts["constant"] += 1
+            continue
+        kind = "plain" if path in plain else "truncated"
+        scale, kurt = (1.0, 3.0) if kind == "plain" else (P19_TRUNC["scale"],
+                                                          P19_TRUNC["kurtosis"])
+        n = t.numel()
+        tol = max(P19_STD_RTOL, P19_STD_SIGMAS * math.sqrt((kurt - 1) / (4 * n)))
+        err = abs(t.double().std().item() / (scale * P19_STD) - 1)
+        worst[kind] = max(worst[kind], err)
+        if err > tol:
+            raise SystemExit(f"phase 19 (a) {label}: {path} std {t.std().item()} off "
+                             f"{scale * P19_STD} by {err:.4f} > {tol:.4f} (n {n})")
+        if kind == "truncated" and t.abs().max().item() > 2 * P19_STD:
+            raise SystemExit(f"phase 19 (a) {label}: {path} max |x| {t.abs().max().item()} "
+                             f"> 2 sigma")
+        counts[kind] += 1
+    return {"leaves": counts, "worst_std_rel_err": worst,
+            "params": sum(t.numel() for _, t in named_leaves(tree))}
+
+
+def p19_init(device, tok):
+    """(a) init_pretrain_params at pretrain_video.yaml's model (ViT-B/16 224
+    px, bert_config.json's MED widened to the tokenizer's 30524 ids, as the
+    CLI does) and init_clip at ViT-L/14, fp32, CUDA generators;
+    create_pretrain_state's own draw from the same seed equal bit for bit."""
+    import dataclasses
+
+    from vidil_tpu_torch.config import CLIPConfig, MedConfig, ViTConfig
+    from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params
+    from vidil_tpu_torch.models.clip import init_clip
+    from vidil_tpu_torch.models.convert import named_leaves
+    from vidil_tpu_torch.train.pretrain import create_pretrain_state
+    from vidil_tpu_torch.utils.seeding import init_generator
+
+    vit_cfg = ViTConfig.from_name("base", 224, remat=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    med_cfg = MedConfig.from_json(os.path.join(repo, "configs", "bert_config.json"),
+                                  encoder_width=vit_cfg.hidden_size)
+    med_cfg = dataclasses.replace(med_cfg, vocab_size=tok.vocab_size)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = init_pretrain_params(init_generator(0, device), vit_cfg, med_cfg, device=device)
+    torch.cuda.synchronize()
+    out["pretrain_init_s"] = time.time() - t0
+    out["pretrain"] = p19_check_leaves("init_pretrain_params", params)
+    state = create_pretrain_state(None, 1e-4, 0.05, vit_cfg=vit_cfg, med_cfg=med_cfg,
+                                  queue_size=RET_QUEUE, seed=0, device=device)
+    same = all(torch.equal(a, b.detach()) for (_, a), (_, b) in
+               zip(named_leaves(params), named_leaves(state.params)))
+    if not same:
+        raise SystemExit("phase 19 (a): create_pretrain_state's draw is not the seed's tree")
+    del params
+    t0 = time.time()
+    clip = init_clip(init_generator(0, device), CLIPConfig())
+    torch.cuda.synchronize()
+    out["clip_init_s"] = time.time() - t0
+    out["clip"] = p19_check_leaves("init_clip", clip, P19_PLAIN)
+    del clip
+    torch.cuda.empty_cache()
+    return state, vit_cfg, med_cfg, out
+
+
+def p19_encode(fa, fvb, device):
+    """(c), the encodes: ViT-B/384 from init_vit over a CapFilt chunk's 32
+    frames (pixels a unit normal). The growth of a 1e-3 perturbation from 1
+    block to 12 (fp32); then the encode through K1 (12 launches) against
+    the one through its plain twin at the kernel's tiling, bf16 and fp32,
+    and the bf16 encode on the fused-block schedule (K4, 12 launches)
+    against the classic one."""
+    import dataclasses
+
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models import vit
+    from vidil_tpu_torch.utils.seeding import init_generator
+
+    cfg = ViTConfig.from_name("base", 384)
+    ve = vit.init_vit(init_generator(1, device), cfg)
+    gen = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((P19_FRAMES, 384, 384, 3), generator=gen, device=device)
+    dx = 1e-3 * torch.randn(x.shape, generator=gen, device=device)
+    mods = (fa, fvb)
+
+    def twin(q, k, v, use_flash=True, grid=(1, 1)):
+        return fa.flash_attention_ref(q, k, v, block_k=fa.KERNEL_BLOCK_K[q.dtype])
+
+    launches = {}
+
+    def encode(params, c, dtype, want, plain=False):
+        orig = vit.attention_auto
+        if plain:
+            vit.attention_auto = twin
+        _reset_counts(mods)
+        try:
+            with torch.no_grad():
+                y = vit.vit_forward(params, x, c, dtype=dtype)
+        finally:
+            vit.attention_auto = orig
+        launches[f"{c.use_fused_block}_{dtype}_{plain}"] = _p19_expect(
+            "(c) encode", _read_counts(mods), want)
+        if not torch.isfinite(y).all():
+            raise SystemExit("phase 19 (c): non-finite encode")
+        return y
+
+    out = {"frames": P19_FRAMES}
+    rel = {}
+    for depth in (1, P19_LAYERS):
+        part = dict(ve, blocks=ve["blocks"][:depth])
+        with torch.no_grad():
+            a = vit.vit_forward(part, x, cfg)
+            b = vit.vit_forward(part, x + dx, cfg)
+        rel[depth] = _rel_frob(b, a)
+    growth = rel[P19_LAYERS] / rel[1]
+    out["perturbation_rel_change"] = rel
+    out["growth_1_to_12"] = growth
+    k1 = {"flash_attention_fwd": P19_LAYERS}
+    checks = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        got = encode(ve, cfg, dtype, k1)
+        checks[f"k1_vs_twin_{name}"] = (_rel_frob(got, encode(ve, cfg, dtype, {}, plain=True)),
+                                        dtype)
+        if dtype == torch.bfloat16:
+            fused = encode(ve, dataclasses.replace(cfg, use_fused_block=True), dtype,
+                           {"fused_vit_block_fwd": P19_LAYERS})
+            checks["k4_vs_classic_bf16"] = (_rel_frob(fused, got), dtype)
+    out["launches"] = {"k1_bf16": launches[f"False_{torch.bfloat16}_False"],
+                       "k1_fp32": launches[f"False_{torch.float32}_False"],
+                       "k4_bf16": launches[f"True_{torch.bfloat16}_False"]}
+    for name, (err, dtype) in checks.items():
+        bar = P19_LAYERS * P19_UNIT[dtype] * max(1.0, growth)
+        out[name] = {"rel_frobenius": err, "bar": bar}
+        if not err <= bar:
+            raise SystemExit(f"phase 19 (c) {name}: relative Frobenius {err} > bar {bar}")
+    return out
+
+
+def p19_grads(fa, fvb, state, vit_cfg, med_cfg, batch):
+    """(c), the gradient: one fused pretraining step's loss and backward on
+    the init (bf16, the trainers' schedule: 24 K4 + 12 K5) against the same
+    with K4/K5 replaced by fused_block_ref / fused_block_bwd_ref, on the
+    first run's negatives: the gathered ViT gradients' relative Frobenius
+    distance (and the worst leaf's)."""
+    from vidil_tpu_torch.models.blip_pretrain import pretrain_loss
+    from vidil_tpu_torch.models.convert import named_leaves
+    from vidil_tpu_torch.train.common import training_cfgs
+    from vidil_tpu_torch.utils.seeding import make_generator
+
+    vit_t, med_t = training_cfgs(vit_cfg, med_cfg)
+    leaves = [p for _, p in named_leaves(state.params)]
+    vit_leaves = named_leaves(state.params["visual_encoder"])
+    negatives = None
+
+    def grads():
+        nonlocal negatives
+        for p in leaves:
+            p.grad = None
+        ita, itm, lm, aux = pretrain_loss(
+            state.params, state.params_m, state.queue, batch["video"], batch["text_ids"],
+            batch["enc_ids"], batch["dec_ids"], batch["text_mask"], 0.4,
+            make_generator(0, 0, state.device), vit_t, med_t, dtype=torch.bfloat16,
+            negatives=negatives)
+        (ita + itm + lm).backward()
+        negatives = aux["negatives"]
+        return {path: p.grad.detach().clone() for path, p in vit_leaves}
+
+    _reset_counts((fa, fvb))
+    got = grads()
+    _p19_expect("(c) gradients", _read_counts((fa, fvb)),
+                {"fused_vit_block_fwd": 2 * P19_LAYERS, "fused_vit_block_bwd": P19_LAYERS})
+    launch_fwd, launch_bwd = fvb._launch_fwd, fvb._launch_bwd
+    fvb._launch_fwd = lambda args, tl, nh, eps: fvb.fused_block_ref(
+        *args, true_len=tl, num_heads=nh, eps=eps)
+    fvb._launch_bwd = lambda args, g, tl, nh, eps: fvb.fused_block_bwd_ref(
+        *args, g.to(args[0].dtype), true_len=tl, num_heads=nh, eps=eps)
+    try:
+        ref = grads()
+    finally:
+        fvb._launch_fwd, fvb._launch_bwd = launch_fwd, launch_bwd
+    for p in leaves:
+        p.grad = None
+    flat = lambda g: torch.cat([t.reshape(-1).float() for t in g.values()])  # noqa: E731
+    if not torch.isfinite(flat(got)).all():
+        raise SystemExit("phase 19 (c) gradients: non-finite")
+    worst = max(((_rel_frob(got[p], ref[p]), p) for p in ref if ref[p].norm() > 0))
+    return {"rel_frobenius": _rel_frob(flat(got), flat(ref)), "worst_leaf": list(worst),
+            "leaves": len(ref)}
+
+
+def p19_caption_frames(fa, fvb, device, tok):
+    """(d) CapFiltEngine.caption_frames over a chunk's 32 frames at 384 px
+    (uint8 noise) through the init captioner (init_blip_decoder,
+    BLIP-base/384, bf16, 3 beams, 20 tokens): 32 strings, exactly 12 K1
+    launches (the encode; the decode's attention carries a bias), the same
+    strings run to run; sample mode the same under one seed and other
+    strings under another."""
+    from vidil_tpu_torch.config import ViTConfig
+    from vidil_tpu_torch.models.blip import init_blip_decoder
+    from vidil_tpu_torch.utils.seeding import init_generator
+
+    vit_cfg = ViTConfig.from_name("base", 384)
+    med_cfg = _med_cfg(vit_cfg)
+    cap = init_blip_decoder(init_generator(0, device), vit_cfg, med_cfg)
+    # caption_frames reads no filterer
+    engine = _engine(cap, {}, tok, vit_cfg, med_cfg, device)
+    del cap
+    gen = torch.Generator(device=device).manual_seed(23)
+    frames = torch.randint(0, 256, (P19_FRAMES, 384, 384, 3), generator=gen, device=device,
+                           dtype=torch.uint8)
+    mods = (fa, fvb)
+    _reset_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    beam = engine.caption_frames(frames)
+    beam_s = time.time() - t0
+    launches = _p19_expect("(d) caption_frames", _read_counts(mods),
+                           {"flash_attention_fwd": P19_LAYERS})
+    if len(beam) != P19_FRAMES or not all(isinstance(c, str) for c in beam):
+        raise SystemExit(f"phase 19 (d): {len(beam)} captions for {P19_FRAMES} frames")
+    if engine.caption_frames(frames) != beam:
+        raise SystemExit("phase 19 (d): beam captions differ run to run")
+    sample = lambda seed: engine.caption_frames(  # noqa: E731
+        frames, mode="sample", generator=torch.Generator(device=device).manual_seed(seed))
+    s1 = sample(1)
+    if sample(1) != s1 or sample(2) == s1:
+        raise SystemExit("phase 19 (d): sampled captions not fixed by the seed")
+    return {"captions": len(beam), "launches": launches, "beam_s": beam_s, "sample": beam[0],
+            "sampled": s1[0],
+            "distinct_beam_captions": len(set(beam))}
+
+
+def run_phase19(fa, fvb, device, card, tok):
+    """Phase 19: (a) the init on the card, (c) the full-depth checks on it,
+    (b) pretraining from it, (d) caption_frames."""
+    t_phase = time.time()
+    out = {}
+    state, vit_cfg, med_cfg, out["init"] = p19_init(device, tok)
+    log(f"phase 19 (a): init_pretrain_params {out['init']['pretrain']['params']} parameters "
+        f"in {out['init']['pretrain_init_s']:.3f} s, init_clip "
+        f"{out['init']['clip']['params']} in {out['init']['clip_init_s']:.3f} s:",
+        json.dumps(out["init"]))
+    out["encode"] = p19_encode(fa, fvb, device)
+    log("phase 19 (c) encodes:", json.dumps(out["encode"]))
+    batch = _momentum_batch(tok, device, PRE_TOKENS, True)
+    out["gradients"] = g = p19_grads(fa, fvb, state, vit_cfg, med_cfg, batch)
+    bar = 2 * P19_LAYERS * P19_UNIT[torch.bfloat16] * max(1.0, out["encode"]["growth_1_to_12"])
+    g["bar"] = bar
+    log("phase 19 (c) gradients:", json.dumps(g))
+    if not g["rel_frobenius"] <= bar:
+        raise SystemExit(f"phase 19 (c) gradients: relative Frobenius {g['rel_frobenius']} > "
+                         f"bar {bar}")
+
+    from vidil_tpu_torch.train.pretrain import make_pretrain_step
+
+    step = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16)
+    want = {name: 0 for name in _counts(fa, fvb)}
+    want.update(fused_vit_block_fwd=2 * P19_LAYERS, fused_vit_block_bwd=P19_LAYERS)
+    _, t = momentum_loop("phase 19 (b) pretraining from the init", step, state, batch, fa, fvb,
+                         want)
+    del state
+    first, last = t["losses"][0], t["losses"][-1]
+    bars = p19_loss_bars(med_cfg.hidden_size, med_cfg.vocab_size)
+    out["pretraining"] = {"losses": t["losses"], "bars": bars,
+                          "steady_step_ms": t["steady_step_ms"], "step_ms": t["step_ms"],
+                          "launches_per_step": t["launches_per_step"],
+                          "peak_memory_gib": t["peak_memory_gib"]}
+    for key in ("loss_itm", "loss_lm"):
+        lo, hi = bars[key]
+        if not lo <= first[key] <= hi:
+            raise SystemExit(f"phase 19 (b): first step's {key} {first[key]} outside "
+                             f"[{lo}, {hi}]")
+    if not last["loss_lm"] < first["loss_lm"]:
+        raise SystemExit(f"phase 19 (b): loss_lm {first['loss_lm']} -> {last['loss_lm']}")
+    log(f"phase 19 (b): {RET_STEPS} pretraining steps from the init, first step loss_itm "
+        f"{first['loss_itm']:.4f} in [{bars['loss_itm'][0]:.4f}, {bars['loss_itm'][1]:.4f}], "
+        f"loss_lm {first['loss_lm']:.4f} in [{bars['loss_lm'][0]:.4f}, "
+        f"{bars['loss_lm'][1]:.4f}] -> {last['loss_lm']:.4f}; median step "
+        f"{t['steady_step_ms']:.2f} ms after the first; card {card}")
+    torch.cuda.empty_cache()
+    out["caption_frames"] = p19_caption_frames(fa, fvb, device, tok)
+    log("phase 19 (d) caption_frames:", json.dumps(out["caption_frames"]))
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase 19: {out['phase_s']:.1f} s; card {card}")
+    return out
+
+
 def main_p18_world(world):
     """`--phase18-world N`: phase 18 (a) over N NCCL ranks, one GPU each, a
     (N / 2) x 2 grid (needs N cards)."""
@@ -4146,6 +4535,7 @@ def main():
 
     p17 = run_phase17(fa, device, card, tok)
     p18 = run_phase18(fa, fvb, device, card)
+    p19 = run_phase19(fa, fvb, device, card, tok)
     p18_ranks = p18["tensor_parallel"]["classic"]["ranks"]
     p18_fused_ranks = p18["tensor_parallel"]["fused"]["ranks"]
 
@@ -4216,6 +4606,9 @@ def main():
                   sharded_rerank_per_rank=[r["rerank"]["launches"]["flash_attention_fwd"]
                                            for r in p17["two_ranks"]["ranks"]],
                   use_flash_false_encode=p17["use_flash"]["use_flash_false"]["k1"]),
+              launches_phase19=dict(
+                  init_encode=p19["encode"]["launches"]["k1_bf16"]["flash_attention_fwd"],
+                  caption_frames=p19["caption_frames"]["launches"]["flash_attention_fwd"]),
               device_ms_vit_views=next(
                   x["device_ms"] for x in rows if x["shape"] == "vit_self_attention"
                   and x["layout"] == "views" and x["dtype"] == "bfloat16"),
@@ -4264,6 +4657,8 @@ def main():
                   "launches"]["fused_vit_block_fwd"],
               launches_phase18_tensor_parallel_per_rank_per_step=[
                   [c["fused_vit_block_fwd"] for c in r["launches"]] for r in p18_fused_ranks],
+              launches_phase19_pretrain_step_from_init=p19["pretraining"]["launches_per_step"][
+                  "fused_vit_block_fwd"],
               **device(block_fwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_fwd"),
               attention=attention(False), attention_with_stats=attention(True),
               sass_attention=sass["fused_vit_block_fwd:attn_fwd_wgmma"]),
@@ -4281,6 +4676,8 @@ def main():
                   "launches"]["fused_vit_block_bwd"],
               launches_phase18_tensor_parallel_per_rank_per_step=[
                   [c["fused_vit_block_bwd"] for c in r["launches"]] for r in p18_fused_ranks],
+              launches_phase19_pretrain_step_from_init=p19["pretraining"]["launches_per_step"][
+                  "fused_vit_block_bwd"],
               **device(block_bwd_rows, "train_224"), sass_gemm=gemm_sass("fused_vit_block_bwd"),
               parts=device(block_bwd_rows, "train_224", ("parts",))["parts"],
               capfilt_384=device(block_bwd_rows, "capfilt_384",

@@ -168,8 +168,8 @@ def test_tied_decoder_shares_tensors_and_sums_gradients():
     losses' (atol 1e-7: one fp32 sum of two addends in another order);
     one step moves the shared FFN and the decoder's attention (the
     counterpart of tests/test_train_steps.py's tying test)."""
-    params = BP.init_pretrain_params(ViTConfig(**VIT_KW), MedConfig(**MED_KW), embed_dim=EMBED,
-                                     salt=3.0)
+    params = BP.synth_pretrain_params(ViTConfig(**VIT_KW), MedConfig(**MED_KW), embed_dim=EMBED,
+                                      salt=3.0)
     dec = BP.tied_decoder_params(params)
     enc = params["text_encoder"]
     assert dec["embeddings"] is enc["embeddings"]

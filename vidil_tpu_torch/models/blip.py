@@ -10,9 +10,35 @@ import torch
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
-from vidil_tpu_torch.models.layers import linear
-from vidil_tpu_torch.models.vit import vit_forward
+from vidil_tpu_torch.models.layers import init_linear, linear
+from vidil_tpu_torch.models.vit import init_vit, vit_forward
 from vidil_tpu_torch.ops.generation import GenerationConfig, beam_search, nucleus_sample
+
+
+# ---------------------------------------------------------------------------
+# init (the JAX package's distributions; models/layers.py)
+# ---------------------------------------------------------------------------
+
+def init_blip_decoder(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                      device=None):
+    return {"visual_encoder": init_vit(generator, vit_cfg, device),
+            "text_decoder": M.init_med(generator, med_cfg, with_lm_head=True, device=device)}
+
+
+def init_blip_itm(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                  embed_dim: int = 256, device=None):
+    return {"visual_encoder": init_vit(generator, vit_cfg, device),
+            "text_encoder": M.init_med(generator, med_cfg, device=device),
+            "vision_proj": init_linear(generator, vit_cfg.hidden_size, embed_dim, device=device),
+            "text_proj": init_linear(generator, med_cfg.hidden_size, embed_dim, device=device),
+            "itm_head": init_linear(generator, med_cfg.hidden_size, 2, device=device)}
+
+
+def init_blip_base(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                   device=None):
+    """BLIP_Base, the feature extractor (`blip_base_features`)."""
+    return {"visual_encoder": init_vit(generator, vit_cfg, device),
+            "text_encoder": M.init_med(generator, med_cfg, device=device)}
 
 
 def encode_images(params, images, vit_cfg: ViTConfig, dtype=None, grid=None):
@@ -148,6 +174,30 @@ def blip_itc_features(params, image_embeds, text_ids, text_mask, med_cfg: MedCon
     text_feat = linear(params["text_proj"], text_hidden[:, 0, :], dtype=dtype)
     text_feat = text_feat / torch.linalg.vector_norm(text_feat, dim=-1, keepdim=True)
     return image_feat, text_feat
+
+
+def blip_base_features(params, mode: str, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                       images=None, text_ids=None, text_mask=None,
+                       enc_token_id: int | None = None, dtype=None):
+    """BLIP_Base's feature modes: 'image', the ViT embeddings (B, P+1, D);
+    'text', the text encoder's hidden states; 'multimodal', the text over
+    the images' embeddings by cross-attention, with [ENC] in place of the
+    first id when `enc_token_id` is given (the reference's
+    ``input_ids[:, 0] = enc_token_id``)."""
+    if mode not in ("image", "text", "multimodal"):
+        raise ValueError(f"unknown feature mode: {mode!r}")
+    if mode == "image":
+        return encode_images(params, images, vit_cfg, dtype=dtype)
+    if mode == "text":
+        return M.med_forward(params["text_encoder"], text_ids, text_mask, cfg=med_cfg,
+                             mode="text", dtype=dtype)
+    image_embeds = encode_images(params, images, vit_cfg, dtype=dtype)
+    if enc_token_id is not None:
+        text_ids = text_ids.clone()
+        text_ids[:, 0] = enc_token_id
+    return M.med_forward(params["text_encoder"], text_ids, text_mask,
+                         encoder_hidden_states=image_embeds, cfg=med_cfg, mode="multimodal",
+                         dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

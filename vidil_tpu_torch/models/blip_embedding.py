@@ -1,14 +1,22 @@
 """BLIP embedding extractor: the ITM model's layout, scored by its ITM head
 or compared by its contrastive (ITC) features.
 
-Counterpart of ``vidil_tpu/models/blip_embedding.py``; synthetic weights
-come from `models/blip.py:blip_itm_shapes`.
+Counterpart of ``vidil_tpu/models/blip_embedding.py``; its random init is
+the ITM model's (`init_blip_embedding`), synthetic weights come from
+`models/blip.py:blip_itm_shapes`.
 """
 
 from __future__ import annotations
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
-from vidil_tpu_torch.models.blip import blip_itc_features, blip_itm_scores, encode_images
+from vidil_tpu_torch.models.blip import (
+    blip_itc_features,
+    blip_itm_scores,
+    encode_images,
+    init_blip_itm,
+)
+
+init_blip_embedding = init_blip_itm
 
 
 def blip_embedding_forward(params, images, text_ids, text_mask, vit_cfg: ViTConfig,

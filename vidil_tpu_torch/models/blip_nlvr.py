@@ -18,12 +18,34 @@ from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.layers import (
     dot_product_attention,
     gelu,
+    init_linear,
     layer_norm,
     linear,
     merge_heads,
     split_heads,
 )
-from vidil_tpu_torch.models.vit import vit_forward
+from vidil_tpu_torch.models.vit import init_vit, vit_forward
+
+
+def init_blip_nlvr(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                   fusion_layer: int = 6, device=None):
+    """Random NLVR2 parameters (the JAX package's distributions): the ViT,
+    the text encoder, the classification head and, per layer, the twin
+    cross-attention output denses (d -> d) and the merge (2d -> d).
+    `fusion_layer` is taken for the JAX signature; the tree is the same for
+    every value."""
+    device = generator.device if device is None else device
+    d = med_cfg.hidden_size
+    return {
+        "visual_encoder": init_vit(generator, vit_cfg, device),
+        "text_encoder": M.init_med(generator, med_cfg, device=device),
+        "cls_head": {"fc1": init_linear(generator, d, d, device=device),
+                     "fc2": init_linear(generator, d, 2, device=device)},
+        "nlvr": [{"dense0": init_linear(generator, d, d, device=device),
+                  "dense1": init_linear(generator, d, d, device=device),
+                  "merge": init_linear(generator, 2 * d, d, device=device)}
+                 for _ in range(med_cfg.num_layers)],
+    }
 
 
 def _layer_forward(layer, twin, x, self_bias, images, fuse: bool, cfg: MedConfig, dtype=None):

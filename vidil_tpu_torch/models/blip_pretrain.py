@@ -22,6 +22,7 @@ from vidil_tpu_torch.models.blip_retrieval import (
     QueueState,
     _data_gather,
     _rank_offset,
+    init_retrieval_params,
     ita_loss,
     itm_loss,
     momentum_features,
@@ -31,12 +32,31 @@ from vidil_tpu_torch.models.blip_retrieval import (
 )
 
 
-def init_pretrain_params(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256,
-                         device="cpu", salt: float = 0.0):
+def init_pretrain_params(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                         embed_dim: int = 256, device=None):
+    """Random pretraining parameters (the JAX package's distributions): the
+    retrieval model's (`init_retrieval_params`, ``temp`` 0.07), then the
+    decoder's own parts, drawn as a MED with an LM head draws them: each
+    layer's self- and cross-attention (``decoder_attn``) and the LM head
+    (``decoder_cls``). Its embeddings, FFNs and FFN norms are the text
+    encoder's (`tied_decoder_params`), so none is drawn for it."""
+    params = init_retrieval_params(generator, vit_cfg, med_cfg, embed_dim, device)
+    device = params["temp"].device
+    d = med_cfg.hidden_size
+    params["decoder_attn"] = [
+        {"self_attn": M.init_attention(generator, d, d, device),
+         "cross_attn": M.init_attention(generator, d, med_cfg.encoder_width, device)}
+        for _ in range(med_cfg.num_layers)]
+    params["decoder_cls"] = M.init_lm_head(generator, med_cfg, device)
+    return params
+
+
+def synth_pretrain_params(vit_cfg: ViTConfig, med_cfg: MedConfig, embed_dim: int = 256,
+                          device="cpu", salt: float = 0.0):
     """Synthetic pretraining parameters (`utils.synth.synth_tree` over
-    `blip.blip_pretrain_shapes`), port layout, ``temp`` 0.07. The JAX
-    package initialises randomly from a key; its numbers cannot be
-    reproduced here."""
+    `blip.blip_pretrain_shapes`), port layout, ``temp`` 0.07: deterministic
+    sin-fill weights for tests that need one fixed tree in both packages.
+    They are not the reference's distribution (`init_pretrain_params`)."""
     from vidil_tpu_torch.models.blip import blip_pretrain_shapes
     from vidil_tpu_torch.models.convert import from_jax_params
     from vidil_tpu_torch.utils.synth import synth_tree

@@ -36,6 +36,7 @@ import torch
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
+from vidil_tpu_torch.models.blip import init_blip_itm
 from vidil_tpu_torch.models.convert import named_leaves
 from vidil_tpu_torch.models.layers import linear
 from vidil_tpu_torch.models.vit import vit_forward
@@ -43,6 +44,15 @@ from vidil_tpu_torch.ops.generation import gumbel_argmax, gumbel_noise
 from vidil_tpu_torch.parallel.collectives import all_gather_with_grad, concat_all_gather
 
 MOMENTUM_KEYS = ("visual_encoder", "text_encoder", "vision_proj", "text_proj")
+
+
+def init_retrieval_params(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                          embed_dim: int = 256, device=None):
+    """Random retrieval parameters: the ITM model's (`init_blip_itm`) and
+    the contrastive temperature ``temp``, 0.07."""
+    params = init_blip_itm(generator, vit_cfg, med_cfg, embed_dim, device)
+    params["temp"] = torch.tensor(0.07, device=params["itm_head"]["bias"].device)
+    return params
 
 
 class QueueState(NamedTuple):

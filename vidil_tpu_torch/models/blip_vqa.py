@@ -14,7 +14,17 @@ import torch
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.blip import make_decoder_closures, med_shapes, vit_shapes
+from vidil_tpu_torch.models.vit import init_vit
 from vidil_tpu_torch.ops.generation import GenerationConfig, _topk_stable, beam_search
+
+
+def init_blip_vqa(generator: torch.Generator, vit_cfg: ViTConfig, med_cfg: MedConfig,
+                  device=None):
+    """Random VQA parameters (the JAX package's distributions): the ViT,
+    the question encoder and the answer decoder with its LM head."""
+    return {"visual_encoder": init_vit(generator, vit_cfg, device),
+            "text_encoder": M.init_med(generator, med_cfg, device=device),
+            "text_decoder": M.init_med(generator, med_cfg, with_lm_head=True, device=device)}
 
 
 def encode_question(params, video_embeds, question_ids, question_mask,

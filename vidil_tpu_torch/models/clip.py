@@ -4,8 +4,9 @@ Counterpart of ``vidil_tpu/models/clip.py``, the same math as HF
 ``CLIPModel``: pre-LN transformer towers with quick_gelu, projection heads,
 L2-normalised output embeddings. ``params["vision"]["layers"]`` and
 ``params["text"]["layers"]`` are lists of per-layer dicts; parameters come
-from an HF state dict through ``convert.convert_clip`` or from `clip_shapes`
-and ``utils/synth.py:synth_tree``.
+from an HF state dict through ``convert.convert_clip``, from `init_clip`
+(random, the JAX package's distributions) or from `clip_shapes` and
+``utils/synth.py:synth_tree``.
 
 Attention goes through `attention_auto`, with the JAX package's gate:
 CLIP's 257-token vision sequences and the text tower's causal bias both
@@ -21,13 +22,63 @@ from vidil_tpu_torch.models.blip import _lin, _ln, _stacked
 from vidil_tpu_torch.models.layers import (
     ACT2FN,
     embedding_lookup,
+    init_embedding,
+    init_layer_norm,
+    init_linear,
     layer_norm,
     linear,
     merge_heads,
+    normal,
     split_heads,
 )
 from vidil_tpu_torch.models.vit import patchify
 from vidil_tpu_torch.ops.flash_attention import attention_auto
+
+
+def _init_tower_layer(generator: torch.Generator, d: int, mlp: int, device=None):
+    device = generator.device if device is None else device
+    return {
+        "norm1": init_layer_norm(d, device),
+        "attn": {name: init_linear(generator, d, d, device=device)
+                 for name in ("query", "key", "value", "out")},
+        "norm2": init_layer_norm(d, device),
+        "mlp": {"fc1": init_linear(generator, d, mlp, device=device),
+                "fc2": init_linear(generator, mlp, d, device=device)},
+    }
+
+
+def init_clip(generator: torch.Generator, cfg: CLIPConfig, device=None):
+    """Random CLIP parameters, the JAX package's distributions: linears and
+    the token embedding truncated normal (std 0.02); the patch kernel, the
+    class embedding, both position embeddings and both projections plain
+    normal (std 0.02); LayerNorms ones and zeros; ``logit_scale`` 2.6592."""
+    device = generator.device if device is None else device
+    dv, dt = cfg.vision_hidden_size, cfg.text_hidden_size
+    num_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    return {
+        "vision": {
+            "patch_embed": {"kernel": normal(generator, (cfg.patch_size ** 2 * 3, dv),
+                                             device=device)},
+            "class_embedding": normal(generator, (dv,), device=device),
+            "pos_embed": normal(generator, (num_pos, dv), device=device),
+            "pre_norm": init_layer_norm(dv, device),
+            "layers": [_init_tower_layer(generator, dv, cfg.vision_intermediate_size, device)
+                       for _ in range(cfg.vision_layers)],
+            "post_norm": init_layer_norm(dv, device),
+        },
+        "text": {
+            "token_embedding": init_embedding(generator, cfg.vocab_size, dt, device=device),
+            "pos_embed": normal(generator, (cfg.max_text_len, dt), device=device),
+            "layers": [_init_tower_layer(generator, dt, cfg.text_intermediate_size, device)
+                       for _ in range(cfg.text_layers)],
+            "final_norm": init_layer_norm(dt, device),
+        },
+        "visual_projection": {"kernel": normal(generator, (dv, cfg.projection_dim),
+                                               device=device)},
+        "text_projection": {"kernel": normal(generator, (dt, cfg.projection_dim),
+                                             device=device)},
+        "logit_scale": torch.tensor(2.6592, device=device),
+    }
 
 
 def _tower(layers, x, bias, num_heads: int, eps: float, act, dtype=None):

@@ -59,6 +59,57 @@ def remat(fn, enabled: bool, policy=None):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
+# ---------------------------------------------------------------------------
+# initializers: the JAX package's distributions, drawn from a torch.Generator
+# on `device` (the generator's device when None); fp32 leaves
+# ---------------------------------------------------------------------------
+
+# erf(-sqrt 2), erf(sqrt 2): the uniform range whose inverse-CDF image is (-2, 2)
+_TRUNC_U = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
+
+
+def trunc_normal(generator: torch.Generator, shape, std: float = 0.02, device=None):
+    """A normal of scale `std` truncated to (-2*std, 2*std), as the JAX
+    package's `trunc_normal` (timm's trunc_normal_): uniform draws mapped
+    through the inverse CDF, the method of jax.random.truncated_normal, and
+    clamped to the bounds. Sample std 0.8796 * std. (torch.nn.init.
+    trunc_normal_'s default bounds are -2 and 2 absolute, which at std 0.02
+    truncate nothing.)"""
+    device = generator.device if device is None else device
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(*_TRUNC_U, generator=generator)
+    return u.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+
+
+def normal(generator: torch.Generator, shape, std: float = 0.02, device=None):
+    """A plain normal of scale `std` (the JAX package's ``std *
+    jax.random.normal``)."""
+    device = generator.device if device is None else device
+    return torch.randn(shape, generator=generator, device=device).mul_(std)
+
+
+def init_linear(generator: torch.Generator, in_dim: int, out_dim: int, std: float = 0.02,
+                device=None):
+    """{kernel (in, out) truncated normal, bias zeros}."""
+    kernel = trunc_normal(generator, (in_dim, out_dim), std, device)
+    return {"kernel": kernel, "bias": torch.zeros(out_dim, device=kernel.device)}
+
+
+def init_layer_norm(dim: int, device="cpu"):
+    return {"scale": torch.ones(dim, device=device), "bias": torch.zeros(dim, device=device)}
+
+
+def init_embedding(generator: torch.Generator, num: int, dim: int, std: float = 0.02,
+                   device=None):
+    return {"embedding": trunc_normal(generator, (num, dim), std, device)}
+
+
+def init_mlp(generator: torch.Generator, dim: int, hidden_dim: int, std: float = 0.02,
+             device=None):
+    return {"fc1": init_linear(generator, dim, hidden_dim, std, device),
+            "fc2": init_linear(generator, hidden_dim, dim, std, device)}
+
+
 def linear(params, x, dtype=None):
     kernel = params["kernel"]
     bias = params["bias"]

@@ -36,6 +36,9 @@ from vidil_tpu_torch.models.layers import (
     ACT2FN,
     dot_product_attention,
     embedding_lookup,
+    init_embedding,
+    init_layer_norm,
+    init_linear,
     layer_norm,
     linear,
     mask_to_bias,
@@ -50,6 +53,68 @@ from vidil_tpu_torch.models.layers import (
 from vidil_tpu_torch.ops.flash_attention import attention_auto
 
 NEG_INF = -10000.0  # additive-mask value of the reference MED
+
+
+# ---------------------------------------------------------------------------
+# init (the JAX package's distributions; models/layers.py)
+# ---------------------------------------------------------------------------
+
+def init_attention(generator: torch.Generator, d: int, kv_dim: int, device=None):
+    """One attention sub-block: query, key and value (keys and values read
+    `kv_dim`-wide states), out, and its post-LN."""
+    device = generator.device if device is None else device
+    return {"query": init_linear(generator, d, d, device=device),
+            "key": init_linear(generator, kv_dim, d, device=device),
+            "value": init_linear(generator, kv_dim, d, device=device),
+            "out": init_linear(generator, d, d, device=device),
+            "norm": init_layer_norm(d, device)}
+
+
+def init_med_layer(generator: torch.Generator, cfg: MedConfig, device=None):
+    device = generator.device if device is None else device
+    d = cfg.hidden_size
+    layer = {
+        "self_attn": init_attention(generator, d, d, device),
+        "mlp": {"fc1": init_linear(generator, d, cfg.intermediate_size, device=device),
+                "fc2": init_linear(generator, cfg.intermediate_size, d, device=device)},
+        "mlp_norm": init_layer_norm(d, device),
+    }
+    if cfg.add_cross_attention:
+        layer["cross_attn"] = init_attention(generator, d, cfg.encoder_width, device)
+    return layer
+
+
+def init_med(generator: torch.Generator, cfg: MedConfig, with_lm_head: bool = False,
+             with_pooler: bool = False, device=None):
+    """Random MED parameters: word and position embeddings and linears
+    truncated normal (std 0.02), LayerNorms ones and zeros. The LM head
+    (`with_lm_head`) is the transform (dense, LayerNorm) and a zero output
+    bias; its decoder weight is the word embedding (tied)."""
+    device = generator.device if device is None else device
+    d = cfg.hidden_size
+    params = {
+        "embeddings": {
+            "word": init_embedding(generator, cfg.vocab_size, d, device=device),
+            "position": init_embedding(generator, cfg.max_position_embeddings, d, device=device),
+            "norm": init_layer_norm(d, device),
+        },
+        "layers": [init_med_layer(generator, cfg, device) for _ in range(cfg.num_layers)],
+    }
+    if with_pooler:
+        params["pooler"] = init_linear(generator, d, d, device=device)
+    if with_lm_head:
+        params["cls"] = init_lm_head(generator, cfg, device)
+    return params
+
+
+def init_lm_head(generator: torch.Generator, cfg: MedConfig, device=None):
+    """The LM head's own parameters: the transform (dense, LayerNorm) and a
+    zero output bias (its decoder weight is the tied word embedding)."""
+    device = generator.device if device is None else device
+    d = cfg.hidden_size
+    return {"transform": {"dense": init_linear(generator, d, d, device=device),
+                          "norm": init_layer_norm(d, device)},
+            "bias": torch.zeros(cfg.vocab_size, device=device)}
 
 
 # ---------------------------------------------------------------------------

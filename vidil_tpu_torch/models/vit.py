@@ -37,6 +37,9 @@ import torch.nn.functional as F
 from vidil_tpu_torch.config import ViTConfig
 from vidil_tpu_torch.models.layers import (
     gelu,
+    init_layer_norm,
+    init_linear,
+    init_mlp,
     layer_norm,
     linear,
     matmul_f32,
@@ -46,9 +49,42 @@ from vidil_tpu_torch.models.layers import (
     row_linear,
     split_heads,
     tp_mlp,
+    trunc_normal,
 )
 from vidil_tpu_torch.ops.flash_attention import attention_auto
 from vidil_tpu_torch.ops.fused_vit_block import fused_vit_block
+
+
+# ---------------------------------------------------------------------------
+# init (the JAX package's distributions; models/layers.py)
+# ---------------------------------------------------------------------------
+
+def init_block(generator: torch.Generator, dim: int, mlp_hidden: int, device=None):
+    device = generator.device if device is None else device
+    return {
+        "norm1": init_layer_norm(dim, device),
+        "attn": {"qkv": init_linear(generator, dim, 3 * dim, device=device),
+                 "proj": init_linear(generator, dim, dim, device=device)},
+        "norm2": init_layer_norm(dim, device),
+        "mlp": init_mlp(generator, dim, mlp_hidden, device=device),
+    }
+
+
+def init_vit(generator: torch.Generator, cfg: ViTConfig, device=None):
+    """Random ViT parameters: linears, ``cls_token`` and ``pos_embed``
+    truncated normal (std 0.02), LayerNorms ones and zeros; the patch
+    kernel (P*P*C, D) in patchify's order, as the JAX package lays it."""
+    device = generator.device if device is None else device
+    d = cfg.hidden_size
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
+    return {
+        "patch_embed": init_linear(generator, patch_dim, d, device=device),
+        "cls_token": trunc_normal(generator, (1, 1, d), device=device),
+        "pos_embed": trunc_normal(generator, (1, cfg.seq_len, d), device=device),
+        "blocks": [init_block(generator, d, int(d * cfg.mlp_ratio), device)
+                   for _ in range(cfg.num_layers)],
+        "norm": init_layer_norm(d, device),
+    }
 
 
 def patchify(x, patch_size: int):

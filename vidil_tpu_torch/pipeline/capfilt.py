@@ -286,6 +286,23 @@ class CapFiltEngine:
             tmask = torch.cat([tmask, pad_mask], dim=1)
         return self._itm_grouped(frame_embeds, ids, tmask)
 
+    # -- captioning ---------------------------------------------------------
+
+    def caption_frames(self, frames_u8, mode: str = "beam", generator=None) -> list[str]:
+        """(F, S, S, C) uint8 frames -> F caption strings, one per frame,
+        through the captioner's encode and the beam decode, or with `mode`
+        other than 'beam' the nucleus sampling of `dispatch_chunk`, drawing
+        from `generator` (a generator on the engine's device; one seeded
+        with 0 when None)."""
+        embeds = self.encode_captioner(frames_u8)
+        if mode == "beam":
+            seqs = self.generate_beam(embeds)
+        else:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            seqs = self.generate_sample(embeds, generator)
+        return B.decode_captions(self.tok, seqs.cpu().numpy(), self.prompt)
+
     # -- filtering ----------------------------------------------------------
 
     def filter_captions_batch(self, frame_embeds, texts_per_video: list[list[str]],

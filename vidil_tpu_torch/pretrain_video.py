@@ -14,8 +14,9 @@ line. The towers compute in bf16 over fp32 master parameters; on the card
 the ViT runs the fused block pair (opt out with
 ``VIDIL_TPU_TRAIN_FUSED_BLOCK=0``).
 
-The weights are synthetic (`utils/synth.py`; the JAX CLI initialises from a
-random key). The MED vocabulary is widened to the tokenizer's when the
+The weights are the random init drawn from ``--seed`` on the run's device
+(`models/blip_pretrain.py:init_pretrain_params`), as the JAX CLI draws them
+from PRNGKey(seed). The MED vocabulary is widened to the tokenizer's when the
 config's is smaller (bert_config.json has 30522 words; [DEC] and [ENC] are
 30522 and 30523), as the reference's resize_token_embeddings does. The
 batch is the reference's ``batch_size`` (8 when unset); a
@@ -68,7 +69,6 @@ def tokenize(tokenizer, captions, max_length=30):
 def main(args, config):
     from vidil_tpu_torch import utils
     from vidil_tpu_torch.data.datasets import PrefetchLoader, RetrievalTrainDataset
-    from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params
     from vidil_tpu_torch.pipeline.capfilt import resolve_device
     from vidil_tpu_torch.parallel.mesh import grid_from_config
     from vidil_tpu_torch.parallel.sharding import apply_optimizer_sharding, gather_params
@@ -92,8 +92,8 @@ def main(args, config):
 
     queue_size = config.get("queue_size", 57600)
     queue_size -= queue_size % B
-    state = create_pretrain_state(init_pretrain_params(vit_cfg, med_cfg), config["init_lr"],
-                                  config.get("weight_decay", 0.05), queue_size=queue_size,
+    state = create_pretrain_state(None, config["init_lr"], config.get("weight_decay", 0.05),
+                                  vit_cfg=vit_cfg, med_cfg=med_cfg, queue_size=queue_size,
                                   seed=args.seed, device=device, grid=grid)
     state = apply_optimizer_sharding(state, config)
     step_fn = make_pretrain_step(vit_cfg, med_cfg, dtype=torch.bfloat16, grid=grid)

@@ -11,19 +11,33 @@ backward, and each block of the momentum tower K4.
 from __future__ import annotations
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
-from vidil_tpu_torch.models.blip_pretrain import pretrain_loss
+from vidil_tpu_torch.models.blip_pretrain import init_pretrain_params, pretrain_loss
 from vidil_tpu_torch.models.blip_retrieval import momentum_update
 from vidil_tpu_torch.train.common import model_batch, step_grid, step_metrics, training_cfgs
 from vidil_tpu_torch.train.retrieval import (
     RetrievalTrainState,
     batch_tensors,
     create_train_state,
+    draw_params,
     finish_step,
 )
 
-# the JAX package's names: the state has the retrieval state's fields
+# the JAX package's name: the state has the retrieval state's fields
 PretrainState = RetrievalTrainState
-create_pretrain_state = create_train_state
+
+
+def create_pretrain_state(params, init_lr: float, weight_decay: float = 0.05, *,
+                          vit_cfg: ViTConfig | None = None, med_cfg: MedConfig | None = None,
+                          embed_dim: int = 256, seed: int = 0, device="cuda",
+                          **kw) -> PretrainState:
+    """`train.retrieval.create_train_state` over the pretraining model:
+    `params` None draws `init_pretrain_params` at `vit_cfg` / `med_cfg`
+    from ``init_generator(seed)`` on the state's device, as the JAX
+    package draws them from its key. `kw`: create_train_state's."""
+    if params is None:
+        params = draw_params(init_pretrain_params, vit_cfg, med_cfg, embed_dim, seed, device)
+    return create_train_state(params, init_lr, weight_decay, embed_dim=embed_dim, seed=seed,
+                              device=device, **kw)
 
 
 def make_pretrain_step(vit_cfg: ViTConfig, med_cfg: MedConfig, momentum: float = 0.995,

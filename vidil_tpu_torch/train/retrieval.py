@@ -23,6 +23,7 @@ from vidil_tpu_torch.models.blip_retrieval import (
     dequeue_and_enqueue,
     init_momentum_params,
     init_queue,
+    init_retrieval_params,
     momentum_update,
     retrieval_loss,
 )
@@ -37,7 +38,7 @@ from vidil_tpu_torch.train.common import (
     step_metrics,
     training_cfgs,
 )
-from vidil_tpu_torch.utils.seeding import make_generator
+from vidil_tpu_torch.utils.seeding import init_generator, make_generator
 
 
 @dataclass
@@ -49,13 +50,18 @@ class RetrievalTrainState(TrainState):
 def create_train_state(params, init_lr: float, weight_decay: float = 0.05, *,
                        embed_dim: int = 256, queue_size: int = 57600, seed: int = 0,
                        params_m=None, queue: QueueState | None = None,
-                       device="cuda", grid=None) -> RetrievalTrainState:
+                       device="cuda", grid=None, vit_cfg: ViTConfig | None = None,
+                       med_cfg: MedConfig | None = None) -> RetrievalTrainState:
     """Master parameters on `device` (``temp`` = 0.07 when missing), their
     momentum copies (or `params_m`, copied) and the queues (or `queue`,
-    copied; else drawn from ``make_generator(seed, -1)``). Under `grid`'s
-    model axis the parameters and the momentum towers are this rank's
-    shards (`shard_params`, as JAX shards both); the queues are whole on
-    every rank."""
+    copied; else drawn from ``make_generator(seed, -1)``). `params` None
+    draws `init_retrieval_params` at `vit_cfg` / `med_cfg`, as the JAX
+    package draws them from its key (`draw_params`). Under `grid`'s model
+    axis the parameters and the momentum towers are this rank's shards
+    (`shard_params`, as JAX shards both); the queues are whole on every
+    rank."""
+    if params is None:
+        params = draw_params(init_retrieval_params, vit_cfg, med_cfg, embed_dim, seed, device)
     if "temp" not in params:
         params = {**params, "temp": torch.tensor(0.07, dtype=torch.float32)}
     base = create_base_state(params, init_lr, weight_decay, device=device, grid=grid)
@@ -70,6 +76,19 @@ def create_train_state(params, init_lr: float, weight_decay: float = 0.05, *,
         queue = QueueState(*(t.to(dev, copy=True) for t in queue[:3]), int(queue.ptr))
     return RetrievalTrainState(base.params, base.optimizer, dev, base.step, grid=grid,
                                params_m=params_m, queue=queue)
+
+
+def draw_params(init_fn, vit_cfg: ViTConfig | None, med_cfg: MedConfig | None,
+                embed_dim: int, seed: int, device) -> dict:
+    """``init_fn(init_generator(seed), vit_cfg, med_cfg, embed_dim)`` drawn
+    on `device` (CUDA unless the caller asks for the CPU): every rank of a
+    launch draws the same tree."""
+    from vidil_tpu_torch.pipeline.capfilt import resolve_device
+
+    if vit_cfg is None or med_cfg is None:
+        raise ValueError("drawing the parameters needs vit_cfg and med_cfg")
+    device = resolve_device(device)
+    return init_fn(init_generator(seed, device), vit_cfg, med_cfg, embed_dim, device)
 
 
 def batch_tensors(batch: dict, device) -> dict:

@@ -38,7 +38,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-def build_model_and_tokenizer(config):
+def build_model_and_tokenizer(config, device="cpu"):
+    """(params, tokenizer, vit_cfg, med_cfg): the ``pretrained`` checkpoint
+    (on the CPU), or without one the random init drawn on `device` from
+    seed 0, as the JAX CLI draws it from PRNGKey(0)."""
     from vidil_tpu_torch.models import convert
     from vidil_tpu_torch.tokenizer import BlipTokenizer
     from vidil_tpu_torch.train.common import model_cfgs
@@ -51,13 +54,10 @@ def build_model_and_tokenizer(config):
         sd = convert.load_torch_state_dict(pretrained)
         params = convert.convert_blip_decoder(sd, vit_cfg, med_cfg)
     else:
-        # deterministic synthetic weights (the JAX CLI initialises randomly
-        # from PRNGKey(0); its numbers cannot be reproduced here)
-        from vidil_tpu_torch.models.blip import blip_decoder_shapes
-        from vidil_tpu_torch.utils.synth import synth_tree
+        from vidil_tpu_torch.models.blip import init_blip_decoder
+        from vidil_tpu_torch.utils.seeding import init_generator
 
-        params = convert.from_jax_params(
-            synth_tree(blip_decoder_shapes(vit_cfg, med_cfg), "cpu", salt=1.0))
+        params = init_blip_decoder(init_generator(0, device), vit_cfg, med_cfg, device)
     return params, tokenizer, vit_cfg, med_cfg
 
 
@@ -127,7 +127,7 @@ def main(args, config):
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
 
-    params, tokenizer, vit_cfg, med_cfg = build_model_and_tokenizer(config)
+    params, tokenizer, vit_cfg, med_cfg = build_model_and_tokenizer(config, device)
     prompt = config.get("prompt", "a video of ")
     prompt_length = len(tokenizer.encode(prompt)) - 1
 

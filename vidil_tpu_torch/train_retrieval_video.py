@@ -14,8 +14,9 @@ in the JAX package's leaf layout: its `load_train_state` reads it too, and
 lines. The towers compute in bf16 over fp32 master parameters.
 
 Config keys beyond the reference's: bert_vocab, optional vit_config /
-med_config for custom sizes; without ``pretrained`` the weights are
-synthetic (`utils/synth.py`). The batch is the reference's
+med_config for custom sizes; without ``pretrained`` the weights are the
+random init drawn from seed 0 (`models/blip_retrieval.py:
+init_retrieval_params`), as the JAX CLI draws them. The batch is the reference's
 ``batch_size_train``; a ``batch_size_train_tpu`` key is reported and
 ignored. Hard negatives come from ``make_generator(seed, step)``
 (`utils/seeding.py`), not JAX's key stream.
@@ -44,8 +45,10 @@ import numpy as np
 import torch
 
 
-def build(config):
-    """(params (port tree, CPU), tokenizer, vit_cfg, med_cfg)."""
+def build(config, device="cpu"):
+    """(params, tokenizer, vit_cfg, med_cfg): the ``pretrained`` checkpoint
+    (on the CPU), or without one the random init drawn on `device` from
+    seed 0, as the JAX CLI draws it from PRNGKey(0)."""
     from vidil_tpu_torch.models import convert
     from vidil_tpu_torch.tokenizer import BlipTokenizer
     from vidil_tpu_torch.train.common import model_cfgs
@@ -57,12 +60,11 @@ def build(config):
         sd = convert.load_torch_state_dict(pretrained)
         params = convert.convert_blip_retrieval(sd, vit_cfg, med_cfg, with_momentum=False)
     else:
-        from vidil_tpu_torch.models.blip import blip_retrieval_shapes
-        from vidil_tpu_torch.utils.synth import synth_tree
+        from vidil_tpu_torch.models.blip_retrieval import init_retrieval_params
+        from vidil_tpu_torch.utils.seeding import init_generator
 
-        params = convert.from_jax_params(
-            synth_tree(blip_retrieval_shapes(vit_cfg, med_cfg), "cpu", salt=2.0))
-        del params["temp"]  # create_train_state sets 0.07
+        params = init_retrieval_params(init_generator(0, device), vit_cfg, med_cfg,
+                                       device=device)
     return params, tokenizer, vit_cfg, med_cfg
 
 
@@ -112,7 +114,7 @@ def main(args, config):
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
 
-    params, tokenizer, vit_cfg, med_cfg = build(config)
+    params, tokenizer, vit_cfg, med_cfg = build(config, device)
 
     ds_cfg = dict(config)
     ds_cfg.setdefault("num_frm_train", 4)

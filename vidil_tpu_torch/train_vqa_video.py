@@ -45,7 +45,10 @@ import torch
 QUESTION_TOKENS, ANSWER_TOKENS, ANSWER_BEAMS = 35, 12, 3
 
 
-def build(config):
+def build(config, device="cpu"):
+    """(params, tokenizer, vit_cfg, med_cfg): the ``pretrained`` checkpoint
+    (on the CPU), or without one the random init drawn on `device` from
+    seed 0, as the JAX CLI draws it from PRNGKey(0)."""
     from vidil_tpu_torch.models import convert
     from vidil_tpu_torch.tokenizer import BlipTokenizer
     from vidil_tpu_torch.train.common import model_cfgs
@@ -57,13 +60,10 @@ def build(config):
         params = convert.convert_blip_vqa(convert.load_torch_state_dict(pretrained),
                                           vit_cfg, med_cfg)
     else:
-        # deterministic synthetic weights (the JAX CLI initialises randomly
-        # from PRNGKey(0); its numbers cannot be reproduced here)
-        from vidil_tpu_torch.models.blip_vqa import blip_vqa_shapes
-        from vidil_tpu_torch.utils.synth import synth_tree
+        from vidil_tpu_torch.models.blip_vqa import init_blip_vqa
+        from vidil_tpu_torch.utils.seeding import init_generator
 
-        params = convert.from_jax_params(
-            synth_tree(blip_vqa_shapes(vit_cfg, med_cfg), "cpu", salt=1.0))
+        params = init_blip_vqa(init_generator(0, device), vit_cfg, med_cfg, device)
     return params, tokenizer, vit_cfg, med_cfg
 
 
@@ -146,7 +146,7 @@ def main(args, config):
     grid = grid_from_config(config)
     utils.seed_everything(args.seed)
     dtype = torch.bfloat16
-    params, tokenizer, vit_cfg, med_cfg = build(config)
+    params, tokenizer, vit_cfg, med_cfg = build(config, device)
 
     train_loader = PrefetchLoader(VQADataset(config, split="train"),
                                   resolve_train_batch(config, "batch_size_train", 16),

@@ -24,9 +24,19 @@ def make_generator(seed: int, step: int = 0, device="cpu") -> torch.Generator:
     """The port's stand-in for the JAX package's per-step key
     ``fold_in(PRNGKey(seed), step)``: a torch.Generator on `device` seeded
     with ``(seed * 1000003 + step) mod 2**63``. The trainers draw their
-    hard negatives from ``make_generator(seed, step)`` and the feature
-    queues from ``make_generator(seed, -1)``. JAX's streams themselves
-    cannot be reproduced: the distributions are the same, the draws differ."""
+    hard negatives from ``make_generator(seed, step)``, the feature
+    queues from ``make_generator(seed, -1)`` and a random init from
+    `init_generator` (``make_generator(seed, -2)``). JAX's streams
+    themselves cannot be reproduced: the distributions are the same, the
+    draws differ."""
     g = torch.Generator(device=device)
     g.manual_seed((seed * 1000003 + step) % 2**63)
     return g
+
+
+def init_generator(seed: int, device="cpu") -> torch.Generator:
+    """The stream a random parameter init draws from, the port's stand-in
+    for the JAX package's ``PRNGKey(seed)`` (or its ``kp`` split) handed to
+    an ``init_*`` function: the same seed on the same device gives the
+    same tree bit for bit."""
+    return make_generator(seed, -2, device)
