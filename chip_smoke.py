@@ -3964,7 +3964,7 @@ def p18_profiling(device, fa, root):
     text = open(os.path.join(log_dir, files[0])).read() if len(files) == 1 else ""
     out = {"trace_files": files, "trace_bytes": len(text),
            "names_k1_kernel": "flash_fwd_bf16" in text,
-           "names_annotate_range": "phase18_capfilt_chunk" in text,
+           "names_annotate_range": "vidil.phase18_capfilt_chunk" in text,
            "k1_launches": fa.launch_counts["flash_attention_fwd"], "videos": len(results),
            "device_memory_stats": profiling.device_memory_stats(),
            "profiled_kernels": sum(1 for e in prof.key_averages()

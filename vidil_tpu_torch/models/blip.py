@@ -13,6 +13,7 @@ from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.layers import init_linear, linear
 from vidil_tpu_torch.models.vit import init_vit, vit_forward
 from vidil_tpu_torch.ops.generation import GenerationConfig, beam_search, nucleus_sample
+from vidil_tpu_torch.utils.profiling import annotate
 
 
 # ---------------------------------------------------------------------------
@@ -117,18 +118,20 @@ def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
     B = image_embeds.shape[0]
     expand = 1 if sample else gen.num_beams
     beam_size = expand if beam_group_kv else 1
-    kv_src = (image_embeds if beam_group_kv or sample
-              else image_embeds.repeat_interleave(expand, dim=0))
-    cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg, dtype=dtype)
-    if cross_kv_int8:
-        cross_k, cross_v = M.quantize_cross_kv(cross_k, cross_v)
-    # the all-ones memory mask gives a bias of zeros, which adds nothing
-    # to the logits (x + 0 == x): pass none
-    cache = M.init_self_cache(med_cfg, B * expand, gen.max_length,
-                              dtype=cache_dtype or dtype or torch.float32,
-                              device=image_embeds.device,
-                              unrolled=decode_layer_unroll,
-                              lazy_reorder=decode_lazy_reorder and not sample)
+    with annotate("decode.prefill"):  # the cross K/V and the empty self cache
+        kv_src = (image_embeds if beam_group_kv or sample
+                  else image_embeds.repeat_interleave(expand, dim=0))
+        cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg,
+                                                 dtype=dtype)
+        if cross_kv_int8:
+            cross_k, cross_v = M.quantize_cross_kv(cross_k, cross_v)
+        # the all-ones memory mask gives a bias of zeros, which adds nothing
+        # to the logits (x + 0 == x): pass none
+        cache = M.init_self_cache(med_cfg, B * expand, gen.max_length,
+                                  dtype=cache_dtype or dtype or torch.float32,
+                                  device=image_embeds.device,
+                                  unrolled=decode_layer_unroll,
+                                  lazy_reorder=decode_lazy_reorder and not sample)
     prefill_fn, step_fn, reorder_fn = make_decoder_closures(
         params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size,
         int8_dot=(cross_kv_int8 == "dot"))

@@ -28,6 +28,12 @@ Random draws come from an explicit ``torch.Generator`` on the logits'
 device; torch and JAX draw different streams, so sampling is held to the
 JAX package by feeding both the same per-step noise (`nucleus_sample`'s
 ``noise``).
+
+Spans (`utils/profiling.py:annotate`) name each part of a decode:
+``decode.prefill`` (the prompt pass and the loop's initial state),
+``decode.select`` (one step's bookkeeping: scores, top-k or the draw,
+hypotheses, the stop rule), ``decode.reorder`` (the cache's beam gather) and
+``decode.step`` (one token through the decoder).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from vidil_tpu_torch.utils.profiling import annotate
 
 NEG_INF = -1e9
 HYP_INVALID = -1e30
@@ -130,88 +138,92 @@ def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: Ge
     dev = prompt_ids.device
     max_len = gen.max_length
 
-    flat_prompt = prompt_ids.to(torch.int32).repeat_interleave(nb, dim=0)  # (B*nb, Lp)
-    last_logits, cache = prefill_fn(flat_prompt, init_cache)
-    V = last_logits.shape[-1]
+    with annotate("decode.prefill"):
+        flat_prompt = prompt_ids.to(torch.int32).repeat_interleave(nb, dim=0)  # (B*nb, Lp)
+        last_logits, cache = prefill_fn(flat_prompt, init_cache)
+        V = last_logits.shape[-1]
 
-    seqs = torch.full((B * nb, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
-    seqs[:, :Lp] = flat_prompt
-    beam_scores = torch.full((B, nb), NEG_INF, dtype=torch.float32, device=dev)
-    beam_scores[:, 0] = 0.0
-    hyp_s = torch.full((B, nb), HYP_INVALID, dtype=torch.float32, device=dev)
-    hyp_q = torch.full((B, nb, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
-    hyp_l = torch.zeros((B, nb), dtype=torch.int32, device=dev)
-    blocked = torch.zeros((B,), dtype=torch.bool, device=dev)
-    batch_offset = torch.arange(B, device=dev) * nb
-    rank = torch.arange(2 * nb, device=dev)
+        seqs = torch.full((B * nb, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
+        seqs[:, :Lp] = flat_prompt
+        beam_scores = torch.full((B, nb), NEG_INF, dtype=torch.float32, device=dev)
+        beam_scores[:, 0] = 0.0
+        hyp_s = torch.full((B, nb), HYP_INVALID, dtype=torch.float32, device=dev)
+        hyp_q = torch.full((B, nb, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
+        hyp_l = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+        blocked = torch.zeros((B,), dtype=torch.bool, device=dev)
+        batch_offset = torch.arange(B, device=dev) * nb
+        rank = torch.arange(2 * nb, device=dev)
 
     for cur_len in range(Lp, max_len):
         if gen.early_exit and bool(blocked.all()):
             break
-        logp = torch.log_softmax(last_logits.float(), dim=-1)
-        logp = _apply_repetition_penalty(logp, seqs, cur_len, gen.repetition_penalty)
-        logp = _apply_min_length(logp, cur_len, gen.min_length, gen.eos_token_id)
-        scores = (logp + beam_scores.reshape(-1)[:, None]).reshape(B, nb * V)
-        top_scores, top_idx = _topk_stable(scores, 2 * nb)
-        top_tokens = (top_idx % V).to(torch.int32)
-        top_beams = top_idx // V
-        beam_seqs = seqs.reshape(B, nb, max_len)
+        with annotate("decode.select"):
+            logp = torch.log_softmax(last_logits.float(), dim=-1)
+            logp = _apply_repetition_penalty(logp, seqs, cur_len, gen.repetition_penalty)
+            logp = _apply_min_length(logp, cur_len, gen.min_length, gen.eos_token_id)
+            scores = (logp + beam_scores.reshape(-1)[:, None]).reshape(B, nb * V)
+            top_scores, top_idx = _topk_stable(scores, 2 * nb)
+            top_tokens = (top_idx % V).to(torch.int32)
+            top_beams = top_idx // V
+            beam_seqs = seqs.reshape(B, nb, max_len)
 
-        # --- candidate hypotheses (only ranks < num_beams are eligible) ---
-        is_eos = top_tokens == gen.eos_token_id
-        hits = (is_eos | (cur_len + 1 >= max_len)) if modern else is_eos
-        cand_valid = hits & (rank < nb)[None] & ~blocked[:, None]
-        norm_len = float(cur_len + 1 - Lp) if modern else float(cur_len)
-        cand_scores = torch.where(cand_valid, top_scores / (norm_len ** lp),
-                                  torch.full_like(top_scores, HYP_INVALID))
-        cand_seqs = _take_rows(beam_seqs, top_beams)  # (B, 2nb, max_len)
-        if modern:
-            cand_seqs = cand_seqs.clone()
-            cand_seqs[:, :, cur_len] = top_tokens
-            cand_lens = torch.full((B, 2 * nb), cur_len + 1, dtype=torch.int32, device=dev)
-        else:
-            cand_lens = torch.full((B, 2 * nb), cur_len, dtype=torch.int32, device=dev)
-        merged_s = torch.cat([hyp_s, cand_scores], dim=1)
-        order = torch.argsort(-merged_s, dim=1, stable=True)[:, :nb]
-        hyp_s = torch.gather(merged_s, 1, order)
-        hyp_q = _take_rows(torch.cat([hyp_q, cand_seqs], dim=1), order)
-        hyp_l = torch.gather(torch.cat([hyp_l, cand_lens], dim=1), 1, order)
+            # --- candidate hypotheses (only ranks < num_beams are eligible) ---
+            is_eos = top_tokens == gen.eos_token_id
+            hits = (is_eos | (cur_len + 1 >= max_len)) if modern else is_eos
+            cand_valid = hits & (rank < nb)[None] & ~blocked[:, None]
+            norm_len = float(cur_len + 1 - Lp) if modern else float(cur_len)
+            cand_scores = torch.where(cand_valid, top_scores / (norm_len ** lp),
+                                      torch.full_like(top_scores, HYP_INVALID))
+            cand_seqs = _take_rows(beam_seqs, top_beams)  # (B, 2nb, max_len)
+            if modern:
+                cand_seqs = cand_seqs.clone()
+                cand_seqs[:, :, cur_len] = top_tokens
+                cand_lens = torch.full((B, 2 * nb), cur_len + 1, dtype=torch.int32, device=dev)
+            else:
+                cand_lens = torch.full((B, 2 * nb), cur_len, dtype=torch.int32, device=dev)
+            merged_s = torch.cat([hyp_s, cand_scores], dim=1)
+            order = torch.argsort(-merged_s, dim=1, stable=True)[:, :nb]
+            hyp_s = torch.gather(merged_s, 1, order)
+            hyp_q = _take_rows(torch.cat([hyp_q, cand_seqs], dim=1), order)
+            hyp_l = torch.gather(torch.cat([hyp_l, cand_lens], dim=1), 1, order)
 
-        # --- next running beams ---
-        if modern:
-            running = top_scores + hits.float() * NEG_INF
-            nxt_scores, sel = _topk_stable(running, nb)
-            nxt_tokens = torch.gather(top_tokens, 1, sel)
-            nxt_beams = torch.gather(top_beams, 1, sel)
-        else:
-            # first num_beams non-eos candidates in rank order; done rows
-            # emit pad / beam 0 / score 0
-            key = torch.where(is_eos, 2 * nb + rank, rank)
-            sel = torch.argsort(key, dim=1)[:, :nb]
-            bl = blocked[:, None]
-            nxt_scores = torch.where(bl, 0.0, torch.gather(top_scores, 1, sel))
-            nxt_tokens = torch.where(bl, gen.pad_token_id, torch.gather(top_tokens, 1, sel))
-            nxt_beams = torch.where(bl, 0, torch.gather(top_beams, 1, sel))
+            # --- next running beams ---
+            if modern:
+                running = top_scores + hits.float() * NEG_INF
+                nxt_scores, sel = _topk_stable(running, nb)
+                nxt_tokens = torch.gather(top_tokens, 1, sel)
+                nxt_beams = torch.gather(top_beams, 1, sel)
+            else:
+                # first num_beams non-eos candidates in rank order; done rows
+                # emit pad / beam 0 / score 0
+                key = torch.where(is_eos, 2 * nb + rank, rank)
+                sel = torch.argsort(key, dim=1)[:, :nb]
+                bl = blocked[:, None]
+                nxt_scores = torch.where(bl, 0.0, torch.gather(top_scores, 1, sel))
+                nxt_tokens = torch.where(bl, gen.pad_token_id, torch.gather(top_tokens, 1, sel))
+                nxt_beams = torch.where(bl, 0, torch.gather(top_beams, 1, sel))
 
-        # --- stop heuristic ---
-        valid = hyp_s > HYP_INVALID / 2
-        count = valid.sum(dim=1)
-        worst = torch.where(valid, hyp_s, torch.full_like(hyp_s, float("inf"))).amin(dim=1)
-        if modern:
-            best_possible = nxt_scores.amax(dim=1) / (float(cur_len + 1 - Lp) ** lp)
-        else:
-            best_possible = top_scores[:, 0] / (float(cur_len) ** lp)
-        blocked = blocked | ((count == nb) & (worst >= best_possible))
+            # --- stop heuristic ---
+            valid = hyp_s > HYP_INVALID / 2
+            count = valid.sum(dim=1)
+            worst = torch.where(valid, hyp_s, torch.full_like(hyp_s, float("inf"))).amin(dim=1)
+            if modern:
+                best_possible = nxt_scores.amax(dim=1) / (float(cur_len + 1 - Lp) ** lp)
+            else:
+                best_possible = top_scores[:, 0] / (float(cur_len) ** lp)
+            blocked = blocked | ((count == nb) & (worst >= best_possible))
 
-        flat_idx = (batch_offset[:, None] + nxt_beams).reshape(-1)
-        seqs = seqs[flat_idx]
-        flat_tokens = nxt_tokens.reshape(-1).to(torch.int32)
-        seqs[:, cur_len] = flat_tokens
-        beam_scores = nxt_scores.to(torch.float32)
+            flat_idx = (batch_offset[:, None] + nxt_beams).reshape(-1)
+            seqs = seqs[flat_idx]
+            flat_tokens = nxt_tokens.reshape(-1).to(torch.int32)
+            seqs[:, cur_len] = flat_tokens
+            beam_scores = nxt_scores.to(torch.float32)
         if cur_len + 1 < max_len:
             # the last step's logits would feed no further step
-            cache = reorder_fn(cache, flat_idx)
-            last_logits, cache = step_fn(flat_tokens, cur_len, cache)
+            with annotate("decode.reorder"):
+                cache = reorder_fn(cache, flat_idx)
+            with annotate("decode.step"):
+                last_logits, cache = step_fn(flat_tokens, cur_len, cache)
 
     # --- finalize ---
     beam_seqs = seqs.reshape(B, nb, max_len)
@@ -260,24 +272,27 @@ def nucleus_sample(prompt_ids, init_cache, prefill_fn, step_fn, gen: GenerationC
         raise ValueError("nucleus_sample needs a generator or the noise")
     dev = prompt_ids.device
     max_len = gen.max_length
-    prompt_ids = prompt_ids.to(torch.int32)
-    last_logits, cache = prefill_fn(prompt_ids, init_cache)
-    seqs = torch.full((B, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
-    seqs[:, :Lp] = prompt_ids
-    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    with annotate("decode.prefill"):
+        prompt_ids = prompt_ids.to(torch.int32)
+        last_logits, cache = prefill_fn(prompt_ids, init_cache)
+        seqs = torch.full((B, max_len), gen.pad_token_id, dtype=torch.int32, device=dev)
+        seqs[:, :Lp] = prompt_ids
+        finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     for cur_len in range(Lp, max_len):
         if gen.early_exit and bool(finished.all()):
             break
-        logits = last_logits.float()
-        logits = _apply_repetition_penalty(logits, seqs, cur_len, gen.repetition_penalty)
-        logits = _apply_min_length(logits, cur_len, gen.min_length, gen.eos_token_id)
-        logits = _top_p_filter(logits, gen.top_p)
-        g = (noise[cur_len - Lp] if noise is not None
-             else gumbel_noise(logits.shape, generator, logits.device))
-        sampled = gumbel_argmax(logits, g).to(torch.int32)
-        tokens = torch.where(finished, torch.full_like(sampled, gen.pad_token_id), sampled)
-        seqs[:, cur_len] = tokens
-        finished = finished | (tokens == gen.eos_token_id)
+        with annotate("decode.select"):
+            logits = last_logits.float()
+            logits = _apply_repetition_penalty(logits, seqs, cur_len, gen.repetition_penalty)
+            logits = _apply_min_length(logits, cur_len, gen.min_length, gen.eos_token_id)
+            logits = _top_p_filter(logits, gen.top_p)
+            g = (noise[cur_len - Lp] if noise is not None
+                 else gumbel_noise(logits.shape, generator, logits.device))
+            sampled = gumbel_argmax(logits, g).to(torch.int32)
+            tokens = torch.where(finished, torch.full_like(sampled, gen.pad_token_id), sampled)
+            seqs[:, cur_len] = tokens
+            finished = finished | (tokens == gen.eos_token_id)
         if cur_len + 1 < max_len:
-            last_logits, cache = step_fn(tokens, cur_len, cache)
+            with annotate("decode.step"):
+                last_logits, cache = step_fn(tokens, cur_len, cache)
     return seqs

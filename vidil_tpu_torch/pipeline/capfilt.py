@@ -15,6 +15,13 @@ fused filter builds the ITM ids on the device from the generated tokens;
 the host then verifies each row and re-scores any that re-tokenize
 differently through the classic path, so results always equal the
 classic path's.
+
+Spans (`utils/profiling.py:annotate`) name the stages of both halves:
+``capfilt.dispatch`` holds the frames' upload, both encodes, the decode's
+(`ops/generation.py`), the fused ITM's enqueue and the early readback;
+``capfilt.complete`` holds the wait for the chunk's results, the
+detokenization, the original captions' sentences with the dedup, and the
+filter's host checks with any classic re-score (``capfilt.fallback``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from vidil_tpu_torch.pipeline.fused_filter import (
     itm_ids_from_seqs_np,
 )
 from vidil_tpu_torch.pipeline.sentences import split_sentences
+from vidil_tpu_torch.utils.profiling import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -220,8 +228,9 @@ class CapFiltEngine:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _encode(self, params, frames):
-        x = preprocess_any(frames, self.vit_cfg.image_size, CLIP_MEAN, CLIP_STD)
-        return B.encode_images(params, x, self.vit_cfg, dtype=self.dtype)
+        with annotate("capfilt.encode"):
+            x = preprocess_any(frames, self.vit_cfg.image_size, CLIP_MEAN, CLIP_STD)
+            return B.encode_images(params, x, self.vit_cfg, dtype=self.dtype)
 
     def encode_captioner(self, frames):
         """(F, H, W, C) uint8 frames (or YUV420Frames) -> (F, P, D) embeddings."""
@@ -353,34 +362,38 @@ class CapFiltEngine:
         torch.Generator on the engine's device (one seeded with 0 when
         none is given).
         """
-        F = _num_frames(chunk[0]["frames"])
-        frames = self._put(_concat_frames([c["frames"] for c in chunk]))
-        need_filter = config.get("filter", True)
-        seqs = None
-        frame_embeds = None
-        itm_probs = None
-        if config.get("caption", True):
-            embeds = self._encode(self.captioner_params, frames)
-            if config.get("generation_mode", "beam") != "beam":
-                if rng is None:
-                    rng = torch.Generator(device=self.device).manual_seed(0)
-                seqs = self.generate_sample(embeds, rng)
-            else:
-                seqs = self.generate_beam(embeds)
-        if need_filter:
-            frame_embeds = self.encode_filter_frames(frames, F)
-        if self.fused_filter and seqs is not None and need_filter and fused_applicable(config):
-            itm_probs = self._itm_fused(frame_embeds, seqs)
-        d = ChunkDispatch(chunk, config, F, seqs, frame_embeds, itm_probs, n_real=n_real)
-        if self.device.type == "cuda" and self.early_readback:
-            # start the small device->host copies now, into pinned memory
-            if seqs is not None:
-                d.seqs_host = seqs.to("cpu", non_blocking=True)
-            if itm_probs is not None:
-                d.itm_probs_host = itm_probs.to("cpu", non_blocking=True)
-            d.ready = torch.cuda.Event()
-            d.ready.record()
-        return d
+        with annotate("capfilt.dispatch"):
+            F = _num_frames(chunk[0]["frames"])
+            with annotate("capfilt.upload"):
+                frames = self._put(_concat_frames([c["frames"] for c in chunk]))
+            need_filter = config.get("filter", True)
+            seqs = None
+            frame_embeds = None
+            itm_probs = None
+            if config.get("caption", True):
+                embeds = self._encode(self.captioner_params, frames)
+                if config.get("generation_mode", "beam") != "beam":
+                    if rng is None:
+                        rng = torch.Generator(device=self.device).manual_seed(0)
+                    seqs = self.generate_sample(embeds, rng)
+                else:
+                    seqs = self.generate_beam(embeds)
+            if need_filter:
+                frame_embeds = self.encode_filter_frames(frames, F)
+            if self.fused_filter and seqs is not None and need_filter and fused_applicable(config):
+                with annotate("capfilt.itm"):
+                    itm_probs = self._itm_fused(frame_embeds, seqs)
+            d = ChunkDispatch(chunk, config, F, seqs, frame_embeds, itm_probs, n_real=n_real)
+            if self.device.type == "cuda" and self.early_readback:
+                # start the small device->host copies now, into pinned memory
+                with annotate("capfilt.readback"):
+                    if seqs is not None:
+                        d.seqs_host = seqs.to("cpu", non_blocking=True)
+                    if itm_probs is not None:
+                        d.itm_probs_host = itm_probs.to("cpu", non_blocking=True)
+                    d.ready = torch.cuda.Event()
+                    d.ready.record()
+            return d
 
     @staticmethod
     def _host(d: ChunkDispatch, dev, host):
@@ -393,56 +406,64 @@ class CapFiltEngine:
 
     def complete_chunk(self, d: ChunkDispatch) -> list[CapFiltResult]:
         """Wait for a dispatched chunk's device work and assemble results."""
-        chunk, config, F = d.chunk, d.config, d.num_frm
-        seqs_np = self._host(d, d.seqs_dev, d.seqs_host)
-        captions = None if seqs_np is None else B.decode_captions(self.tok, seqs_np, self.prompt)
+        with annotate("capfilt.complete"):
+            chunk, config, F = d.chunk, d.config, d.num_frm
+            with annotate("capfilt.wait"):
+                seqs_np = self._host(d, d.seqs_dev, d.seqs_host)
+            with annotate("capfilt.detokenize"):
+                captions = (None if seqs_np is None
+                            else B.decode_captions(self.tok, seqs_np, self.prompt))
 
-        generated_per_video: list[list[str]] = []
-        candidates_per_video: list[list[str]] = []
-        unfiltered: list[list[str]] = []
-        for v, item in enumerate(chunk):
-            orig = original_caption_sentences(
-                item.get("text", []), config.get("do_sentence_tokenization", True))
-            if captions is None:
-                generated_per_video.append([])
-                candidates_per_video.append(orig)
-                unfiltered.append(orig)
-            else:
-                dedup: list[str] = []
-                for cap in captions[v * F:(v + 1) * F]:
-                    if cap not in dedup:
-                        dedup.append(cap)
-                generated_per_video.append(dedup)
-                cands = orig + dedup if config.get("keep_original_caption", False) else dedup
-                candidates_per_video.append(cands)
-                unfiltered.append(cands)
+            generated_per_video: list[list[str]] = []
+            candidates_per_video: list[list[str]] = []
+            unfiltered: list[list[str]] = []
+            with annotate("capfilt.sentences"):
+                for v, item in enumerate(chunk):
+                    orig = original_caption_sentences(
+                        item.get("text", []), config.get("do_sentence_tokenization", True))
+                    if captions is None:
+                        generated_per_video.append([])
+                        candidates_per_video.append(orig)
+                        unfiltered.append(orig)
+                    else:
+                        dedup: list[str] = []
+                        for cap in captions[v * F:(v + 1) * F]:
+                            if cap not in dedup:
+                                dedup.append(cap)
+                        generated_per_video.append(dedup)
+                        cands = (orig + dedup if config.get("keep_original_caption", False)
+                                 else dedup)
+                        candidates_per_video.append(cands)
+                        unfiltered.append(cands)
 
-        results = []
-        if not config.get("filter", True):
-            for v, item in enumerate(chunk):
-                results.append(CapFiltResult(item["video_id"], unfiltered[v], candidates_per_video[v]))
-            return results
-        generated_only = config.get("filter_generated_only", False)
-        to_filter = generated_per_video if generated_only else candidates_per_video
-        if d.itm_probs is not None:
-            filtered = self._fused_filter_results(d, to_filter, captions, seqs_np)
-        else:
-            filtered = self.filter_captions_batch(
-                d.frame_embeds, to_filter, config["threshold"],
-                config.get("filter_mode", "max_filter"))
-        for v, item in enumerate(chunk):
-            if generated_only:
-                # item['text'] keeps the raw original captions when they were
-                # kept (or nothing was generated), else starts empty
-                if captions is None or config.get("keep_original_caption", False):
-                    base = list(item.get("text", []))
+            results = []
+            if not config.get("filter", True):
+                for v, item in enumerate(chunk):
+                    results.append(CapFiltResult(item["video_id"], unfiltered[v],
+                                                 candidates_per_video[v]))
+                return results
+            generated_only = config.get("filter_generated_only", False)
+            to_filter = generated_per_video if generated_only else candidates_per_video
+            with annotate("capfilt.filter_check"):
+                if d.itm_probs is not None:
+                    filtered = self._fused_filter_results(d, to_filter, captions, seqs_np)
                 else:
-                    base = []
-                text = base + filtered[v]
-            else:
-                text = filtered[v]
-            results.append(CapFiltResult(item["video_id"], unfiltered[v], text))
-        return results
+                    filtered = self.filter_captions_batch(
+                        d.frame_embeds, to_filter, config["threshold"],
+                        config.get("filter_mode", "max_filter"))
+            for v, item in enumerate(chunk):
+                if generated_only:
+                    # item['text'] keeps the raw original captions when they
+                    # were kept (or nothing was generated), else starts empty
+                    if captions is None or config.get("keep_original_caption", False):
+                        base = list(item.get("text", []))
+                    else:
+                        base = []
+                    text = base + filtered[v]
+                else:
+                    text = filtered[v]
+                results.append(CapFiltResult(item["video_id"], unfiltered[v], text))
+            return results
 
     def _fused_filter_results(self, d: ChunkDispatch, to_filter: list[list[str]],
                               captions: list[str], seqs_np: np.ndarray) -> list[list[str]]:
@@ -464,7 +485,8 @@ class CapFiltEngine:
         T_classic = _round_up(max_n, 4)
         if max_n > 0 and T_classic != probs.shape[1]:
             self.fused_fallback_videos += n_real
-            return self.filter_captions_batch(d.frame_embeds, to_filter, threshold, mode)
+            with annotate("capfilt.fallback"):
+                return self.filter_captions_batch(d.frame_embeds, to_filter, threshold, mode)
 
         Lf = self.itm_text_len_fused
         dev_ids, _ = itm_ids_from_seqs_np(
@@ -498,10 +520,11 @@ class CapFiltEngine:
                 fallback.append(v)
         if fallback:
             self.fused_fallback_videos += sum(1 for v in fallback if v < n_real)
-            idx = torch.as_tensor(fallback, device=d.frame_embeds.device)
-            rescored = self.filter_captions_batch(
-                d.frame_embeds[idx], [to_filter[v] for v in fallback], threshold, mode,
-                text_bucket=T_classic)
+            with annotate("capfilt.fallback"):
+                idx = torch.as_tensor(fallback, device=d.frame_embeds.device)
+                rescored = self.filter_captions_batch(
+                    d.frame_embeds[idx], [to_filter[v] for v in fallback], threshold, mode,
+                    text_bucket=T_classic)
             for v, res in zip(fallback, rescored):
                 out[v] = res
         return out

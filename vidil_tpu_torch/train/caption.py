@@ -22,6 +22,7 @@ from vidil_tpu_torch.train.common import (
     step_metrics,
     training_cfgs,
 )
+from vidil_tpu_torch.utils.profiling import annotate
 
 
 # the JAX package's names for the trainers' shared state
@@ -45,21 +46,29 @@ def make_caption_train_step(vit_cfg: ViTConfig, med_cfg: MedConfig, prompt_lengt
     token mean, the gradients are summed over the data group, and the
     reported loss is the global batch's. Under its model axis the towers
     run on this rank's heads and hidden columns.
+
+    Spans (`utils/profiling.py:annotate`): ``train.step`` holds
+    ``train.upload`` (the batch to the device), ``train.forward`` (the ViT
+    and the decoder's loss) and `apply_gradients`'s.
     """
     vit_cfg, med_cfg = training_cfgs(vit_cfg, med_cfg, med_remat,
                                      model_parallel=grid.model if grid is not None else 1)
 
     def train_step(state: TrainState, batch):
-        g = step_grid(state)
-        dev = state.device
-        b = model_batch({"video": torch.as_tensor(batch["video"], dtype=torch.float32, device=dev),
-                         "ids": torch.as_tensor(batch["input_ids"], device=dev).long(),
-                         "mask": torch.as_tensor(batch["attention_mask"], device=dev).long()}, g)
-        video, ids, mask = b["video"], b["ids"], b["mask"]
-        embeds = B.encode_video_frames(state.params, video, vit_cfg, dtype=dtype, grid=g)
-        loss = B.blip_caption_loss(state.params, embeds, ids, mask, med_cfg,
-                                   prompt_length=prompt_length, dtype=dtype, grid=g)
-        return apply_gradients(state, loss, g), step_metrics(g, loss=loss)
+        with annotate("train.step"):
+            g = step_grid(state)
+            dev = state.device
+            with annotate("train.upload"):
+                b = model_batch(
+                    {"video": torch.as_tensor(batch["video"], dtype=torch.float32, device=dev),
+                     "ids": torch.as_tensor(batch["input_ids"], device=dev).long(),
+                     "mask": torch.as_tensor(batch["attention_mask"], device=dev).long()}, g)
+            video, ids, mask = b["video"], b["ids"], b["mask"]
+            with annotate("train.forward"):
+                embeds = B.encode_video_frames(state.params, video, vit_cfg, dtype=dtype, grid=g)
+                loss = B.blip_caption_loss(state.params, embeds, ids, mask, med_cfg,
+                                           prompt_length=prompt_length, dtype=dtype, grid=g)
+            return apply_gradients(state, loss, g), step_metrics(g, loss=loss)
 
     return train_step
 

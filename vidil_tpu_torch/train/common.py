@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from vidil_tpu_torch.models.convert import named_leaves
+from vidil_tpu_torch.utils.profiling import annotate
 
 
 def training_cfgs(vit_cfg, med_cfg, med_remat: bool = True, default_fused_bwd: bool = True,
@@ -220,16 +221,26 @@ def apply_gradients(state: TrainState, loss, grid=None) -> TrainState:
     global-batch step. Under its model axis the leaves it replicates first
     take the first model rank's gradient (`broadcast_grads`): the model
     ranks compute them alike, but a kernel's atomic adds may round them
-    otherwise, and the replicas must stay equal."""
+    otherwise, and the replicas must stay equal.
+
+    Spans (`utils/profiling.py:annotate`): ``train.backward``,
+    ``train.all_reduce`` (under a grid's model or data axis) and
+    ``train.optimizer``, entered twice: AdamW's clearing of the old
+    gradients before the backward and its step after it."""
     from vidil_tpu_torch.parallel.collectives import all_reduce_grads, broadcast_grads
     from vidil_tpu_torch.parallel.sharding import replicated_leaves
 
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if grid is not None and grid.tensor_parallel:
-        broadcast_grads(replicated_leaves(state.params), grid.model_group)
-    if grid is not None and grid.data_parallel:
-        all_reduce_grads([p for _, p in named_leaves(state.params)], grid.data_group)
-    state.optimizer.step()
+    with annotate("train.optimizer"):
+        state.optimizer.zero_grad(set_to_none=True)
+    with annotate("train.backward"):
+        loss.backward()
+    if grid is not None and (grid.tensor_parallel or grid.data_parallel):
+        with annotate("train.all_reduce"):
+            if grid.tensor_parallel:
+                broadcast_grads(replicated_leaves(state.params), grid.model_group)
+            if grid.data_parallel:
+                all_reduce_grads([p for _, p in named_leaves(state.params)], grid.data_group)
+    with annotate("train.optimizer"):
+        state.optimizer.step()
     state.step += 1
     return state
