@@ -12,6 +12,7 @@ from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.layers import init_linear, linear
 from vidil_tpu_torch.models.vit import init_vit, vit_forward
+from vidil_tpu_torch.ops.decode_graph import DecodeGraphs, eager_piece, storage_key
 from vidil_tpu_torch.ops.generation import GenerationConfig, beam_search, nucleus_sample
 from vidil_tpu_torch.utils.profiling import annotate
 
@@ -92,14 +93,32 @@ def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConf
     return prefill_fn, step_fn, M.reorder_cache
 
 
+def _decoder_memory(params, image_embeds, med_cfg: MedConfig, rows: int, max_length: int,
+                    repeat: int, dtype, cache_dtype, cross_kv_int8, unrolled: bool,
+                    lazy_reorder: bool):
+    """A decode's cross K/V over image_embeds (repeated `repeat` times along
+    the batch first) and its empty self cache of `rows` rows. The decode
+    takes no memory bias: the all-ones memory mask gives a bias of zeros,
+    which adds nothing to the logits (x + 0 == x)."""
+    kv_src = image_embeds if repeat == 1 else image_embeds.repeat_interleave(repeat, dim=0)
+    cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg, dtype=dtype)
+    if cross_kv_int8:
+        cross_k, cross_v = M.quantize_cross_kv(cross_k, cross_v)
+    cache = M.init_self_cache(med_cfg, rows, max_length,
+                              dtype=cache_dtype or dtype or torch.float32,
+                              device=image_embeds.device, unrolled=unrolled,
+                              lazy_reorder=lazy_reorder)
+    return cross_k, cross_v, cache
+
+
 def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
                       gen: GenerationConfig, sample: bool = False, generator=None,
                       noise=None, dtype=None, cache_dtype=None, beam_group_kv: bool = False,
                       cross_kv_int8: bool | str = False, decode_layer_unroll: bool = False,
-                      decode_lazy_reorder: bool = False):
-    """Token ids from encoded images, by beam search or (``sample``) by
-    nucleus sampling from `generator` (or the given per-step `noise`, see
-    `nucleus_sample`).
+                      decode_lazy_reorder: bool = False, graphs: DecodeGraphs | None = None):
+    """Token ids from encoded images, by beam search (`blip_beam_search`)
+    or (``sample``) by nucleus sampling from `generator` (or the given
+    per-step `noise`, see `nucleus_sample`).
 
     image_embeds: (B, Lk, D), not beam-expanded; prompt_ids: (B, Lp)
     starting with [DEC], without the trailing [SEP]. beam_group_kv=True
@@ -114,32 +133,61 @@ def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
     not beam_group_kv or sampling, it runs as True). decode_layer_unroll
     and decode_lazy_reorder change the cache's layout and the beam
     reorder, not the tokens (`M.init_self_cache`); sampling never
-    reorders, so it drops the lazy reorder."""
-    B = image_embeds.shape[0]
-    expand = 1 if sample else gen.num_beams
-    beam_size = expand if beam_group_kv else 1
+    reorders, so it drops the lazy reorder. graphs: the caller's CUDA
+    graphs of the beam decode (`blip_beam_search`); sampling runs eager."""
+    if not sample:
+        seqs, _ = blip_beam_search(
+            params, image_embeds, prompt_ids, med_cfg, gen, dtype=dtype,
+            cache_dtype=cache_dtype, beam_group_kv=beam_group_kv, cross_kv_int8=cross_kv_int8,
+            decode_layer_unroll=decode_layer_unroll, decode_lazy_reorder=decode_lazy_reorder,
+            graphs=graphs)
+        return seqs
     with annotate("decode.prefill"):  # the cross K/V and the empty self cache
-        kv_src = (image_embeds if beam_group_kv or sample
-                  else image_embeds.repeat_interleave(expand, dim=0))
-        cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg,
-                                                 dtype=dtype)
-        if cross_kv_int8:
-            cross_k, cross_v = M.quantize_cross_kv(cross_k, cross_v)
-        # the all-ones memory mask gives a bias of zeros, which adds nothing
-        # to the logits (x + 0 == x): pass none
-        cache = M.init_self_cache(med_cfg, B * expand, gen.max_length,
-                                  dtype=cache_dtype or dtype or torch.float32,
-                                  device=image_embeds.device,
-                                  unrolled=decode_layer_unroll,
-                                  lazy_reorder=decode_lazy_reorder and not sample)
-    prefill_fn, step_fn, reorder_fn = make_decoder_closures(
-        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size,
+        cross_k, cross_v, cache = _decoder_memory(
+            params, image_embeds, med_cfg, image_embeds.shape[0], gen.max_length, 1, dtype,
+            cache_dtype, cross_kv_int8, decode_layer_unroll, False)
+    prefill_fn, step_fn, _ = make_decoder_closures(
+        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=1,
         int8_dot=(cross_kv_int8 == "dot"))
-    if sample:
-        return nucleus_sample(prompt_ids, cache, prefill_fn, step_fn, gen,
-                              generator=generator, noise=noise)
-    seqs, _ = beam_search(prompt_ids, cache, prefill_fn, step_fn, reorder_fn, gen)
-    return seqs
+    return nucleus_sample(prompt_ids, cache, prefill_fn, step_fn, gen,
+                          generator=generator, noise=noise)
+
+
+def blip_beam_search(params, image_embeds, prompt_ids, med_cfg: MedConfig,
+                     gen: GenerationConfig, dtype=None, cache_dtype=None,
+                     beam_group_kv: bool = False, cross_kv_int8: bool | str = False,
+                     decode_layer_unroll: bool = False, decode_lazy_reorder: bool = False,
+                     graphs: DecodeGraphs | None = None):
+    """The beam path of `blip_generate_ids` (its arguments): the sequences
+    (B, max_length) int32 and the best hypotheses' scores (B,) fp32.
+
+    With `graphs` (`ops/decode_graph.py`), a CUDA decode of
+    ``gen.early_exit=False`` (no step depends on the data) runs from CUDA
+    graphs once its key has been seen: the same kernels on the same
+    operands, so the same tokens and scores. The key covers the shapes and
+    dtypes of the inputs, the configurations, every option here and the
+    decoder weights' storage."""
+    nb = gen.num_beams
+    beam_size = nb if beam_group_kv else 1
+
+    def decode(image_embeds, prompt_ids, piece=eager_piece):
+        with piece("decode.prefill"):  # the cross K/V and the empty self cache
+            cross_k, cross_v, cache = _decoder_memory(
+                params, image_embeds, med_cfg, image_embeds.shape[0] * nb, gen.max_length,
+                nb // beam_size, dtype, cache_dtype, cross_kv_int8, decode_layer_unroll,
+                decode_lazy_reorder)
+        prefill_fn, step_fn, reorder_fn = make_decoder_closures(
+            params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size,
+            int8_dot=(cross_kv_int8 == "dot"))
+        return beam_search(prompt_ids, cache, prefill_fn, step_fn, reorder_fn, gen, piece=piece)
+
+    if graphs is None or gen.early_exit:
+        return decode(image_embeds, prompt_ids)
+    key = (tuple(image_embeds.shape), image_embeds.dtype, image_embeds.device,
+           tuple(prompt_ids.shape), prompt_ids.dtype, med_cfg, gen, dtype, cache_dtype,
+           beam_group_kv, cross_kv_int8, decode_layer_unroll, decode_lazy_reorder,
+           storage_key(params["text_decoder"]))
+    return graphs.run(key, decode, image_embeds, prompt_ids)
 
 
 def decode_captions(tokenizer, sequences, prompt: str) -> list[str]:

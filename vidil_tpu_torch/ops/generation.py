@@ -33,7 +33,9 @@ Spans (`utils/profiling.py:annotate`) name each part of a decode:
 ``decode.prefill`` (the prompt pass and the loop's initial state),
 ``decode.select`` (one step's bookkeeping: scores, top-k or the draw,
 hypotheses, the stop rule), ``decode.reorder`` (the cache's beam gather) and
-``decode.step`` (one token through the decoder).
+``decode.step`` (one token through the decoder). `beam_search` enters
+them as pieces (``piece``), which CUDA graphs can capture and replay
+(`ops/decode_graph.py`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from dataclasses import dataclass
 
 import torch
 
+from vidil_tpu_torch.ops.decode_graph import eager_piece
 from vidil_tpu_torch.utils.profiling import annotate
 
 NEG_INF = -1e9
@@ -121,13 +124,17 @@ def _take_rows(x, idx):
     return x[b, idx]
 
 
-def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: GenerationConfig):
+def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: GenerationConfig,
+                piece=eager_piece):
     """Batched beam search.
 
     prompt_ids: (B, Lp) int — the same (unpadded) prompt length per row.
     init_cache: cache sized for batch B*num_beams and gen.max_length.
     Returns sequences (B, max_length) int32 padded with pad_token_id, and
     scores (B,) fp32 — the length-normalized best-hypothesis scores.
+    piece(span): the context of each piece of the search, its spans
+    eagerly; every tensor operation lies inside one, so that a capture
+    (`ops/decode_graph.py`) records all of them.
     """
     B, Lp = prompt_ids.shape
     nb = gen.num_beams
@@ -138,7 +145,7 @@ def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: Ge
     dev = prompt_ids.device
     max_len = gen.max_length
 
-    with annotate("decode.prefill"):
+    with piece("decode.prefill"):
         flat_prompt = prompt_ids.to(torch.int32).repeat_interleave(nb, dim=0)  # (B*nb, Lp)
         last_logits, cache = prefill_fn(flat_prompt, init_cache)
         V = last_logits.shape[-1]
@@ -157,7 +164,7 @@ def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: Ge
     for cur_len in range(Lp, max_len):
         if gen.early_exit and bool(blocked.all()):
             break
-        with annotate("decode.select"):
+        with piece("decode.select"):
             logp = torch.log_softmax(last_logits.float(), dim=-1)
             logp = _apply_repetition_penalty(logp, seqs, cur_len, gen.repetition_penalty)
             logp = _apply_min_length(logp, cur_len, gen.min_length, gen.eos_token_id)
@@ -220,36 +227,38 @@ def beam_search(prompt_ids, init_cache, prefill_fn, step_fn, reorder_fn, gen: Ge
             beam_scores = nxt_scores.to(torch.float32)
         if cur_len + 1 < max_len:
             # the last step's logits would feed no further step
-            with annotate("decode.reorder"):
+            with piece("decode.reorder"):
                 cache = reorder_fn(cache, flat_idx)
-            with annotate("decode.step"):
+            with piece("decode.step"):
                 last_logits, cache = step_fn(flat_tokens, cur_len, cache)
 
-    # --- finalize ---
-    beam_seqs = seqs.reshape(B, nb, max_len)
-    if not modern:
-        # legacy: rows not done force-add all running beams (length =
-        # max_length) before the best hypothesis is picked
-        final_norm = beam_scores / (float(max_len) ** lp)
-        cand = torch.where(blocked[:, None], torch.full_like(final_norm, HYP_INVALID), final_norm)
-        merged_s = torch.cat([hyp_s, cand], dim=1)
-        order = torch.argsort(-merged_s, dim=1, stable=True)[:, :nb]
-        hyp_s = torch.gather(merged_s, 1, order)
-        hyp_q = _take_rows(torch.cat([hyp_q, beam_seqs], dim=1), order)
-        full = torch.full((B, nb), max_len, dtype=torch.int32, device=dev)
-        hyp_l = torch.gather(torch.cat([hyp_l, full], dim=1), 1, order)
-    best = torch.argmax(hyp_s, dim=1)
-    seq = hyp_q[torch.arange(B, device=dev), best]  # (B, max_len)
-    ln = hyp_l[torch.arange(B, device=dev), best][:, None]
-    pos = torch.arange(max_len, device=dev)[None]
-    if not modern:
-        # legacy appends eos at position `len` when there is room
-        seq = torch.where((pos == ln) & (ln < max_len), gen.eos_token_id, seq)
-        seq = torch.where(pos > ln, gen.pad_token_id, seq)
-    else:
-        seq = torch.where(pos >= ln, gen.pad_token_id, seq)
-    out_scores = hyp_s[torch.arange(B, device=dev), best]
-    return seq.to(torch.int32), out_scores
+    with piece(None):  # --- finalize ---
+        beam_seqs = seqs.reshape(B, nb, max_len)
+        if not modern:
+            # legacy: rows not done force-add all running beams (length =
+            # max_length) before the best hypothesis is picked
+            final_norm = beam_scores / (float(max_len) ** lp)
+            cand = torch.where(blocked[:, None], torch.full_like(final_norm, HYP_INVALID),
+                               final_norm)
+            merged_s = torch.cat([hyp_s, cand], dim=1)
+            order = torch.argsort(-merged_s, dim=1, stable=True)[:, :nb]
+            hyp_s = torch.gather(merged_s, 1, order)
+            hyp_q = _take_rows(torch.cat([hyp_q, beam_seqs], dim=1), order)
+            full = torch.full((B, nb), max_len, dtype=torch.int32, device=dev)
+            hyp_l = torch.gather(torch.cat([hyp_l, full], dim=1), 1, order)
+        best = torch.argmax(hyp_s, dim=1)
+        seq = hyp_q[torch.arange(B, device=dev), best]  # (B, max_len)
+        ln = hyp_l[torch.arange(B, device=dev), best][:, None]
+        pos = torch.arange(max_len, device=dev)[None]
+        if not modern:
+            # legacy appends eos at position `len` when there is room
+            seq = torch.where((pos == ln) & (ln < max_len), gen.eos_token_id, seq)
+            seq = torch.where(pos > ln, gen.pad_token_id, seq)
+        else:
+            seq = torch.where(pos >= ln, gen.pad_token_id, seq)
+        seq = seq.to(torch.int32)
+        out_scores = hyp_s[torch.arange(B, device=dev), best]
+    return seq, out_scores
 
 
 def nucleus_sample(prompt_ids, init_cache, prefill_fn, step_fn, gen: GenerationConfig,

@@ -7,8 +7,8 @@ a chunk in one grouped call — softmax[:, 1], then max/avg over frames
 against the threshold. Frames arrive at image_size or at their native
 size (``resize_on_device``: the encode resizes them, `preprocess_any`).
 
-``dispatch_chunk`` enqueues a chunk's whole device chain (captioner
-encode -> decode -> filterer encode -> fused-filter ITM) without a
+``dispatch_chunk`` enqueues a chunk's whole device chain (filterer
+encode -> captioner encode -> decode -> fused-filter ITM) without a
 host sync and starts the copies of the small results to pinned host
 memory; ``complete_chunk`` waits for them and does the string work. The
 fused filter builds the ITM ids on the device from the generated tokens;
@@ -35,6 +35,7 @@ from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import blip as B
 from vidil_tpu_torch.models.convert import to_device
 from vidil_tpu_torch.models.layers import cast_linears
+from vidil_tpu_torch.ops.decode_graph import DecodeGraphs
 from vidil_tpu_torch.ops.generation import GenerationConfig
 from vidil_tpu_torch.ops.image import CLIP_MEAN, CLIP_STD, YUV420Frames, preprocess_any
 from vidil_tpu_torch.pipeline.fused_filter import (
@@ -112,6 +113,37 @@ class CapFiltResult:
     text: list[str]
 
 
+class PinnedArena:
+    """Pinned host tensors for the chunks' early readback, carved in turn
+    from pinned slabs, no byte handed out twice. Allocating page-locked
+    memory can wait for the whole device (it synchronizes implicitly), and
+    the caching host allocator allocates anew while callers keep what it
+    handed out, so a fresh pinned buffer per chunk can hold the host until
+    the card has run the chunk just dispatched; a slab pays that once per
+    `SLAB_BYTES`. A caller may keep what it was handed for as long as it
+    likes."""
+
+    SLAB_BYTES = 1 << 20
+    ALIGN = 256
+
+    def __init__(self):
+        self._slab = None
+        self._used = 0
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of the device tensor `x`, enqueued on the
+        current stream (valid once the stream has passed it)."""
+        nbytes = x.numel() * x.element_size()
+        size = _round_up(max(nbytes, 1), self.ALIGN)
+        if self._slab is None or self._used + size > self._slab.numel():
+            self._slab = torch.empty(max(self.SLAB_BYTES, size), dtype=torch.uint8,
+                                     pin_memory=True)
+            self._used = 0
+        out = self._slab[self._used:self._used + nbytes].view(x.dtype).view(x.shape)
+        self._used += size
+        return out.copy_(x, non_blocking=True)
+
+
 @dataclass
 class ChunkDispatch:
     """Device work of one chunk, in flight (see CapFiltEngine.dispatch_chunk)."""
@@ -163,13 +195,16 @@ class CapFiltEngine:
         `ops/generation.py`).
 
         early_exit is accepted for the reference's signature and changes no
-        token: the decode runs all its steps (no host sync inside it). early_readback starts
+        token: the decode runs all its steps (no host sync inside it), so on
+        the card a beam decode of a shape seen before replays CUDA graphs
+        (`ops/decode_graph.py`). early_readback starts
         the chunk's small device->host copies right after its dispatch, on
         the card (False: `complete_chunk` reads them)."""
         self.device = resolve_device(device)
         if length_norm not in ("legacy", "modern"):
             raise ValueError(f"unknown length_norm: {length_norm!r}")
         self.early_readback = early_readback
+        self._readback = PinnedArena()
         if dtype == torch.float32:
             dtype = None  # fp32 params: no casts
         self.dtype = dtype
@@ -178,6 +213,8 @@ class CapFiltEngine:
                               decode_layer_unroll=decode_layer_unroll,
                               decode_lazy_reorder=decode_lazy_reorder)
         self.fused_filter = fused_filter
+        # the beam decode's CUDA graphs, by shape (`blip_beam_search`)
+        self.decode_graphs = DecodeGraphs()
         # how often the fused filter's host verification re-scored videos
         # through the classic path
         self.fused_fallback_videos = 0
@@ -241,7 +278,8 @@ class CapFiltEngine:
         prompt = self._prompt_dev[None].expand(embeds.shape[0], -1)
         return B.blip_generate_ids(self.captioner_params, embeds, prompt, self.med_cfg,
                                    self.gen_beam, dtype=self.dtype,
-                                   beam_group_kv=self.beam_group_kv, **self.decode_kw)
+                                   beam_group_kv=self.beam_group_kv, graphs=self.decode_graphs,
+                                   **self.decode_kw)
 
     def generate_sample(self, embeds, generator: torch.Generator):
         """(N, P, D) captioner embeddings -> (N, max_length) token ids by
@@ -368,8 +406,12 @@ class CapFiltEngine:
                 frames = self._put(_concat_frames([c["frames"] for c in chunk]))
             need_filter = config.get("filter", True)
             seqs = None
-            frame_embeds = None
             itm_probs = None
+            # the filter's encode before the decode, which it does not need:
+            # behind a decode replayed from CUDA graphs (≈ 100 ms of device
+            # work) the launch queue (≈ 1000 launches) fills, and the
+            # encode's launches would hold the host until the decode drains
+            frame_embeds = self.encode_filter_frames(frames, F) if need_filter else None
             if config.get("caption", True):
                 embeds = self._encode(self.captioner_params, frames)
                 if config.get("generation_mode", "beam") != "beam":
@@ -378,8 +420,6 @@ class CapFiltEngine:
                     seqs = self.generate_sample(embeds, rng)
                 else:
                     seqs = self.generate_beam(embeds)
-            if need_filter:
-                frame_embeds = self.encode_filter_frames(frames, F)
             if self.fused_filter and seqs is not None and need_filter and fused_applicable(config):
                 with annotate("capfilt.itm"):
                     itm_probs = self._itm_fused(frame_embeds, seqs)
@@ -388,9 +428,9 @@ class CapFiltEngine:
                 # start the small device->host copies now, into pinned memory
                 with annotate("capfilt.readback"):
                     if seqs is not None:
-                        d.seqs_host = seqs.to("cpu", non_blocking=True)
+                        d.seqs_host = self._readback.copy(seqs)
                     if itm_probs is not None:
-                        d.itm_probs_host = itm_probs.to("cpu", non_blocking=True)
+                        d.itm_probs_host = self._readback.copy(itm_probs)
                     d.ready = torch.cuda.Event()
                     d.ready.record()
             return d
