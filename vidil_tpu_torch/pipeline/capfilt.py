@@ -20,7 +20,8 @@ Spans (`utils/profiling.py:annotate`) name the stages of both halves:
 ``capfilt.dispatch`` holds the frames' upload, both encodes, the decode's
 (`ops/generation.py`), the fused ITM's enqueue and the early readback;
 ``capfilt.complete`` holds the wait for the chunk's results, the
-detokenization, the original captions' sentences with the dedup, and the
+detokenization, the dedup with the original captions' sentences
+(``capfilt.split``, made only where the configuration keeps them), and the
 filter's host checks with any classic re-score (``capfilt.fallback``).
 """
 
@@ -457,10 +458,16 @@ class CapFiltEngine:
             generated_per_video: list[list[str]] = []
             candidates_per_video: list[list[str]] = []
             unfiltered: list[list[str]] = []
+            keep_original = config.get("keep_original_caption", False)
             with annotate("capfilt.sentences"):
                 for v, item in enumerate(chunk):
-                    orig = original_caption_sentences(
-                        item.get("text", []), config.get("do_sentence_tokenization", True))
+                    # the originals' sentences are candidates only when kept
+                    # or when nothing was generated
+                    if captions is None or keep_original:
+                        with annotate("capfilt.split"):
+                            orig = original_caption_sentences(
+                                item.get("text", []),
+                                config.get("do_sentence_tokenization", True))
                     if captions is None:
                         generated_per_video.append([])
                         candidates_per_video.append(orig)
@@ -471,8 +478,7 @@ class CapFiltEngine:
                             if cap not in dedup:
                                 dedup.append(cap)
                         generated_per_video.append(dedup)
-                        cands = (orig + dedup if config.get("keep_original_caption", False)
-                                 else dedup)
+                        cands = orig + dedup if keep_original else dedup
                         candidates_per_video.append(cands)
                         unfiltered.append(cands)
 
@@ -495,7 +501,7 @@ class CapFiltEngine:
                 if generated_only:
                     # item['text'] keeps the raw original captions when they
                     # were kept (or nothing was generated), else starts empty
-                    if captions is None or config.get("keep_original_caption", False):
+                    if captions is None or keep_original:
                         base = list(item.get("text", []))
                     else:
                         base = []

@@ -17,9 +17,10 @@ sentencizer-grade rule set replaces the earlier bare
 * lowercase sentence starts DO split (caption corpora are lowercase
   sentence streams, and the trained senter splits them).
 
-A one-time warning is emitted when the fallback (not spaCy) serves a
-byte-parity-sensitive path, since exact parity with the trained senter
-is not guaranteed.
+Which of the two serves is settled on the first call in a process and
+kept (`_reset_backend` starts over). A one-time warning is emitted when the
+fallback (not spaCy) serves a byte-parity-sensitive path, since exact
+parity with the trained senter is not guaranteed.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ _ABBREVS = {
 _BOUNDARY_RE = re.compile(r"([.!?…]+)([\"'”’)\]]*)(\s+)")
 
 _warned = False
+_UNRESOLVED = object()
+_backend = _UNRESOLVED  # see _resolve_backend
 
 
 def _warn_fallback_once() -> None:
@@ -111,15 +114,32 @@ def split_sentences_rules(text: str) -> list[str]:
     return sentences
 
 
+def _resolve_backend():
+    """The spaCy pipeline, or None where spaCy or its model does not load:
+    tried on the first call in the process and remembered, since a failed
+    import searches the whole import path again each time it is tried."""
+    global _backend
+    if _backend is _UNRESOLVED:
+        try:  # pragma: no cover - optional dependency
+            import spacy
+
+            _backend = spacy.load("en_core_web_sm", disable=["ner", "tagger", "lemmatizer"])
+        except Exception:
+            _backend = None
+    return _backend
+
+
+def _reset_backend() -> None:
+    """Back to the first call's state: no backend resolved, no warning given."""
+    global _backend, _warned
+    _backend = _UNRESOLVED
+    _warned = False
+
+
 def split_sentences(text: str) -> list[str]:
     """spaCy senter when available (reference parity), rules otherwise."""
-    try:  # pragma: no cover - optional dependency
-        import spacy
-
-        if not hasattr(split_sentences, "_nlp"):
-            split_sentences._nlp = spacy.load(
-                "en_core_web_sm", disable=["ner", "tagger", "lemmatizer"])
-        return [s.text.strip() for s in split_sentences._nlp(text).sents]
-    except Exception:
-        _warn_fallback_once()
-        return split_sentences_rules(text)
+    nlp = _resolve_backend()
+    if nlp is not None:  # pragma: no cover - optional dependency
+        return [s.text.strip() for s in nlp(text).sents]
+    _warn_fallback_once()
+    return split_sentences_rules(text)
