@@ -157,10 +157,7 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      and YUV420: the card's resize within 1 uint8 level (on rounding ties,
      counted) of the port's CPU resize, against the host PIL path and the
      encode seconds both ways (reported), one native chunk through the
-     engine; cross_kv_int8 True and "dot": the int8 x int8 products equal
-     the integer product at Lk 577 and 2308, token agreement with the bf16
-     stock decode and decode seconds (reported); decode_layer_unroll and
-     decode_lazy_reorder, each and both: token-identical to the stock
+     engine; decode_layer_unroll and decode_lazy_reorder, each and both: token-identical to the stock
      decode in fp32, bf16 agreement and decode seconds (reported); NLVR2
      forward and loss over 16 pairs (35-token texts, fusion_layer 6) and
      blip_embedding_forward (itm, itc) over 32 images: finite, shaped, ITC
@@ -2645,7 +2642,6 @@ P16_NATIVE = ((240, 320), (480, 640))  # native frame sizes: an upscale and a do
 # timings of the compared calls: the median of this many synced calls of
 # each, taken in turns (A B .. B A), since the host's speed drifts
 P16_REPS = 5
-P16_INT8_LK = (577, 2308)  # the CapFilt memory (one frame) and a 4-frame video memory
 # NLVR2 over 16 pairs (32 images at 384 px), 35-token texts, fusion_layer 6;
 # the embedding extractor over 32 images
 P16_PAIRS, P16_TEXT, P16_FUSION = 16, 35, 6
@@ -2850,54 +2846,8 @@ def p16_resize(engine, mods, device):
     return out
 
 
-def p16_int8(engine, mods, chunk, embeds, vit_cfg, med_cfg, device):
-    """16.3: cross_kv_int8 True and "dot" (beam_group_kv): the int8 x int8
-    products exact against an integer product of the same values at the
-    CapFilt memory and a 4-frame one; each variant through dispatch/complete
-    (24 K1 a chunk), its token agreement with the bf16 stock decode and its
-    decode seconds."""
-    from vidil_tpu_torch.models import med
-
-    B, H, G, Dh = N_VIDEOS * N_FRAMES, med_cfg.num_heads, 3, med_cfg.hidden_size // med_cfg.num_heads
-    gen = torch.Generator(device=device).manual_seed(16)
-    exact = {}
-    for Lk in P16_INT8_LK:
-        p8 = torch.randint(-127, 128, (B, H, G, Lk), generator=gen, device=device,
-                           dtype=torch.int8)
-        v8 = torch.randint(-127, 128, (B, H, Lk, Dh), generator=gen, device=device,
-                           dtype=torch.int8)
-        q8 = torch.randint(-127, 128, (B, H, G, Dh), generator=gen, device=device,
-                           dtype=torch.int8)
-        full = torch.full((B, H, G, Lk), 127, dtype=torch.int8, device=device)
-        wrong = 0
-        for a, b in ((p8, v8), (q8, v8.transpose(-1, -2)), (full, v8.abs())):
-            got = med.int8_matmul(a, b).cpu()
-            want = torch.matmul(a.cpu().long(), b.cpu().long())
-            wrong += int((got.double() != want.double()).sum())
-        if wrong:
-            raise SystemExit(f"int8 products at Lk {Lk}: {wrong} entries differ from the "
-                             "integer product")
-        exact[str(Lk)] = {"products": 3, "wrong_entries": wrong,
-                          "route": "fp32" if Lk <= med._INT8_F32_EXACT_K else "fp64"}
-    lp = engine.prompt_length
-    engines = {"stock": engine}
-    out = {"exact": exact}
-    for name, mode in (("store", True), ("dot", "dot")):
-        engines[name] = var = _variant(engine, vit_cfg, med_cfg, cross_kv_int8=mode)
-        _, _, counts, chunk_s = _capfilt_run(var, mods, [chunk], CONFIG)
-        _expect_counts(f"cross_kv_int8={mode}", counts, 24)
-        out[name] = {"chunk_s": chunk_s, "k1_per_chunk": counts["flash_attention_fwd"]}
-    t = _timed_in_turns({name: (lambda e=e: e.generate_beam(embeds)) for name, e in engines.items()})
-    out["stock_decode_s"], out["stock_decode_enqueue_s"], stock = t["stock"]
-    for name in ("store", "dot"):
-        s, enq, seqs = t[name]
-        out[name].update(decode_s=s, decode_enqueue_s=enq,
-                         token_agreement_bf16=_agreement(seqs, stock, lp))
-    return out
-
-
 def p16_decode_structure(engine, mods, chunk, embeds, frames, vit_cfg, med_cfg, device):
-    """16.4: decode_layer_unroll and decode_lazy_reorder, each and both:
+    """16.3: decode_layer_unroll and decode_lazy_reorder, each and both:
     token-identical to the stock decode in fp32 on the card (an fp32 copy
     of the same synthetic weights), agreement in bf16 (reported), decode
     seconds, and each through dispatch/complete (24 K1 a chunk)."""
@@ -2939,7 +2889,7 @@ def p16_decode_structure(engine, mods, chunk, embeds, frames, vit_cfg, med_cfg, 
 
 
 def p16_nlvr_embedding(mods, device, tok, vit_cfg, med_cfg):
-    """16.5: NLVR2 forward and loss over 16 pairs and the embedding extractor
+    """16.4: NLVR2 forward and loss over 16 pairs and the embedding extractor
     (itm, itc) over 32 images, bf16, 12 K1 launches per encode (one encode
     each); itc features of unit norm (bf16, and fp32 within 1e-3); the
     return_attn encode (no K1: its maps are the output) with rows summing
@@ -3056,7 +3006,6 @@ def run_phase16(fa, fm, fvb, device, card, tok):
 
     part("sampling", p16_sampling, engine, mods, chunks, embeds)
     part("resize_on_device", p16_resize, engine, mods, device)
-    part("cross_kv_int8", p16_int8, engine, mods, chunks[0], embeds, vit_cfg, med_cfg, device)
     part("decode_structure", p16_decode_structure, engine, mods, chunks[0], embeds, frames,
          vit_cfg, med_cfg, device)
     del engine, embeds, frames
@@ -4514,13 +4463,11 @@ def main():
     ret = run_retrieval_phase(fa, fvb, device, card, tok, texts, rerank_len)
     del texts
     p16 = run_phase16(fa, fm, fvb, device, card, tok)
-    smp, i8, ds = p16["sampling"], p16["cross_kv_int8"], p16["decode_structure"]
+    smp, ds = p16["sampling"], p16["decode_structure"]
     log(f"phase 16 (CapFilt modes, bf16, {N_VIDEOS} videos x {N_FRAMES} frames a chunk): "
         f"sample decode {smp['sample_decode_s']:.3f} s a chunk (enqueue "
         f"{smp['sample_decode_enqueue_s']:.3f}) beside the beam decode's "
-        f"{smp['beam_decode_s']:.3f} ({smp['beam_decode_enqueue_s']:.3f}); int8 store "
-        f"{i8['store']['decode_s']:.3f} s (agreement {i8['store']['token_agreement_bf16']:.3f}), "
-        f"dot {i8['dot']['decode_s']:.3f} s ({i8['dot']['token_agreement_bf16']:.3f}); unroll "
+        f"{smp['beam_decode_s']:.3f} ({smp['beam_decode_enqueue_s']:.3f}); unroll "
         f"{ds['unroll']['decode_s']:.3f} s, lazy {ds['lazy']['decode_s']:.3f} s, both "
         f"{ds['both']['decode_s']:.3f} s (fp32 token-identical; bf16 agreement "
         f"{ds['unroll']['token_agreement_bf16']:.3f} / {ds['lazy']['token_agreement_bf16']:.3f}"
@@ -4594,8 +4541,6 @@ def main():
                   sampling_per_chunk=p16["sampling"]["k1_per_chunk"],
                   resize_on_device_per_chunk=[r["k1_per_chunk"] for r in
                                               p16["resize_on_device"].values()],
-                  cross_kv_int8_per_chunk=[p16["cross_kv_int8"][m]["k1_per_chunk"]
-                                           for m in ("store", "dot")],
                   decode_structure_per_chunk=[p16["decode_structure"][m]["k1_per_chunk"]
                                               for m in ("unroll", "lazy", "both")],
                   nlvr_forward=p16["models"]["nlvr"]["k1"],

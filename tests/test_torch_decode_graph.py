@@ -36,8 +36,7 @@ TINY = MedConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4, inter
                  max_position_embeddings=64, encoder_width=32)
 GEN = GenerationConfig(max_length=12, min_length=3, num_beams=3, eos_token_id=5,
                        pad_token_id=0, early_exit=False)
-VARIANTS = [{}, {"cross_kv_int8": True}, {"cross_kv_int8": "dot"},
-            {"decode_layer_unroll": True}, {"decode_lazy_reorder": True}]
+VARIANTS = [{}, {"decode_layer_unroll": True}, {"decode_lazy_reorder": True}]
 
 
 @pytest.fixture(autouse=True)
@@ -98,7 +97,10 @@ class _OutsidePieces(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("kw", VARIANTS + [{"beam_group_kv": False},
-                                           {"length_norm": "modern"}])
+                                           {"length_norm": "modern"},
+                                           {"dtype": torch.bfloat16},
+                                           {"dtype": torch.bfloat16,
+                                            "cache_dtype": torch.float32}])
 def test_every_tensor_operation_lies_inside_a_piece(tiny, kw):
     """A capture records only what runs inside its pieces: work between
     them would run once, at the capture, and never at a replay. The spans
@@ -156,7 +158,7 @@ def test_the_key_follows_shapes_options_and_weights(tiny):
     key = call()
     assert call(e=embeds[1]) == key  # other values, one key
     others = [call(e=embeds[0][:1], p=prompt[:1]), call(p=prompt[:, :2]),
-              call(beam_group_kv=True), call(cross_kv_int8=True),
+              call(beam_group_kv=True),
               call(decode_layer_unroll=True), call(decode_lazy_reorder=True),
               call(prm={"text_decoder": M.init_med(init_generator(0), TINY,
                                                    with_lm_head=True)})]
@@ -355,7 +357,7 @@ def _decode(card, e, graphs=None, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "int8", "int8_dot", "unroll", "lazy"])
+@pytest.mark.parametrize("kw", VARIANTS, ids=["plain", "unroll", "lazy"])
 def test_replays_are_bitwise_the_eager_decode(card, kw):
     """Three calls with other embeddings (eager, capture, replay), then
     the first again: each the eager decode's tokens and scores, bit for

@@ -483,8 +483,7 @@ def engines(tmp_path_factory):
 
 @pytest.mark.parametrize("length_norm", ["legacy", "modern"])
 def test_capfilt_engine_length_norm_token_identical_to_jax(engines, length_norm):
-    """CapFiltEngine(length_norm=..., early_exit=True, early_readback=False):
-    the beam decode of 4 frames token-identical to the JAX engine's, fp32."""
+    """CapFiltEngine(length_norm=...): the beam decode of 4 frames token-identical to the JAX engine's, fp32."""
     from vidil_tpu_torch.pipeline.capfilt import CapFiltEngine
 
     cap, fil, vocab, jm, JEngine, JTok, BlipTokenizer = engines
@@ -493,9 +492,8 @@ def test_capfilt_engine_length_norm_token_identical_to_jax(engines, length_norm)
     peng = CapFiltEngine(convert.from_jax_params(cap), convert.from_jax_params(fil),
                          BlipTokenizer(vocab), ViTConfig(**VIT_KW),
                          MedConfig(**dict(MED_KW, vocab_size=jm.vocab_size)),
-                         dtype=torch.float32, early_exit=True, early_readback=False,
-                         device="cpu", **kw)
-    assert peng.gen_beam.length_norm == length_norm and not peng.early_readback
+                         dtype=torch.float32, device="cpu", **kw)
+    assert peng.gen_beam.length_norm == length_norm
     frames = np.random.RandomState(3).randint(0, 256, size=(4, 32, 32, 3), dtype=np.uint8)
     want = np.asarray(jeng._caption(jeng._put(frames), jax.random.PRNGKey(0)))
     got = peng.generate_beam(peng.encode_captioner(frames)).numpy()

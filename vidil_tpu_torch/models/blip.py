@@ -77,33 +77,29 @@ def blip_caption_loss(params, image_embeds, input_ids, attention_mask, med_cfg: 
 
 
 def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConfig,
-                          dtype=None, beam_size: int = 1, int8_dot: bool = False):
+                          dtype=None, beam_size: int = 1):
     dec = params["text_decoder"]
 
     def prefill_fn(ids, cache):
         h, cache = M.med_decode_prefill(dec, ids, cache, cross_k, cross_v, cross_bias,
-                                        med_cfg, dtype=dtype, beam_size=beam_size,
-                                        int8_dot=int8_dot)
+                                        med_cfg, dtype=dtype, beam_size=beam_size)
         return M.med_lm_logits(dec, h[:, -1], med_cfg, dtype=dtype).float(), cache
 
     def step_fn(tokens, idx, cache):
         return M.med_decode_step(dec, tokens, idx, cache, cross_k, cross_v, cross_bias,
-                                 med_cfg, dtype=dtype, beam_size=beam_size, int8_dot=int8_dot)
+                                 med_cfg, dtype=dtype, beam_size=beam_size)
 
     return prefill_fn, step_fn, M.reorder_cache
 
 
 def _decoder_memory(params, image_embeds, med_cfg: MedConfig, rows: int, max_length: int,
-                    repeat: int, dtype, cache_dtype, cross_kv_int8, unrolled: bool,
-                    lazy_reorder: bool):
+                    repeat: int, dtype, cache_dtype, unrolled: bool, lazy_reorder: bool):
     """A decode's cross K/V over image_embeds (repeated `repeat` times along
     the batch first) and its empty self cache of `rows` rows. The decode
     takes no memory bias: the all-ones memory mask gives a bias of zeros,
     which adds nothing to the logits (x + 0 == x)."""
     kv_src = image_embeds if repeat == 1 else image_embeds.repeat_interleave(repeat, dim=0)
     cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg, dtype=dtype)
-    if cross_kv_int8:
-        cross_k, cross_v = M.quantize_cross_kv(cross_k, cross_v)
     cache = M.init_self_cache(med_cfg, rows, max_length,
                               dtype=cache_dtype or dtype or torch.float32,
                               device=image_embeds.device, unrolled=unrolled,
@@ -114,8 +110,8 @@ def _decoder_memory(params, image_embeds, med_cfg: MedConfig, rows: int, max_len
 def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
                       gen: GenerationConfig, sample: bool = False, generator=None,
                       noise=None, dtype=None, cache_dtype=None, beam_group_kv: bool = False,
-                      cross_kv_int8: bool | str = False, decode_layer_unroll: bool = False,
-                      decode_lazy_reorder: bool = False, graphs: DecodeGraphs | None = None):
+                      decode_layer_unroll: bool = False, decode_lazy_reorder: bool = False,
+                      graphs: DecodeGraphs | None = None):
     """Token ids from encoded images, by beam search (`blip_beam_search`)
     or (``sample``) by nucleus sampling from `generator` (or the given
     per-step `noise`, see `nucleus_sample`).
@@ -128,36 +124,31 @@ def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
     (no beams, so neither applies). cache_dtype: the self-K/V cache's dtype
     (default `dtype`, else fp32), as the reference's.
 
-    cross_kv_int8: False, True (the cross K/V stored as per-row int8) or
-    "dot" (also int8 x int8 attention products; with beam_size 1, i.e.
-    not beam_group_kv or sampling, it runs as True). decode_layer_unroll
-    and decode_lazy_reorder change the cache's layout and the beam
-    reorder, not the tokens (`M.init_self_cache`); sampling never
-    reorders, so it drops the lazy reorder. graphs: the caller's CUDA
+    decode_layer_unroll and decode_lazy_reorder change the cache's layout
+    and the beam reorder, not the tokens (`M.init_self_cache`); sampling
+    never reorders, so it drops the lazy reorder. graphs: the caller's CUDA
     graphs of the beam decode (`blip_beam_search`); sampling runs eager."""
     if not sample:
         seqs, _ = blip_beam_search(
             params, image_embeds, prompt_ids, med_cfg, gen, dtype=dtype,
-            cache_dtype=cache_dtype, beam_group_kv=beam_group_kv, cross_kv_int8=cross_kv_int8,
+            cache_dtype=cache_dtype, beam_group_kv=beam_group_kv,
             decode_layer_unroll=decode_layer_unroll, decode_lazy_reorder=decode_lazy_reorder,
             graphs=graphs)
         return seqs
     with annotate("decode.prefill"):  # the cross K/V and the empty self cache
         cross_k, cross_v, cache = _decoder_memory(
             params, image_embeds, med_cfg, image_embeds.shape[0], gen.max_length, 1, dtype,
-            cache_dtype, cross_kv_int8, decode_layer_unroll, False)
+            cache_dtype, decode_layer_unroll, False)
     prefill_fn, step_fn, _ = make_decoder_closures(
-        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=1,
-        int8_dot=(cross_kv_int8 == "dot"))
+        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=1)
     return nucleus_sample(prompt_ids, cache, prefill_fn, step_fn, gen,
                           generator=generator, noise=noise)
 
 
 def blip_beam_search(params, image_embeds, prompt_ids, med_cfg: MedConfig,
                      gen: GenerationConfig, dtype=None, cache_dtype=None,
-                     beam_group_kv: bool = False, cross_kv_int8: bool | str = False,
-                     decode_layer_unroll: bool = False, decode_lazy_reorder: bool = False,
-                     graphs: DecodeGraphs | None = None):
+                     beam_group_kv: bool = False, decode_layer_unroll: bool = False,
+                     decode_lazy_reorder: bool = False, graphs: DecodeGraphs | None = None):
     """The beam path of `blip_generate_ids` (its arguments): the sequences
     (B, max_length) int32 and the best hypotheses' scores (B,) fp32.
 
@@ -174,18 +165,16 @@ def blip_beam_search(params, image_embeds, prompt_ids, med_cfg: MedConfig,
         with piece("decode.prefill"):  # the cross K/V and the empty self cache
             cross_k, cross_v, cache = _decoder_memory(
                 params, image_embeds, med_cfg, image_embeds.shape[0] * nb, gen.max_length,
-                nb // beam_size, dtype, cache_dtype, cross_kv_int8, decode_layer_unroll,
-                decode_lazy_reorder)
+                nb // beam_size, dtype, cache_dtype, decode_layer_unroll, decode_lazy_reorder)
         prefill_fn, step_fn, reorder_fn = make_decoder_closures(
-            params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size,
-            int8_dot=(cross_kv_int8 == "dot"))
+            params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size)
         return beam_search(prompt_ids, cache, prefill_fn, step_fn, reorder_fn, gen, piece=piece)
 
     if graphs is None or gen.early_exit:
         return decode(image_embeds, prompt_ids)
     key = (tuple(image_embeds.shape), image_embeds.dtype, image_embeds.device,
            tuple(prompt_ids.shape), prompt_ids.dtype, med_cfg, gen, dtype, cache_dtype,
-           beam_group_kv, cross_kv_int8, decode_layer_unroll, decode_lazy_reorder,
+           beam_group_kv, decode_layer_unroll, decode_lazy_reorder,
            storage_key(params["text_decoder"]))
     return graphs.run(key, decode, image_embeds, prompt_ids)
 

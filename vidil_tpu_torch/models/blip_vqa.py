@@ -13,7 +13,8 @@ import torch
 
 from vidil_tpu_torch.config import MedConfig, ViTConfig
 from vidil_tpu_torch.models import med as M
-from vidil_tpu_torch.models.blip import make_decoder_closures, med_shapes, vit_shapes
+from vidil_tpu_torch.models.blip import (_decoder_memory, make_decoder_closures, med_shapes,
+                                          vit_shapes)
 from vidil_tpu_torch.models.vit import init_vit
 from vidil_tpu_torch.ops.generation import GenerationConfig, _topk_stable, beam_search
 
@@ -78,15 +79,13 @@ def vqa_generate_ids(params, video_embeds, question_ids, question_mask,
     B = video_embeds.shape[0]
     question_states = encode_question(params, video_embeds, question_ids,
                                       question_mask, med_cfg, dtype=dtype)
-    kv_src = question_states if beam_group_kv else question_states.repeat_interleave(num_beams, 0)
     beam_size = num_beams if beam_group_kv else 1
-    cross_k, cross_v = M.precompute_cross_kv(params["text_decoder"], kv_src, med_cfg, dtype=dtype)
+    cross_k, cross_v, cache = _decoder_memory(
+        params, question_states, med_cfg, B * num_beams, max_length, num_beams // beam_size,
+        dtype, None, decode_layer_unroll, decode_lazy_reorder)
     gen = GenerationConfig(max_length=max_length, min_length=1, num_beams=num_beams,
                            eos_token_id=tokenizer.sep_token_id,
                            pad_token_id=tokenizer.pad_token_id, length_norm=length_norm)
-    cache = M.init_self_cache(med_cfg, B * num_beams, gen.max_length,
-                              dtype=dtype or torch.float32, device=video_embeds.device,
-                              unrolled=decode_layer_unroll, lazy_reorder=decode_lazy_reorder)
     prefill_fn, step_fn, reorder_fn = make_decoder_closures(
         params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size)
     bos = torch.full((B, 1), tokenizer.bos_token_id, dtype=torch.int32,

@@ -11,7 +11,7 @@ feature axis: ``(layers, B, max_len, H*Dh)`` (or one ``(B, max_len, H*Dh)``
 tensor per layer, ``unrolled``), updated in place per step, optionally read
 through an ancestry matrix instead of being permuted on beam reorders
 (``lazy_reorder``); the cross-attention K/V are projected once per
-generation, and may be stored as per-row int8 (`quantize_cross_kv`).
+generation.
 
 ``self_fold`` is accepted and runs unfolded, which is the fold's exact
 result (see `med_forward`).
@@ -193,14 +193,21 @@ def _grouped_attention(q, k, v, bias, group_size: int, grid=None):
         ctx = attention_auto(qf, k, v, grid=grid.gate if grid is not None else (1, 1))
         return (ctx.reshape(B, H, group_size, L, Dh)
                 .transpose(1, 2).reshape(Bn, H, L, Dh))
-    # bias path: beams/groups become a broadcast dim (no K/V replication)
-    q5 = q.reshape(B, group_size, H, L, Dh)
-    scale = 1.0 / math.sqrt(Dh)
-    logits = _grouped_scores(q5, k) * scale
-    logits = logits + bias[:, None].float()
+    return _grouped_softmax_attention(q, k, v, bias, group_size)
+
+
+def _grouped_softmax_attention(q, k, v, bias, group_size: int):
+    """`_grouped_attention` without the flash kernel: the groups become a
+    broadcast dim of the two products (no K/V replication); fp32 logits,
+    the context in v's dtype. q: (B*G, H, L, Dh), k/v: (B, H, Lk, Dh),
+    bias None or broadcastable to (B, H, L, Lk)."""
+    Bn, H, L, Dh = q.shape
+    q5 = q.reshape(Bn // group_size, group_size, H, L, Dh)
+    logits = _grouped_scores(q5, k) * (1.0 / math.sqrt(Dh))
+    if bias is not None:
+        logits = logits + bias[:, None].float()
     probs = torch.softmax(logits, dim=-1)
-    ctx = _grouped_context(probs.to(v.dtype), v)
-    return ctx.reshape(Bn, H, L, Dh)
+    return _grouped_context(probs.to(v.dtype), v).reshape(Bn, H, L, Dh)
 
 
 def _grouped_scores(q5, k):
@@ -250,105 +257,15 @@ def _attn_block(p, x, kv_states, bias, num_heads: int, eps: float, dtype=None,
     return layer_norm(p["norm"], out + x, eps)
 
 
-def _kv_scale(kv):
-    """A quantized K or V's per-row scales (B, H, Lk, 1) as (B, 1, H, 1, Lk),
-    broadcast over the beams and query rows of grouped logits."""
-    return kv["scale"][:, None, :, None, :, 0]
-
-
-# an fp32 product of int8 values is exact while every partial sum stays
-# below 2**24: K * 127**2 < 2**24 for K <= 1040
-_INT8_F32_EXACT_K = (1 << 24) // (127 * 127)
-
-
-def int8_matmul(a8, b8):
-    """a8 @ b8 for int8 tensors, exactly: the int32 sums the JAX package's
-    int8 x int8 dots accumulate, as floats. The CUDA build of torch has no
-    batched int8 product, so the operands go to fp32 while the contracted
-    length K <= 1040 (every partial sum is then an integer below 2**24)
-    and to fp64 beyond (integers below 2**53: exact for any K the decode
-    sees; the context over a long video memory is the one such product,
-    and it is small beside the rest of the step)."""
-    K = a8.shape[-1]
-    dt = torch.float32 if K <= _INT8_F32_EXACT_K else torch.float64
-    return torch.matmul(a8.to(dt), b8.to(dt))
-
-
-def _int8_dot_probs(q5, k, v, bias, scale: float):
-    """The int8-dot attention's quantized probabilities: q quantized per
-    row, int8 x int8 logits (exact, `int8_matmul`) scaled in fp32, softmax,
-    V's per-row scales folded in, then quantized per row. q5 (B, nb, H, L,
-    Dh); k, v quantized {q8 (B, H, Lk, Dh), scale (B, H, Lk, 1)}. Returns
-    (p8 (B, nb, H, L, Lk) int8, ps (B, nb, H, L, 1) fp32)."""
-    B, G, H, L, Dh = q5.shape
-    qs = torch.clamp_min(q5.abs().amax(dim=-1, keepdim=True).float(), 1e-12) / 127.0
-    q8 = torch.clamp(torch.round(q5.float() / qs), -127, 127).to(torch.int8)
-    qf = q8.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, Dh)
-    s = int8_matmul(qf, k["q8"].transpose(-1, -2)).float()  # (B, H, G*L, Lk)
-    s = s.reshape(B, H, G, L, -1).permute(0, 2, 1, 3, 4)
-    logits = s * (qs * scale) * _kv_scale(k)
-    if bias is not None:
-        logits = logits + bias[:, None].float()
-    probs = torch.softmax(logits, dim=-1)
-    # V's per-row scales folded into the probabilities before they are
-    # quantized, so the int8 product's row sums carry them: ctx = (p8 V8) ps
-    pv = probs * _kv_scale(v)
-    ps = torch.clamp_min(pv.amax(dim=-1, keepdim=True), 1e-20) / 127.0
-    p8 = torch.clamp(torch.round(pv / ps), -127, 127).to(torch.int8)
-    return p8, ps
-
-
-def _int8_dot_attention(q5, k, v, bias, scale: float):
-    """Grouped attention over a quantized memory with int8 x int8 products
-    (the JAX package's int8_dot): `_int8_dot_probs`, then the context
-    (p8 V8) ps, exact in its sums. Returns (B, nb, H, L, Dh) fp32."""
-    B, G, H, L, Dh = q5.shape
-    p8, ps = _int8_dot_probs(q5, k, v, bias, scale)
-    pf = p8.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, -1)
-    ctx = int8_matmul(pf, v["q8"]).float()  # (B, H, G*L, Dh)
-    return ctx.reshape(B, H, G, L, Dh).permute(0, 2, 1, 3, 4) * ps
-
-
 def _attn_block_precomputed_kv(p, x, k, v, bias, num_heads: int, eps: float,
-                               dtype=None, beam_size: int = 1, int8_dot: bool = False):
+                               dtype=None, beam_size: int = 1):
     """Cross-attention with precomputed K/V. beam_size > 1: x has batch
     B*beam_size but k/v have batch B — the beams of one item attend the
-    same memory (queries fold into the row axis; K/V are not replicated).
-
-    k/v may be per-row int8 {q8, scale} from `quantize_cross_kv`. The
-    per-row scales factor out of both products exactly (logits_k =
-    (q . K8_k) s_k, ctx = sum_k (p_k s_k) V8_k): in the grouped layout they
-    scale the fp32 logits and the probabilities; at beam size 1 the memory
-    is dequantized in fp32 and cast once. `int8_dot` (grouped layout only;
-    at beam size 1 it degrades to the dequantized path, as in JAX) also
-    quantizes q and the probabilities: `_int8_dot_attention`."""
+    same memory (queries fold into the row axis; K/V are not replicated)."""
     q = split_heads(linear(p["query"], x, dtype=dtype), num_heads)  # (B*nb, H, L, Dh)
-    k_quant = isinstance(k, dict)
     if beam_size > 1:
-        Bn, H, L, Dh = q.shape
-        B = Bn // beam_size
-        q5 = q.reshape(B, beam_size, H, L, Dh)
-        scale = 1.0 / math.sqrt(Dh)
-        if k_quant and int8_dot:
-            ctx = _int8_dot_attention(q5, k, v, bias, scale).to(q.dtype)
-        else:
-            k_mat = k["q8"].to(q.dtype) if k_quant else k
-            logits = _grouped_scores(q5, k_mat) * scale
-            if k_quant:
-                logits = logits * _kv_scale(k)
-            if bias is not None:
-                logits = logits + bias[:, None].float()
-            probs = torch.softmax(logits, dim=-1)
-            if k_quant:
-                v_mat = v["q8"].to(q.dtype)
-                ctx = _grouped_context((probs * _kv_scale(v)).to(v_mat.dtype), v_mat)
-            else:
-                ctx = _grouped_context(probs.to(v.dtype), v)
-        ctx = merge_heads(ctx.reshape(Bn, H, L, Dh))
+        ctx = merge_heads(_grouped_softmax_attention(q, k, v, bias, beam_size))
     else:
-        if k_quant:
-            k = (k["q8"].float() * k["scale"]).to(q.dtype)
-            v = (v["q8"].float() * v["scale"]).to(q.dtype)
         ctx = merge_heads(dot_product_attention(q, k, v, bias=bias))
     out = linear(p["out"], ctx, dtype=dtype)
     return layer_norm(p["norm"], out + x, eps)
@@ -493,29 +410,6 @@ def precompute_cross_kv(params, encoder_hidden_states, cfg: MedConfig, dtype=Non
             split_heads(torch.stack(vs), cfg.num_heads))
 
 
-def quantize_cross_kv(k, v):
-    """Per-row symmetric int8 quantization of precomputed cross-K/V: each
-    (..., Dh) row gets one absmax/127 fp32 scale. Returns ({q8, scale},
-    {q8, scale}); the pair drops into `_attn_block_precomputed_kv` in place
-    of the tensors (the scales factor out of both attention products)."""
-
-    def q(x):
-        s = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True).float() / 127.0, 1e-12)
-        q8 = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
-        return {"q8": q8, "scale": s}
-
-    return q(k), q(v)
-
-
-def _layer_kv(kv, i):
-    """Layer i of precomputed cross K or V: a tensor, or a quantized dict."""
-    if kv is None:
-        return None
-    if isinstance(kv, dict):
-        return {name: t[i] for name, t in kv.items()}
-    return kv[i]
-
-
 def init_self_cache(cfg: MedConfig, batch: int, max_len: int, dtype=torch.float32,
                     *, device=None, unrolled: bool = False, lazy_reorder: bool = False):
     """Fixed-shape self-attention KV cache, heads folded into the feature
@@ -557,7 +451,7 @@ def _fold_heads(x):
 
 
 def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
-                       cfg: MedConfig, dtype=None, beam_size: int = 1, int8_dot: bool = False):
+                       cfg: MedConfig, dtype=None, beam_size: int = 1):
     """Run the prompt through the decoder, writing cache slots [0, Lp) of
     every layer in place. Returns (hidden (B, Lp, D), cache). The prompt is
     unpadded and of one length across the batch."""
@@ -574,10 +468,9 @@ def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
         h = linear(sa["out"], ctx, dtype=dtype)
         x = layer_norm(sa["norm"], h + x, cfg.layer_norm_eps)
         if cross_k is not None:
-            x = _attn_block_precomputed_kv(layer["cross_attn"], x, _layer_kv(cross_k, i),
-                                           _layer_kv(cross_v, i), cross_bias, cfg.num_heads,
-                                           cfg.layer_norm_eps, dtype, beam_size=beam_size,
-                                           int8_dot=int8_dot)
+            x = _attn_block_precomputed_kv(layer["cross_attn"], x, cross_k[i], cross_v[i],
+                                           cross_bias, cfg.num_heads, cfg.layer_norm_eps, dtype,
+                                           beam_size=beam_size)
         x = _ffn_block(layer, x, cfg, dtype=dtype)
         # cache["k"][i] is layer i's (B, max_len, D) tensor in both layouts
         # (a view of the stacked one), so the writes land in the cache
@@ -588,8 +481,7 @@ def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
 
 
 def med_decode_step(params, token_ids, step_index: int, cache, cross_k, cross_v,
-                    cross_bias, cfg: MedConfig, dtype=None, beam_size: int = 1,
-                    int8_dot: bool = False):
+                    cross_bias, cfg: MedConfig, dtype=None, beam_size: int = 1):
     """Decode one token for the whole batch, writing this step's K/V into
     the cache in place.
 
@@ -627,10 +519,9 @@ def med_decode_step(params, token_ids, step_index: int, cache, cross_k, cross_v,
         h = linear(sa["out"], ctx, dtype=dtype)
         x = layer_norm(sa["norm"], h + x, cfg.layer_norm_eps)
         if cross_k is not None:
-            x = _attn_block_precomputed_kv(layer["cross_attn"], x, _layer_kv(cross_k, i),
-                                           _layer_kv(cross_v, i), cross_bias, cfg.num_heads,
-                                           cfg.layer_norm_eps, dtype, beam_size=beam_size,
-                                           int8_dot=int8_dot)
+            x = _attn_block_precomputed_kv(layer["cross_attn"], x, cross_k[i], cross_v[i],
+                                           cross_bias, cfg.num_heads, cfg.layer_norm_eps, dtype,
+                                           beam_size=beam_size)
         x = _ffn_block(layer, x, cfg, dtype=dtype)
     logits = med_lm_logits(params, x[:, 0, :], cfg, dtype=dtype)
     return logits.float(), cache

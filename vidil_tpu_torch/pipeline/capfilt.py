@@ -181,37 +181,30 @@ class CapFiltEngine:
         dtype=torch.bfloat16,
         length_norm: str = "legacy",
         beam_group_kv: bool = False,
-        cross_kv_int8: bool | str = False,
         decode_layer_unroll: bool = False,
         decode_lazy_reorder: bool = False,
-        early_exit: bool = True,
-        early_readback: bool = True,
         fused_filter: bool = True,
         device="cuda",
     ):
-        """cross_kv_int8 (False | True | "dot"), decode_layer_unroll and
-        decode_lazy_reorder select the decode's variants
-        (`blip_generate_ids`); top_p is the sampling mode's nucleus;
-        length_norm the beam search's dialect ("legacy" | "modern",
-        `ops/generation.py`).
+        """decode_layer_unroll and decode_lazy_reorder select the decode's
+        cache layout and beam reorder (`blip_generate_ids`); top_p is the
+        sampling mode's nucleus; length_norm the beam search's dialect
+        ("legacy" | "modern", `ops/generation.py`).
 
-        early_exit is accepted for the reference's signature and changes no
-        token: the decode runs all its steps (no host sync inside it), so on
-        the card a beam decode of a shape seen before replays CUDA graphs
-        (`ops/decode_graph.py`). early_readback starts
-        the chunk's small device->host copies right after its dispatch, on
-        the card (False: `complete_chunk` reads them)."""
+        The decode runs all its steps (no host sync inside it), so on the
+        card a beam decode of a shape seen before replays CUDA graphs
+        (`ops/decode_graph.py`); the same tokens as the reference's early
+        exit. On the card the chunk's small device->host copies start right
+        after its dispatch (`dispatch_chunk`)."""
         self.device = resolve_device(device)
         if length_norm not in ("legacy", "modern"):
             raise ValueError(f"unknown length_norm: {length_norm!r}")
-        self.early_readback = early_readback
         self._readback = PinnedArena()
         if dtype == torch.float32:
             dtype = None  # fp32 params: no casts
         self.dtype = dtype
         self.beam_group_kv = beam_group_kv
-        self.decode_kw = dict(cross_kv_int8=cross_kv_int8,
-                              decode_layer_unroll=decode_layer_unroll,
+        self.decode_kw = dict(decode_layer_unroll=decode_layer_unroll,
                               decode_lazy_reorder=decode_lazy_reorder)
         self.fused_filter = fused_filter
         # the beam decode's CUDA graphs, by shape (`blip_beam_search`)
@@ -425,7 +418,7 @@ class CapFiltEngine:
                 with annotate("capfilt.itm"):
                     itm_probs = self._itm_fused(frame_embeds, seqs)
             d = ChunkDispatch(chunk, config, F, seqs, frame_embeds, itm_probs, n_real=n_real)
-            if self.device.type == "cuda" and self.early_readback:
+            if self.device.type == "cuda":
                 # start the small device->host copies now, into pinned memory
                 with annotate("capfilt.readback"):
                     if seqs is not None:
@@ -456,8 +449,8 @@ class CapFiltEngine:
                             else B.decode_captions(self.tok, seqs_np, self.prompt))
 
             generated_per_video: list[list[str]] = []
+            # every video's candidates, which are also its unfiltered text
             candidates_per_video: list[list[str]] = []
-            unfiltered: list[list[str]] = []
             keep_original = config.get("keep_original_caption", False)
             with annotate("capfilt.sentences"):
                 for v, item in enumerate(chunk):
@@ -471,21 +464,18 @@ class CapFiltEngine:
                     if captions is None:
                         generated_per_video.append([])
                         candidates_per_video.append(orig)
-                        unfiltered.append(orig)
                     else:
                         dedup: list[str] = []
                         for cap in captions[v * F:(v + 1) * F]:
                             if cap not in dedup:
                                 dedup.append(cap)
                         generated_per_video.append(dedup)
-                        cands = orig + dedup if keep_original else dedup
-                        candidates_per_video.append(cands)
-                        unfiltered.append(cands)
+                        candidates_per_video.append(orig + dedup if keep_original else dedup)
 
             results = []
             if not config.get("filter", True):
                 for v, item in enumerate(chunk):
-                    results.append(CapFiltResult(item["video_id"], unfiltered[v],
+                    results.append(CapFiltResult(item["video_id"], candidates_per_video[v],
                                                  candidates_per_video[v]))
                 return results
             generated_only = config.get("filter_generated_only", False)
@@ -508,7 +498,7 @@ class CapFiltEngine:
                     text = base + filtered[v]
                 else:
                     text = filtered[v]
-                results.append(CapFiltResult(item["video_id"], unfiltered[v], text))
+                results.append(CapFiltResult(item["video_id"], candidates_per_video[v], text))
             return results
 
     def _fused_filter_results(self, d: ChunkDispatch, to_filter: list[list[str]],
