@@ -39,11 +39,21 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      kernel's TFLOP/s, share of its bound and share of real work in its
      padded tiles, and its wrapper's host us per call (and, at the ViT
      views, its C entry's alone);
+  3b. the decode's cross-attention kernel (K6) against its plain version at
+     CapFilt's beam step (q (96, 1, 768) over k/v (32, 12, 577, 64) views),
+     prefill (4 prompt tokens) and one-row shape, bf16 and fp32, each call
+     on the next of 12 layers' memory, bitwise run to run, with the times of
+     the kernel, the plain version and F.scaled_dot_product_attention on
+     the beam-replicated K/V (a yardstick only), its device ms and bound;
   4. main path: CapFiltEngine.dispatch_chunk / complete_chunk over chunks of
      8 videos x 4 frames (RGB and YUV420), synthetic full-width weights,
      bf16, beam_group_kv and the fused filter; the kernel's launch count
      must show it ran in both encodes (the reference's gate keeps the ITM's
-     attention on the plain path);
+     attention on the plain path), and K6's that it ran in every layer of
+     the decode's prefill and steps: 12 x 16 launches in the first chunk
+     (eager), twice that in the second (its capture), none in the replayed
+     ones, where one more chunk under torch.profiler must show the kernel
+     12 x 16 times (less the records the profiler loses in a replay);
   5. stage breakdown of one RGB and one YUV420 chunk (host clock, synced);
   6. in-situ checks (reported, not pass bars): the captioner encode through
      K1 and through its twin (one block and twelve, bf16 and fp32, and the
@@ -602,22 +612,27 @@ CONFIG = dict(caption=True, filter=True, filter_generated_only=True,
               generation_mode="beam", threshold=0.4, do_sentence_tokenization=True)
 
 
-def run_main_path(engine, fa, chunks, per_chunk):
+def run_main_path(engine, fa, da, chunks, per_chunk):
     """Phase 4: dispatch/complete with one chunk in flight, as the CLI does.
-    Returns (results, launches, steady frames/s, peak bytes)."""
+    Returns (results, launches, K6's launches by chunk, classic filter
+    calls, steady frames/s, peak bytes)."""
     from vidil_tpu_torch.ops.image import YUV420Frames
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    da.reset_launch_counts()
     results, t_steady, frames_steady = [], None, 0
     in_flight = None
     classic_calls = 0
+    k6_launches = []
     for chunk in chunks + [None]:
         if chunk is not None:
             before = fa.launch_counts["flash_attention_fwd"]
+            k6_before = da.launch_counts["decode_cross_attention"]
             d = engine.dispatch_chunk(chunk, CONFIG)
             got = fa.launch_counts["flash_attention_fwd"] - before
+            k6_launches.append(da.launch_counts["decode_cross_attention"] - k6_before)
             if got != per_chunk:
                 raise SystemExit(f"dispatch launched the kernel {got} times, want {per_chunk}")
         if in_flight is not None:
@@ -633,8 +648,28 @@ def run_main_path(engine, fa, chunks, per_chunk):
     launches = fa.launch_counts["flash_attention_fwd"]
     yuv = sum(isinstance(c[0]["frames"], YUV420Frames) for c in chunks)
     log(f"main path: {len(chunks)} chunks ({yuv} YUV420), {classic_calls} with a classic "
-        f"filter fallback call, {launches} kernel launches")
-    return results, launches, classic_calls, fps, torch.cuda.max_memory_allocated()
+        f"filter fallback call, {launches} kernel launches, K6 launches by chunk "
+        f"{k6_launches}")
+    return (results, launches, k6_launches, classic_calls, fps,
+            torch.cuda.max_memory_allocated())
+
+
+def profile_k6_chunk(engine, da, chunk):
+    """One more main-path chunk (its decode replayed from the engine's CUDA
+    graphs) under torch.profiler: K6's kernel records in the trace, and the
+    launches its wrapper counted (none: the graphs hold them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    da.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.complete_chunk(engine.dispatch_chunk(chunk, CONFIG))
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "decode_cross_attention" in e.key)
+    return {"profiled_kernels": kernels,
+            "wrapper_launches": da.launch_counts["decode_cross_attention"]}
 
 
 def stage_breakdown(engine, chunk):
@@ -1677,6 +1712,103 @@ def check_fused_mlp(fm, device):
             rows.append(row)
             if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit):
                 raise SystemExit(f"fused_mlp_fwd disagrees with its plain version: {row}")
+    return rows
+
+
+# K6 (csrc/decode_cross_attention.cu) at CapFilt's beam decode: 32 memory
+# rows (8 videos x 4 frames) of 577 keys, 12 heads of 64, 3 beams a memory
+# row; a step's one token, the prefill's four ([DEC] "a picture of"), and one
+# row a memory row (sampling, non-grouped beams)
+K6_SHAPES = {"beam_step": (3, 1), "beam_prefill": (3, 4), "sample_step": (1, 1)}
+K6_B, K6_H, K6_LK, K6_DH, K6_LAYERS = N_VIDEOS * N_FRAMES, 12, 577, 64, 12
+# the decode's cross-attentions a beam decode: every layer of the prefill and
+# of each of the 15 steps (20 tokens, a 4-token prompt)
+K6_PER_DECODE = K6_LAYERS * 16
+# the share of a replayed decode's kernel records torch.profiler may lose
+# (1.3-1.7 % seen on the card)
+PROFILE_LOSS = 0.05
+
+
+def k6_limit(want):
+    """Kernel vs plain version: the fp32 sums run in another order, which
+    can flip a bf16 rounding of a probability or of the output by an ulp or
+    two: 4 bf16 ulps of max|want| (a dropped key moves it by 10 or more,
+    tests/test_torch_decode_attention.py); fp32 only moves the last bits."""
+    if want.dtype == torch.float32:
+        return 2e-5
+    m = max(want.float().abs().max().item(), torch.finfo(torch.bfloat16).tiny)
+    return 4 * 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def decode_attention_bound_ms(B, H, rows, Lk, Dh, dtype):
+    """Least time for one K6 call: q and out (rows a memory row) and k and v
+    once over HBM, or its 4*B*H*rows*Lk*Dh operations at the dtype's peak."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * H * rows * Dh + 2 * B * H * Lk * Dh) * itemsize
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 4 * B * H * rows * Lk * Dh / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_decode_attention(da, device):
+    """Phase 3b: K6 against decode_cross_attention_ref at CapFilt's step,
+    prefill and one-row shapes, bf16 and fp32, on the decode's head-split
+    views of 12 layers' memory (each call reads the next layer's, as the
+    decode does, so K and V come from HBM and not from L2), run to run
+    bitwise; the CUDA-event ms of the kernel, the plain version and one
+    F.scaled_dot_product_attention call on the beam-replicated K/V (a
+    yardstick only), the kernel's device ms by torch.profiler, its bound."""
+    from vidil_tpu_torch.models.layers import merge_heads, split_heads
+
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(9)
+    B, H, Lk, Dh = K6_B, K6_H, K6_LK, K6_DH
+    for dtype in (torch.bfloat16, torch.float32):
+        bufs = torch.randn(2, K6_LAYERS, B, Lk, H * Dh, generator=gen, device=device).to(dtype)
+        ks, vs = (split_heads(b, H) for b in bufs)  # (layers, B, H, Lk, Dh) views
+        for label, (G, L) in K6_SHAPES.items():
+            q = torch.randn(B * G, L, H * Dh, generator=gen, device=device).to(dtype)
+            got = da.decode_cross_attention(q, ks[0], vs[0], G)
+            again = da.decode_cross_attention(q, ks[0], vs[0], G)
+            torch.cuda.synchronize()
+            want = da.decode_cross_attention_ref(q, ks[0], vs[0], G)
+            err = (got.float() - want.float()).abs().max().item()
+            limit = k6_limit(want)
+            bitwise = torch.equal(got, again)
+            layer = [0]
+
+            def rotating(fn):
+                def call():
+                    i = layer[0] = (layer[0] + 1) % K6_LAYERS
+                    return fn(q, ks[i], vs[i], G)
+                return call
+
+            qh = split_heads(q, H)
+            reps = [(k.repeat_interleave(G, 0).contiguous(), v.repeat_interleave(G, 0)
+                     .contiguous()) for k, v in zip(ks, vs)]
+
+            def library():
+                i = layer[0] = (layer[0] + 1) % K6_LAYERS
+                return merge_heads(F.scaled_dot_product_attention(qh, *reps[i]))
+
+            bound, bound_by = decode_attention_bound_ms(B, H, G * L, Lk, Dh, dtype)
+            dev_ms, kernels = device_profile(rotating(da.decode_cross_attention),
+                                             reps=K6_LAYERS)
+            row = dict(shape=label, dtype=str(dtype).replace("torch.", ""),
+                       q=[B * G, L, H * Dh], kv=[B, H, Lk, Dh], group=G, max_abs_err=err,
+                       limit=limit, run_to_run_bitwise=bitwise,
+                       ms=time_ms(rotating(da.decode_cross_attention)),
+                       plain_ms=time_ms(rotating(da.decode_cross_attention_ref)),
+                       library_ms=time_ms(library), device_ms=dev_ms,
+                       library_device_ms=device_profile(library, reps=K6_LAYERS)[0],
+                       bound_ms=bound, bound_by=bound_by, bound_share=bound / dev_ms,
+                       kernels={k.split("(")[0]: v for k, v in kernels.items()})
+            del reps
+            log("kernel check (decode cross-attention K6):", json.dumps(row))
+            rows.append(row)
+            if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit):
+                raise SystemExit(f"decode_cross_attention disagrees with its plain version: {row}")
+        del bufs, ks, vs
     return rows
 
 
@@ -4351,6 +4483,7 @@ def main():
         torch.cuda.get_device_name(0))
 
     from vidil_tpu_torch.ops import _build
+    from vidil_tpu_torch.ops import decode_attention as da
     from vidil_tpu_torch.ops import flash_attention as fa
     from vidil_tpu_torch.ops import fused_mlp as fm
     from vidil_tpu_torch.ops import fused_vit_block as fvb
@@ -4366,6 +4499,7 @@ def main():
     tok = bench_tokenizer()
     texts, rerank_len = retrieval_corpus(tok)  # phase 15's corpus, for phase 3's shape
     rows = check_flash_kernel(fa, device, rerank_len)
+    k6_rows = check_decode_attention(da, device)
 
     t0 = time.time()
     engine, vit_cfg, med_cfg = make_engine(device)
@@ -4377,10 +4511,21 @@ def main():
     # filter's 96-row fold (Lq < 128) and a classic filter call's (at most 32
     # frames x 140 rows over 577 keys: 124 MB of logits, under 128 MiB)
     per_chunk = 2 * vit_cfg.num_layers
-    results, launches, classic_calls, fps, peak = run_main_path(engine, fa, chunks, per_chunk)
+    results, launches, k6_launches, classic_calls, fps, peak = run_main_path(
+        engine, fa, da, chunks, per_chunk)
     want = per_chunk * len(chunks)
     if launches != want:
         raise SystemExit(f"kernel launches {launches}, want {want}")
+    # chunk 0 eager, chunk 1 its capture (an eager pass, then the captured
+    # one), then replays
+    k6_want = [K6_PER_DECODE, 2 * K6_PER_DECODE] + [0] * (len(chunks) - 2)
+    if k6_launches != k6_want:
+        raise SystemExit(f"K6 launches by chunk {k6_launches}, want {k6_want}")
+    k6_replay = profile_k6_chunk(engine, da, chunks[1])
+    log("main path: one replayed chunk under torch.profiler:", json.dumps(k6_replay))
+    if not (k6_replay["wrapper_launches"] == 0 and (1 - PROFILE_LOSS) * K6_PER_DECODE
+            <= k6_replay["profiled_kernels"] <= K6_PER_DECODE):
+        raise SystemExit(f"K6 in a replayed chunk: {k6_replay}, want {K6_PER_DECODE} kernels")
     if len(results) != N_VIDEOS * len(chunks):
         raise SystemExit(f"{len(results)} results for {N_VIDEOS * len(chunks)} videos")
     for r in results:
@@ -4639,6 +4784,19 @@ def main():
               "frames); visual tokenization path (BLIP engine, use_fused_mlp)",
               launches_ontology=vt["blip"]["ontology_launches"]["fused_mlp_fwd"],
               **device(mlp_rows, "vit_encode"), sass_gemm=gemm_sass("fused_mlp_fwd")),
+        entry("decode_cross_attention", "vidil_tpu_torch/csrc/decode_cross_attention.cu",
+              "none: the decode's cross-attention at 2 FLOP/byte",
+              k6_launches[0], k6_rows, "beam_step",
+              "q (96, 1, 768) over k, v (32, 12, 577, 64) bf16 views of the precomputed memory; "
+              "the CapFilt beam decode's step (prefill: q (96, 4, 768)); launches: the main "
+              "path's eager first chunk",
+              launches_main_path_by_chunk=k6_launches,
+              profiled_kernels_replayed_chunk=k6_replay["profiled_kernels"],
+              device_ms=next(r["device_ms"] for r in k6_rows if r["dtype"] == "bfloat16"
+                             and r["shape"] == "beam_step"),
+              prefill={k: next(r for r in k6_rows if r["dtype"] == "bfloat16"
+                               and r["shape"] == "beam_prefill")[k]
+                       for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

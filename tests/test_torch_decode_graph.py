@@ -25,6 +25,7 @@ from vidil_tpu_torch.config import MedConfig
 from vidil_tpu_torch.models import blip as B
 from vidil_tpu_torch.models import med as M
 from vidil_tpu_torch.models.layers import cast_linears
+from vidil_tpu_torch.ops import decode_attention as DA
 from vidil_tpu_torch.ops import decode_graph as DG
 from vidil_tpu_torch.ops.generation import GenerationConfig
 from vidil_tpu_torch.pipeline.capfilt import PinnedArena
@@ -379,6 +380,25 @@ def test_replays_are_bitwise_the_eager_decode(card, kw):
         assert torch.equal(s.cpu(), ks) and torch.equal(c.cpu(), kc)
     # the draws give other captions, so the inputs did reach the replays
     assert not torch.equal(want[0][0], want[1][0])
+
+
+@pytest.mark.cuda
+def test_every_cross_attention_of_the_decode_runs_k6(card):
+    """The decode's cross-attention is kernel K6 (`ops/decode_attention.py`)
+    in every layer of the prefill and of each step: 12 x 16 launches an
+    eager decode, twice that at its capture (an eager pass on the side
+    stream, then the captured one), none at a replay (the graphs hold
+    them)."""
+    params, med, gen, embeds, prompt = card
+    passes = gen.max_length - prompt.shape[1]
+    graphs = DG.DecodeGraphs()
+    counts = []
+    for _ in range(3):  # eager, capture, replay
+        DA.reset_launch_counts()
+        _decode(card, embeds[0], graphs)
+        counts.append(DA.launch_counts["decode_cross_attention"])
+    per_decode = med.num_layers * passes
+    assert counts == [per_decode, 2 * per_decode, 0] and per_decode == 192
 
 
 GRAPH_NAMES = {"memset32": "Memset (Device)", "memcpy32_post": "Memcpy DtoD (Device -> Device)"}

@@ -77,15 +77,14 @@ def test_grouped_cross_attention_matches_jax(beam_size):
     x = _kv(2, (B * beam_size, 3, CFG_KW["hidden_size"]))
     k, v = _kv(3, (B, H, Lk, Dh)), _kv(4, (B, H, Lk, Dh))
     eps = PM.layer_norm_eps
-    out = med._attn_block_precomputed_kv(tl, _t(x), _t(k), _t(v), None, H, eps,
-                                         beam_size=beam_size)
+    out = med._attn_block_precomputed_kv(tl, _t(x), _t(k), _t(v), eps, beam_size=beam_size)
     want = np.asarray(jmed._attn_block_precomputed_kv(jl, jnp.asarray(x), jnp.asarray(k),
                                                       jnp.asarray(v), None, H, eps,
                                                       beam_size=beam_size))
     np.testing.assert_allclose(out.numpy(), want, atol=5e-6, rtol=0)
     if beam_size > 1:
         k_rep, v_rep = (_t(a).repeat_interleave(beam_size, 0) for a in (k, v))
-        flat = med._attn_block_precomputed_kv(tl, _t(x), k_rep, v_rep, None, H, eps)
+        flat = med._attn_block_precomputed_kv(tl, _t(x), k_rep, v_rep, eps)
         torch.testing.assert_close(out, flat, rtol=0, atol=2e-6)
 
 
@@ -148,13 +147,13 @@ def test_lazy_reorder_reads_the_physically_reordered_cache():
     outs = []
     for lazy in (False, True):
         cache = med.init_self_cache(PM, B, T, unrolled=lazy, lazy_reorder=lazy)
-        _, cache = med.med_decode_prefill(dec, ids, cache, None, None, None, PM)
+        _, cache = med.med_decode_prefill(dec, ids, cache, None, None, PM)
         cache = med.reorder_cache(cache, torch.tensor([2, 0, 0]))
         logits, cache = med.med_decode_step(dec, torch.tensor([7, 8, 9]), Lp, cache, None, None,
-                                            None, PM)
+                                            PM)
         cache = med.reorder_cache(cache, torch.tensor([1, 1, 2]))
         logits2, cache = med.med_decode_step(dec, torch.tensor([10, 11, 12]), Lp + 1, cache,
-                                             None, None, None, PM)
+                                             None, None, PM)
         outs.append((logits, logits2, cache))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
     torch.testing.assert_close(outs[1][1], outs[0][1], atol=0, rtol=0)

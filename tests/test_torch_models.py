@@ -194,15 +194,14 @@ def test_decode_prefill_and_step_logits(decoder, beam_size):
     tc = med.init_self_cache(PM, B * nb, max_len)
     jh, jc = jmed.med_decode_prefill(jd, jnp.asarray(prompt), jc, jk, jv, None, JM,
                                      beam_size=beam_size)
-    th, tc = med.med_decode_prefill(td, _t(prompt), tc, tk, tv, None, PM, beam_size=beam_size)
+    th, tc = med.med_decode_prefill(td, _t(prompt), tc, tk, tv, PM, beam_size=beam_size)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=MED_ATOL)
     np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), atol=MED_ATOL)
     tokens = np.array([9, 13, 40, 2, 77, 5], np.int32)
     for step in (Lp, Lp + 1):
         jl, jc = jmed.med_decode_step(jd, jnp.asarray(tokens), step, jc, jk, jv, None, JM,
                                       beam_size=beam_size)
-        tl, tc = med.med_decode_step(td, _t(tokens), step, tc, tk, tv, None, PM,
-                                     beam_size=beam_size)
+        tl, tc = med.med_decode_step(td, _t(tokens), step, tc, tk, tv, PM, beam_size=beam_size)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=MED_ATOL)
         tokens = (tokens + 3) % MED_KW["vocab_size"]
     np.testing.assert_allclose(tc["v"].numpy(), np.asarray(jc["v"]), atol=MED_ATOL)

@@ -95,7 +95,7 @@ def _decoder_closures(tp, jp, embeds):
     cb = jmed.invert_attention_mask(jnp.ones(embeds.shape[:2], jnp.int32))
     jc = jblip.make_decoder_closures(jp, ck, cv, cb, JM)
     tck, tcv = med.precompute_cross_kv(dec_t, torch.from_numpy(embeds), PM)
-    tc = blip.make_decoder_closures(tp, tck, tcv, None, PM)
+    tc = blip.make_decoder_closures(tp, tck, tcv, PM)
     return jc, tc
 
 

@@ -76,18 +76,18 @@ def blip_caption_loss(params, image_embeds, input_ids, attention_mask, med_cfg: 
     return M.med_lm_loss(logits, labels, label_smoothing=med_cfg.label_smoothing, grid=grid)
 
 
-def make_decoder_closures(params, cross_k, cross_v, cross_bias, med_cfg: MedConfig,
-                          dtype=None, beam_size: int = 1):
+def make_decoder_closures(params, cross_k, cross_v, med_cfg: MedConfig, dtype=None,
+                          beam_size: int = 1):
     dec = params["text_decoder"]
 
     def prefill_fn(ids, cache):
-        h, cache = M.med_decode_prefill(dec, ids, cache, cross_k, cross_v, cross_bias,
-                                        med_cfg, dtype=dtype, beam_size=beam_size)
+        h, cache = M.med_decode_prefill(dec, ids, cache, cross_k, cross_v, med_cfg,
+                                        dtype=dtype, beam_size=beam_size)
         return M.med_lm_logits(dec, h[:, -1], med_cfg, dtype=dtype).float(), cache
 
     def step_fn(tokens, idx, cache):
-        return M.med_decode_step(dec, tokens, idx, cache, cross_k, cross_v, cross_bias,
-                                 med_cfg, dtype=dtype, beam_size=beam_size)
+        return M.med_decode_step(dec, tokens, idx, cache, cross_k, cross_v, med_cfg,
+                                 dtype=dtype, beam_size=beam_size)
 
     return prefill_fn, step_fn, M.reorder_cache
 
@@ -140,7 +140,7 @@ def blip_generate_ids(params, image_embeds, prompt_ids, med_cfg: MedConfig,
             params, image_embeds, med_cfg, image_embeds.shape[0], gen.max_length, 1, dtype,
             cache_dtype, decode_layer_unroll, False)
     prefill_fn, step_fn, _ = make_decoder_closures(
-        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=1)
+        params, cross_k, cross_v, med_cfg, dtype=dtype, beam_size=1)
     return nucleus_sample(prompt_ids, cache, prefill_fn, step_fn, gen,
                           generator=generator, noise=noise)
 
@@ -167,7 +167,7 @@ def blip_beam_search(params, image_embeds, prompt_ids, med_cfg: MedConfig,
                 params, image_embeds, med_cfg, image_embeds.shape[0] * nb, gen.max_length,
                 nb // beam_size, dtype, cache_dtype, decode_layer_unroll, decode_lazy_reorder)
         prefill_fn, step_fn, reorder_fn = make_decoder_closures(
-            params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size)
+            params, cross_k, cross_v, med_cfg, dtype=dtype, beam_size=beam_size)
         return beam_search(prompt_ids, cache, prefill_fn, step_fn, reorder_fn, gen, piece=piece)
 
     if graphs is None or gen.early_exit:

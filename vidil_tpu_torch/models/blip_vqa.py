@@ -87,7 +87,7 @@ def vqa_generate_ids(params, video_embeds, question_ids, question_mask,
                            eos_token_id=tokenizer.sep_token_id,
                            pad_token_id=tokenizer.pad_token_id, length_norm=length_norm)
     prefill_fn, step_fn, reorder_fn = make_decoder_closures(
-        params, cross_k, cross_v, None, med_cfg, dtype=dtype, beam_size=beam_size)
+        params, cross_k, cross_v, med_cfg, dtype=dtype, beam_size=beam_size)
     bos = torch.full((B, 1), tokenizer.bos_token_id, dtype=torch.int32,
                      device=video_embeds.device)
     seqs, _ = beam_search(bos, cache, prefill_fn, step_fn, reorder_fn, gen)

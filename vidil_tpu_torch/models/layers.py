@@ -210,6 +210,37 @@ def dot_product_attention(q, k, v, bias=None, scale=None):
     return torch.matmul(probs.to(v.dtype), v)
 
 
+def grouped_softmax_attention(q, k, v, bias, group_size: int):
+    """`dot_product_attention` where ``group_size`` query rows share one K/V
+    batch row: the groups become a broadcast dim of the two products (no
+    K/V replication); fp32 logits, the context in v's dtype. q: (B*G, H, L,
+    Dh), k/v: (B, H, Lk, Dh), bias None or broadcastable to (B, H, L, Lk)."""
+    Bn, H, L, Dh = q.shape
+    q5 = q.reshape(Bn // group_size, group_size, H, L, Dh)
+    logits = _grouped_scores(q5, k) * (1.0 / math.sqrt(Dh))
+    if bias is not None:
+        logits = logits + bias[:, None].float()
+    probs = torch.softmax(logits, dim=-1)
+    return _grouped_context(probs.to(v.dtype), v).reshape(Bn, H, L, Dh)
+
+
+def _grouped_scores(q5, k):
+    """einsum('bnhqd,bhkd->bnhqk') with fp32 accumulation; the group axis
+    folds into the query rows of one batched product."""
+    B, G, H, L, Dh = q5.shape
+    qf = q5.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, Dh)
+    s = matmul_f32(qf, k.transpose(-1, -2))  # (B, H, G*L, Lk)
+    return s.reshape(B, H, G, L, -1).permute(0, 2, 1, 3, 4)
+
+
+def _grouped_context(p5, v):
+    """einsum('bnhqk,bhkd->bnhqd') in v's dtype."""
+    B, G, H, L, Lk = p5.shape
+    pf = p5.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, Lk)
+    ctx = torch.matmul(pf, v)  # (B, H, G*L, Dh)
+    return ctx.reshape(B, H, G, L, -1).permute(0, 2, 1, 3, 4)
+
+
 def mask_to_bias(mask, dtype=torch.float32, neg: float = -10000.0):
     """{0,1} attention mask -> additive bias, the reference's
     ``(1 - mask) * -10000``."""

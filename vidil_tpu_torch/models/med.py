@@ -36,6 +36,7 @@ from vidil_tpu_torch.models.layers import (
     ACT2FN,
     dot_product_attention,
     embedding_lookup,
+    grouped_softmax_attention,
     init_embedding,
     init_layer_norm,
     init_linear,
@@ -50,6 +51,7 @@ from vidil_tpu_torch.models.layers import (
     split_heads,
     tp_mlp,
 )
+from vidil_tpu_torch.ops import decode_attention
 from vidil_tpu_torch.ops.flash_attention import attention_auto
 
 NEG_INF = -10000.0  # additive-mask value of the reference MED
@@ -193,38 +195,7 @@ def _grouped_attention(q, k, v, bias, group_size: int, grid=None):
         ctx = attention_auto(qf, k, v, grid=grid.gate if grid is not None else (1, 1))
         return (ctx.reshape(B, H, group_size, L, Dh)
                 .transpose(1, 2).reshape(Bn, H, L, Dh))
-    return _grouped_softmax_attention(q, k, v, bias, group_size)
-
-
-def _grouped_softmax_attention(q, k, v, bias, group_size: int):
-    """`_grouped_attention` without the flash kernel: the groups become a
-    broadcast dim of the two products (no K/V replication); fp32 logits,
-    the context in v's dtype. q: (B*G, H, L, Dh), k/v: (B, H, Lk, Dh),
-    bias None or broadcastable to (B, H, L, Lk)."""
-    Bn, H, L, Dh = q.shape
-    q5 = q.reshape(Bn // group_size, group_size, H, L, Dh)
-    logits = _grouped_scores(q5, k) * (1.0 / math.sqrt(Dh))
-    if bias is not None:
-        logits = logits + bias[:, None].float()
-    probs = torch.softmax(logits, dim=-1)
-    return _grouped_context(probs.to(v.dtype), v).reshape(Bn, H, L, Dh)
-
-
-def _grouped_scores(q5, k):
-    """einsum('bnhqd,bhkd->bnhqk') with fp32 accumulation; the group axis
-    folds into the query rows of one batched product."""
-    B, G, H, L, Dh = q5.shape
-    qf = q5.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, Dh)
-    s = matmul_f32(qf, k.transpose(-1, -2))  # (B, H, G*L, Lk)
-    return s.reshape(B, H, G, L, -1).permute(0, 2, 1, 3, 4)
-
-
-def _grouped_context(p5, v):
-    """einsum('bnhqk,bhkd->bnhqd') in v's dtype."""
-    B, G, H, L, Lk = p5.shape
-    pf = p5.permute(0, 2, 1, 3, 4).reshape(B, H, G * L, Lk)
-    ctx = torch.matmul(pf, v)  # (B, H, G*L, Dh)
-    return ctx.reshape(B, H, G, L, -1).permute(0, 2, 1, 3, 4)
+    return grouped_softmax_attention(q, k, v, bias, group_size)
 
 
 def _attn_block(p, x, kv_states, bias, num_heads: int, eps: float, dtype=None,
@@ -257,16 +228,15 @@ def _attn_block(p, x, kv_states, bias, num_heads: int, eps: float, dtype=None,
     return layer_norm(p["norm"], out + x, eps)
 
 
-def _attn_block_precomputed_kv(p, x, k, v, bias, num_heads: int, eps: float,
-                               dtype=None, beam_size: int = 1):
-    """Cross-attention with precomputed K/V. beam_size > 1: x has batch
-    B*beam_size but k/v have batch B — the beams of one item attend the
-    same memory (queries fold into the row axis; K/V are not replicated)."""
-    q = split_heads(linear(p["query"], x, dtype=dtype), num_heads)  # (B*nb, H, L, Dh)
-    if beam_size > 1:
-        ctx = merge_heads(_grouped_softmax_attention(q, k, v, bias, beam_size))
-    else:
-        ctx = merge_heads(dot_product_attention(q, k, v, bias=bias))
+def _attn_block_precomputed_kv(p, x, k, v, eps: float, dtype=None, beam_size: int = 1):
+    """Cross-attention with precomputed K/V (B, H, Lk, Dh) over every key
+    (no mask: the decode's callers attend the whole memory). beam_size > 1: x has batch B*beam_size
+    but k/v have batch B — the beams of one item attend the same memory
+    (queries fold into the row axis; K/V are not replicated). The attention
+    is `decode_attention.decode_cross_attention` (kernel K6 on the card,
+    which reads k and v in place)."""
+    q = linear(p["query"], x, dtype=dtype)  # (B*nb, L, D)
+    ctx = decode_attention.decode_cross_attention(q, k, v, beam_size)
     out = linear(p["out"], ctx, dtype=dtype)
     return layer_norm(p["norm"], out + x, eps)
 
@@ -450,8 +420,8 @@ def _fold_heads(x):
     return x.transpose(1, 2).reshape(B, L, H * Dh)
 
 
-def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
-                       cfg: MedConfig, dtype=None, beam_size: int = 1):
+def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cfg: MedConfig,
+                       dtype=None, beam_size: int = 1):
     """Run the prompt through the decoder, writing cache slots [0, Lp) of
     every layer in place. Returns (hidden (B, Lp, D), cache). The prompt is
     unpadded and of one length across the batch."""
@@ -469,8 +439,7 @@ def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
         x = layer_norm(sa["norm"], h + x, cfg.layer_norm_eps)
         if cross_k is not None:
             x = _attn_block_precomputed_kv(layer["cross_attn"], x, cross_k[i], cross_v[i],
-                                           cross_bias, cfg.num_heads, cfg.layer_norm_eps, dtype,
-                                           beam_size=beam_size)
+                                           cfg.layer_norm_eps, dtype, beam_size=beam_size)
         x = _ffn_block(layer, x, cfg, dtype=dtype)
         # cache["k"][i] is layer i's (B, max_len, D) tensor in both layouts
         # (a view of the stacked one), so the writes land in the cache
@@ -481,7 +450,7 @@ def med_decode_prefill(params, input_ids, cache, cross_k, cross_v, cross_bias,
 
 
 def med_decode_step(params, token_ids, step_index: int, cache, cross_k, cross_v,
-                    cross_bias, cfg: MedConfig, dtype=None, beam_size: int = 1):
+                    cfg: MedConfig, dtype=None, beam_size: int = 1):
     """Decode one token for the whole batch, writing this step's K/V into
     the cache in place.
 
@@ -520,8 +489,7 @@ def med_decode_step(params, token_ids, step_index: int, cache, cross_k, cross_v,
         x = layer_norm(sa["norm"], h + x, cfg.layer_norm_eps)
         if cross_k is not None:
             x = _attn_block_precomputed_kv(layer["cross_attn"], x, cross_k[i], cross_v[i],
-                                           cross_bias, cfg.num_heads, cfg.layer_norm_eps, dtype,
-                                           beam_size=beam_size)
+                                           cfg.layer_norm_eps, dtype, beam_size=beam_size)
         x = _ffn_block(layer, x, cfg, dtype=dtype)
     logits = med_lm_logits(params, x[:, 0, :], cfg, dtype=dtype)
     return logits.float(), cache

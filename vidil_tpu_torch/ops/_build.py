@@ -37,6 +37,7 @@ SOURCES = {
     "fused_mlp_fwd": "fused_mlp_fwd.cu",
     "fused_vit_block_fwd": "fused_vit_block_fwd.cu",
     "fused_vit_block_bwd": "fused_vit_block_bwd.cu",
+    "decode_cross_attention": "decode_cross_attention.cu",
 }
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
