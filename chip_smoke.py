@@ -16,6 +16,7 @@ package's distributions, and pretraining and captioning from it.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase17-world 4   # phase 17 (b) over 4 NCCL ranks, 4 cards
     python3 chip_smoke.py --phase18-world 4   # phase 18 (a) over a 2 x 2 grid, 4 cards
+    python3 chip_smoke.py --phase20           # phase 20 alone (the LM stage, 63 GB)
 
 Needs a CUDA card and nvcc (CUDA_HOME or /usr/local/cuda); imports only
 vidil_tpu_torch (no JAX). Phases, each of which fails the run:
@@ -236,7 +237,23 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      the median step ms; (d) CapFiltEngine.caption_frames over 32 frames
      at 384 px through the init captioner: 32 strings, 12 K1 launches,
      the same run to run, sample mode fixed by its seed and changed by
-     another.
+     another;
+ 20. the LM stage (NVIDIA-Nemotron-3-Nano-30B-A3B, `pipeline/lm_answer.py`):
+     (a) K7 (`grouped_expert_gemm`) against grouped_expert_gemm_ref at the
+     prefill shape (36,000 tokens top 6 of 128 experts: 216,000 routed rows,
+     ~1.7k an expert) and the decode shape (16 tokens: 96 rows over ~69
+     experts), up (2688 -> 1856, relu^2) and down (1856 -> 2688, plain),
+     within 2 bf16 ulps of max|want|, bitwise run to run, with its time,
+     device time, bound (operations at the bf16 peak or bytes at HBM's,
+     from the rows and the experts hit) and a per-expert F.linear loop's
+     time (library_ms); (b) LMAnswerEngine over four chunks of 16 synthetic
+     prompts of 1500-3000 tokens at full size, seeded weights: K7's
+     launches a chunk, reset to zero first, must be 2 x 23 a pass (a
+     prefill or an eager decode step): 32 passes in the eager first chunk,
+     the prefill and twice the 31 steps in the capture, the prefill alone
+     in each replay; one more replayed chunk under torch.profiler must show
+     the 2 x 23 x 32 grouped_gemm_bf16 kernels (less the records the
+     profiler loses in a replay).
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold) and at the retrieval rerank's fold (its text length from
 phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
@@ -4451,6 +4468,200 @@ def run_phase19(fa, fvb, device, card, tok):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LM stage's grouped expert GEMM (K7)
+# ---------------------------------------------------------------------------
+
+# NVIDIA-Nemotron-3-Nano-30B-A3B's routed experts: 128 a layer, top 6, 2688
+# <-> 1856, in 23 MoE layers; the LM cell's chunk: 16 prompts of 1500-3000
+# tokens (36,000 tokens at their mean), 32 greedy tokens
+K7_EXPERTS, K7_TOPK, K7_HIDDEN, K7_INTER, K7_MOE_LAYERS = 128, 6, 2688, 1856, 23
+K7_TOKENS = {"prefill": 36000, "decode": 16}
+K7_PER_PASS = 2 * K7_MOE_LAYERS
+LM_PROMPTS, LM_NEW_TOKENS, LM_PROMPT_TOKENS = 16, 32, (1500, 3000)
+
+
+def k7_limit(want):
+    """Kernel vs plain version: the same bf16 products summed in float32 in
+    another order, which can flip the one bf16 rounding of an output: 2
+    bf16 ulps of max|want|."""
+    m = max(want.float().abs().max().item(), torch.finfo(torch.bfloat16).tiny)
+    return 2 * 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def k7_bound_ms(rows, experts_hit, N, K):
+    """Least time of one K7 call: its 2 R N K operations at the bf16 peak,
+    or its bytes at HBM's (rows in and out, each expert's weight hit once)."""
+    t_ops = 2.0 * rows * N * K / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = (2.0 * rows * (N + K) + 2.0 * experts_hit * N * K) / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_grouped_expert_gemm(k7, moe, device):
+    """Phase 20 (a): K7 against its plain version at the prefill and decode
+    shapes, up and down (see the module's docstring)."""
+    gen = torch.Generator(device=device).manual_seed(20)
+    E, D, I = K7_EXPERTS, K7_HIDDEN, K7_INTER
+    weights = {"up": torch.empty(E, I, D, device=device).normal_(0.0, 0.02, generator=gen)
+               .to(torch.bfloat16),
+               "down": torch.empty(E, D, I, device=device).normal_(0.0, 0.02, generator=gen)
+               .to(torch.bfloat16)}
+    rows_out = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's float32 sums
+    try:
+        for label, T in K7_TOKENS.items():
+            idx = torch.rand(T, E, generator=gen, device=device).topk(K7_TOPK, dim=-1).indices
+            _, offsets = moe.expert_offsets(idx, E)
+            bounds = offsets.tolist()
+            R = T * K7_TOPK
+            hit = sum(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+            for name, relu2 in (("up", True), ("down", False)):
+                w = weights[name]
+                N, K = w.shape[1], w.shape[2]
+                x = torch.randn(R, K, generator=gen, device=device).to(torch.bfloat16)
+                got = k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
+                again = k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
+                torch.cuda.synchronize()
+                want = k7.grouped_expert_gemm_ref(x, w, offsets, relu2=relu2)
+                err = (got.float() - want.float()).abs().max().item()
+                limit = k7_limit(want)
+                bitwise = torch.equal(got, again)
+                del want, again
+
+                def kernel():
+                    return k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
+
+                def library():
+                    out = torch.empty(R, N, dtype=x.dtype, device=device)
+                    for e in range(E):
+                        lo, hi = bounds[e], bounds[e + 1]
+                        if hi > lo:
+                            h = F.linear(x[lo:hi], w[e])
+                            out[lo:hi] = torch.relu(h).square() if relu2 else h
+                    return out
+
+                bound, bound_by = k7_bound_ms(R, hit, N, K)
+                dev_ms, kernels = device_profile(kernel)
+                row = dict(shape=label, projection=name, dtype="bfloat16", rows=R,
+                           experts_hit=hit, n=N, k=K, max_abs_err=err, limit=limit,
+                           run_to_run_bitwise=bitwise, ms=time_ms(kernel), device_ms=dev_ms,
+                           bound_ms=bound, bound_by=bound_by, bound_share=bound / dev_ms,
+                           tflops=2.0 * R * N * K / dev_ms / 1e9, library_ms=time_ms(library),
+                           kernels={k.split("(")[0]: v for k, v in kernels.items()})
+                log("kernel check (grouped expert GEMM K7):", json.dumps(row))
+                rows_out.append(row)
+                if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit):
+                    raise SystemExit(f"grouped_expert_gemm disagrees with its plain version: "
+                                     f"{row}")
+                del x, got
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del weights
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def lm_prompts(tok_words, n_chunks, seed=20):
+    """n_chunks chunks of LM_PROMPTS prompts of random words, each of a
+    length drawn from LM_PROMPT_TOKENS (its <s> included)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = LM_PROMPT_TOKENS
+    return [[" ".join(rng.choice(tok_words, int(rng.integers(lo, hi + 1)) - 1))
+             for _ in range(LM_PROMPTS)] for _ in range(n_chunks)]
+
+
+def run_lm_engine(k7, device):
+    """Phase 20 (b): K7's launches a chunk from the LM stage's own run
+    (eager, capture, replays), and one replayed chunk under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vidil_tpu_torch.config import NemotronHConfig
+    from vidil_tpu_torch.models import nemotron_h
+    from vidil_tpu_torch.pipeline.lm_answer import SPECIALS, LMAnswerEngine, WordTokenizer
+
+    cfg = NemotronHConfig()
+    if cfg.hybrid_override_pattern.count("E") != K7_MOE_LAYERS:
+        raise SystemExit(f"NemotronHConfig: {cfg.hybrid_override_pattern.count('E')} MoE "
+                         f"layers, want {K7_MOE_LAYERS}")
+    t0 = time.time()
+    params = nemotron_h.init_nemotron_h(cfg, torch.Generator(device=device).manual_seed(20),
+                                        device)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    words = [f"w{i}" for i in range(20000)]
+    tok = WordTokenizer(SPECIALS + words)
+    engine = LMAnswerEngine(params, cfg, tok, max_prompt_tokens=LM_PROMPT_TOKENS[1],
+                            max_new_tokens=LM_NEW_TOKENS, device=device)
+    chunks = lm_prompts(words, 5)
+    steps = LM_NEW_TOKENS - 1
+    want = [K7_PER_PASS * (1 + steps), K7_PER_PASS * (1 + 2 * steps), K7_PER_PASS, K7_PER_PASS]
+    per_chunk, chunk_ms, answers = [], [], []
+    with torch.no_grad():
+        for chunk in chunks[:4]:
+            k7.launch_counts["grouped_expert_gemm"] = 0
+            t0 = time.perf_counter()
+            answers = engine.complete_chunk(engine.dispatch_chunk(chunk))
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            per_chunk.append(k7.launch_counts["grouped_expert_gemm"])
+        k7.launch_counts["grouped_expert_gemm"] = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.complete_chunk(engine.dispatch_chunk(chunks[4]))
+            torch.cuda.synchronize()
+    profiled = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "grouped_gemm_bf16" in e.key)
+    out = {"init_s": init_s, "launches_by_chunk": per_chunk, "want": want,
+           "chunk_ms": chunk_ms, "replayed_chunk_wrapper_launches":
+           k7.launch_counts["grouped_expert_gemm"], "replayed_chunk_profiled_kernels": profiled,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+           "answers": len(answers), "sample_answer": answers[0][:80]}
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phase20(device, card):
+    """Phase 20: K7 alone at the LM cell's shapes, then its launches in the
+    LM stage's own run (see the module's docstring)."""
+    from vidil_tpu_torch.ops import grouped_expert_gemm as k7
+    from vidil_tpu_torch.ops import moe
+
+    t_phase = time.time()
+    out = {"kernel": check_grouped_expert_gemm(k7, moe, device)}
+    out["engine"] = e = run_lm_engine(k7, device)
+    log("phase 20 (b) LMAnswerEngine:", json.dumps(e))
+    full = K7_PER_PASS * LM_NEW_TOKENS
+    if e["launches_by_chunk"] != e["want"]:
+        raise SystemExit(f"K7 launches by chunk {e['launches_by_chunk']}, want {e['want']}")
+    if not (e["replayed_chunk_wrapper_launches"] == K7_PER_PASS
+            and (1 - PROFILE_LOSS) * full <= e["replayed_chunk_profiled_kernels"] <= full):
+        raise SystemExit(f"K7 in a replayed chunk: {e}, want {full} kernels")
+    if e["answers"] != LM_PROMPTS:
+        raise SystemExit(f"{e['answers']} answers for {LM_PROMPTS} prompts")
+    out["phase_s"] = time.time() - t_phase
+    log(f"phase 20: {out['phase_s']:.1f} s; card {card}")
+    return out
+
+
+def main_phase20():
+    """`--phase20`: build K7 and run phase 20 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from vidil_tpu_torch.ops import _build
+
+    card = card_line()
+    log("card:", card)
+    t0 = time.time()
+    _build.build_all(["grouped_expert_gemm"])
+    log(f"build: {time.time() - t0:.1f} s")
+    out = run_phase20(torch.device("cuda"), card)
+    print(json.dumps({"phase20": out}), flush=True)
+    return 0
+
+
 def main_p18_world(world):
     """`--phase18-world N`: phase 18 (a) over N NCCL ranks, one GPU each, a
     (N / 2) x 2 grid (needs N cards)."""
@@ -4628,6 +4839,8 @@ def main():
     p17 = run_phase17(fa, device, card, tok)
     p18 = run_phase18(fa, fvb, device, card)
     p19 = run_phase19(fa, fvb, device, card, tok)
+    torch.cuda.empty_cache()
+    p20 = run_phase20(device, card)
     p18_ranks = p18["tensor_parallel"]["classic"]["ranks"]
     p18_fused_ranks = p18["tensor_parallel"]["fused"]["ranks"]
 
@@ -4798,6 +5011,22 @@ def main():
                                and r["shape"] == "beam_prefill")[k]
                        for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}),
     ]}
+    k7_prefill = next(r for r in p20["kernel"]
+                      if r["shape"] == "prefill" and r["projection"] == "up")
+    record["kernels"].append(dict(
+        name="grouped_expert_gemm", route="cuda",
+        source="vidil_tpu_torch/csrc/grouped_expert_gemm.cu",
+        replaces="none: the JAX package runs no mixture of experts",
+        launches=p20["engine"]["launches_by_chunk"][0],
+        max_abs_err=max(r["max_abs_err"] for r in p20["kernel"]),
+        shape="x (216000, 2688) over w (128, 1856, 2688) bf16, relu^2: the up projection of "
+              "the LM cell's prefill (16 prompts, top 6 of 128); launches: the LM stage's eager "
+              "first chunk",
+        **{k: k7_prefill[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "library_ms")},
+        launches_lm_by_chunk=p20["engine"]["launches_by_chunk"],
+        profiled_kernels_replayed_chunk=p20["engine"]["replayed_chunk_profiled_kernels"],
+        others={f"{r['shape']}_{r['projection']}": {k: r[k] for k in (
+            "ms", "device_ms", "bound_ms", "bound_by", "library_ms")} for r in p20["kernel"]}))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4841,4 +5070,6 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) > 2 and sys.argv[1] == "--phase18-world":
         sys.exit(main_p18_world(int(sys.argv[2])) if torch.cuda.is_available() else 1)
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase20":
+        sys.exit(main_phase20())
     sys.exit(main())

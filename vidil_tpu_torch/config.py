@@ -202,3 +202,66 @@ class CLIPConfig:
     @classmethod
     def vit_l_14(cls) -> "CLIPConfig":
         return cls()
+
+
+@dataclass(frozen=True)
+class NemotronHConfig:
+    """A Nemotron-H hybrid decoder (`models/nemotron_h.py`), under the keys
+    of its Hugging Face ``config.json`` (``model_type`` ``nemotron_h``);
+    the defaults are NVIDIA-Nemotron-3-Nano-30B-A3B's. Each character of
+    ``hybrid_override_pattern`` is one layer: ``M`` a Mamba-2 mixer, ``E``
+    a mixture of experts, ``*`` attention."""
+
+    vocab_size: int = 131072
+    hidden_size: int = 2688
+    hybrid_override_pattern: str = "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME"
+    norm_eps: float = 1e-5
+    # Mamba-2
+    mamba_num_heads: int = 64
+    mamba_head_dim: int = 64
+    ssm_state_size: int = 128
+    n_groups: int = 8
+    conv_kernel: int = 4
+    chunk_size: int = 128
+    time_step_min: float = 0.001
+    time_step_max: float = 0.1
+    time_step_floor: float = 1e-4
+    # attention
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 2
+    head_dim: int = 128
+    # mixture of experts
+    n_routed_experts: int = 128
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1856
+    moe_shared_expert_intermediate_size: int = 3712
+    routed_scaling_factor: float = 2.5
+    norm_topk_prob: bool = True
+
+    def __post_init__(self):
+        if set(self.hybrid_override_pattern) - set("ME*"):
+            raise ValueError(f"unknown layer kinds in {self.hybrid_override_pattern!r}")
+        if self.mamba_inner % self.n_groups or self.mamba_num_heads % self.n_groups:
+            raise ValueError("the Mamba heads and width must split into n_groups groups")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("query heads must be a multiple of the key/value heads")
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "NemotronHConfig":
+        """The fields of a ``config.json``-shaped dict; other keys are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_num_heads * self.mamba_head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        """The convolved channels: x, then B and C of every group."""
+        return self.mamba_inner + 2 * self.n_groups * self.ssm_state_size
+
+    @property
+    def in_proj_size(self) -> int:
+        """in_proj's outputs: the gate z, the convolved xBC, dt."""
+        return self.mamba_inner + self.conv_dim + self.mamba_num_heads

@@ -38,6 +38,7 @@ SOURCES = {
     "fused_vit_block_fwd": "fused_vit_block_fwd.cu",
     "fused_vit_block_bwd": "fused_vit_block_bwd.cu",
     "decode_cross_attention": "decode_cross_attention.cu",
+    "grouped_expert_gemm": "grouped_expert_gemm.cu",
 }
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

@@ -19,7 +19,8 @@ K/V) keeps its memory while the tape lives. Every tensor operation of a
 decode must lie inside a piece: work between pieces would run once, at
 the capture.
 
-A replay (`Tape.replay`, inside the span ``decode.graph``) copies the
+A replay (`Tape.replay`, inside the caller's graph span: ``decode.graph``
+for the beam decode, ``lm.graph`` for the language model's) copies the
 call's inputs into the capture's input buffers, replays each graph inside
 the span of the piece it holds, and returns clones of the captured
 outputs, so a later replay never overwrites what a caller holds.
@@ -68,9 +69,10 @@ class Tape:
     """One captured decode: its input buffers, its graphs with their spans
     in capture order, and its outputs (tensors of the private pool)."""
 
-    def __init__(self, inputs, pool=None):
+    def __init__(self, inputs, pool=None, span: str = "decode.graph"):
         self.inputs = tuple(inputs)
         self.pool = pool
+        self.span = span
         self.graphs: list = []  # [(span or None, CUDAGraph)]
         self.outputs: tuple = ()
 
@@ -88,7 +90,7 @@ class Tape:
     def replay(self, inputs) -> tuple:
         """The decode of `inputs`: copied into the input buffers, every
         graph replayed in its span; clones of the outputs."""
-        with annotate("decode.graph"):
+        with annotate(self.span):
             for buf, x in zip(self.inputs, inputs):
                 buf.copy_(x)
             for span, graph in self.graphs:
@@ -103,9 +105,10 @@ class DecodeGraphs:
     launches and the storage of every operand it reads besides its
     inputs (`storage_key` of the weights)."""
 
-    def __init__(self):
+    def __init__(self, span: str = "decode.graph"):
         self._tapes: OrderedDict = OrderedDict()  # key -> Tape, or None when seen once
         self._stream = None
+        self.span = span  # the span of each replay
 
     def run(self, key, fn, *inputs) -> tuple:
         """``fn(*inputs, piece=...)``, a decode that returns a tuple of
@@ -138,7 +141,7 @@ class DecodeGraphs:
             self._stream = torch.cuda.Stream()
         main = torch.cuda.current_stream()
         tape = Tape([x.clone(memory_format=torch.contiguous_format) for x in inputs],
-                    torch.cuda.graph_pool_handle())
+                    torch.cuda.graph_pool_handle(), self.span)
         self._stream.wait_stream(main)
         with torch.cuda.stream(self._stream):
             fn(*tape.inputs)

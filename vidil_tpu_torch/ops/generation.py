@@ -5,8 +5,10 @@ fixed-shape loop over decode steps with the beam bookkeeping (hypothesis
 store, stop heuristic, length normalization) vectorized over the batch,
 in two dialects (``GenerationConfig.length_norm``): ``"legacy"``
 (transformers v4.15, the reference's captions) and ``"modern"``
-(transformers >= 4.50); and `nucleus_sample`, HF's ``do_sample=True,
-top_p=...`` with one Gumbel-max draw per step.
+(transformers >= 4.50); `nucleus_sample`, HF's ``do_sample=True,
+top_p=...`` with one Gumbel-max draw per step; and `greedy_search`, a
+fixed number of argmax tokens after a prefill (the language-model stage,
+`pipeline/lm_answer.py`).
 
 The model is abstracted behind three closures:
 
@@ -305,3 +307,30 @@ def nucleus_sample(prompt_ids, init_cache, prefill_fn, step_fn, gen: GenerationC
             with annotate("decode.step"):
                 last_logits, cache = step_fn(tokens, cur_len, cache)
     return seqs
+
+
+def greedy_search(first_logits, cache, step_fn, max_new_tokens: int, eos_token_id: int,
+                  pad_token_id: int, piece=eager_piece):
+    """`max_new_tokens` greedy tokens a row after a prefill whose
+    last-position logits are `first_logits` (B, V): the argmax (the first
+    index on ties), then ``step_fn(tokens, cache) -> (logits, cache)`` for
+    each further token. A row that has emitted eos emits pad. The loop
+    never reads the device and keeps its shapes, so a capture
+    (`ops/decode_graph.py`) can record it: each step is one piece in the
+    span ``lm.decode``. Returns (B, max_new_tokens) int32."""
+    B = first_logits.shape[0]
+    with piece("lm.decode"):
+        out = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.int32,
+                         device=first_logits.device)
+        tokens = torch.argmax(first_logits, dim=-1)
+        out[:, 0] = tokens.to(torch.int32)
+        finished = tokens == eos_token_id
+    for t in range(1, max_new_tokens):
+        with piece("lm.decode"):
+            logits, cache = step_fn(tokens, cache)
+            nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.where(finished, torch.full_like(nxt, pad_token_id), nxt)
+            out[:, t] = nxt.to(torch.int32)
+            finished = finished | (nxt == eos_token_id)
+            tokens = nxt
+    return out

@@ -45,6 +45,7 @@ from vidil_tpu_torch.pipeline.fused_filter import (
     itm_ids_from_seqs_np,
 )
 from vidil_tpu_torch.pipeline.sentences import split_sentences
+from vidil_tpu_torch.utils.pinned import PinnedArena
 from vidil_tpu_torch.utils.profiling import annotate
 
 
@@ -112,37 +113,6 @@ class CapFiltResult:
     video_id: str
     unfiltered_text: list[str]
     text: list[str]
-
-
-class PinnedArena:
-    """Pinned host tensors for the chunks' early readback, carved in turn
-    from pinned slabs, no byte handed out twice. Allocating page-locked
-    memory can wait for the whole device (it synchronizes implicitly), and
-    the caching host allocator allocates anew while callers keep what it
-    handed out, so a fresh pinned buffer per chunk can hold the host until
-    the card has run the chunk just dispatched; a slab pays that once per
-    `SLAB_BYTES`. A caller may keep what it was handed for as long as it
-    likes."""
-
-    SLAB_BYTES = 1 << 20
-    ALIGN = 256
-
-    def __init__(self):
-        self._slab = None
-        self._used = 0
-
-    def copy(self, x: torch.Tensor) -> torch.Tensor:
-        """A pinned host copy of the device tensor `x`, enqueued on the
-        current stream (valid once the stream has passed it)."""
-        nbytes = x.numel() * x.element_size()
-        size = _round_up(max(nbytes, 1), self.ALIGN)
-        if self._slab is None or self._used + size > self._slab.numel():
-            self._slab = torch.empty(max(self.SLAB_BYTES, size), dtype=torch.uint8,
-                                     pin_memory=True)
-            self._used = 0
-        out = self._slab[self._used:self._used + nbytes].view(x.dtype).view(x.shape)
-        self._used += size
-        return out.copy_(x, non_blocking=True)
 
 
 @dataclass
