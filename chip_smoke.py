@@ -253,7 +253,14 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      the prefill and twice the 31 steps in the capture, the prefill alone
      in each replay; one more replayed chunk under torch.profiler must show
      the 2 x 23 x 32 grouped_gemm_bf16 kernels (less the records the
-     profiler loses in a replay).
+     profiler loses in a replay); K8's launches a chunk must be 23 (one a
+     Mamba layer of the prefill, in every chunk); (c) K8 (`ssd.ssd_chunked`
+     on the card) against `ssd_chunked_ref` at one Mamba layer of a
+     benchmark chunk's packing (16 prompts of 1500-3000 tokens, H 64, P 64,
+     G 8, N 128), within twice the float32 limit of
+     tests/test_torch_ssd_scan.py, bitwise run to run, with its time,
+     device time, bound (its bytes at HBM's rate, or its products at three
+     bf16 terms each at the bf16 peak) and the plain version's time.
 Phase 3 also holds K1 at the visual-tokenization shapes (CLIP-L vision, the
 BLIP ITM fold) and at the retrieval rerank's fold (its text length from
 phase 15's corpus). Kernel times ("ms", "plain_ms", "library_ms") are the median
@@ -4562,6 +4569,90 @@ def check_grouped_expert_gemm(k7, moe, device):
     return rows_out
 
 
+# K8: one launch a Mamba layer of the prefill (23 of 52 layers), at the
+# cell's widths
+K8_MAMBA_LAYERS, K8_H, K8_P, K8_G, K8_N, K8_CHUNK = 23, 64, 64, 8, 128, 128
+
+
+def k8_bound_ms(lengths):
+    """Least time of one K8 call on the packing `lengths`: its bytes (x, B,
+    C in bf16 and dt read, y in float32 and the final states written) at
+    HBM's rate, or the products its inputs need at three bf16 terms each
+    (C.B^T's causal half once, the causal half of the intra-chunk product,
+    the read-out from the entering state and the chunk state three times)
+    at the bf16 peak."""
+    H, P, G, N, L = K8_H, K8_P, K8_G, K8_N, K8_CHUNK
+    T = sum(lengths)
+    chunks = sum(-(-n // L) for n in lengths)
+    nbytes = T * (2 * (H * P + 2 * G * N) + 4 * H + 4 * H * P) + 4 * len(lengths) * H * P * N
+    flops = 2.0 * chunks * H * (L * L * N / 2 + 3 * L * L * P / 2 + 6 * L * N * P)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_ssd_scan(ssd, device):
+    """Phase 20 (c): K8 against its plain version at one Mamba layer of a
+    benchmark chunk's packing (see the module's docstring)."""
+    H, P, G, N, L = K8_H, K8_P, K8_G, K8_N, K8_CHUNK
+    rng = np.random.default_rng(20)
+    lengths = [int(n) for n in rng.integers(LM_PROMPT_TOKENS[0], LM_PROMPT_TOKENS[1] + 1,
+                                            LM_PROMPTS)]
+    T = sum(lengths)
+    gen = torch.Generator(device=device).manual_seed(20)
+    xbc = torch.randn(T, H * P + 2 * G * N, generator=gen, device=device).to(torch.bfloat16)
+    x = xbc[:, :H * P].reshape(T, H, P)
+    B = xbc[:, H * P:H * P + G * N].reshape(T, G, N)
+    C = xbc[:, H * P + G * N:].reshape(T, G, N)
+    dt0 = torch.exp(torch.empty(H, device=device).uniform_(math.log(1e-3), math.log(0.1),
+                                                            generator=gen))
+    dt = F.softplus(torch.randn(T, H, generator=gen, device=device) * 0.5
+                    + dt0 + torch.log(-torch.expm1(-dt0)))
+    A = -torch.empty(H, device=device).uniform_(1.0, 16.0, generator=gen)
+    D = torch.ones(H, device=device)
+    packed = ssd.pack(ssd.Packing(tuple(lengths)), L, device)
+    args = (x, dt, A, B, C, D, packed.layout, len(lengths), L)
+    before = ssd.launch_counts["ssd_scan"]
+    y, final = ssd.ssd_chunked(*args)
+    y2, final2 = ssd.ssd_chunked(*args)
+    torch.cuda.synchronize()
+    launches = ssd.launch_counts["ssd_scan"] - before
+    want_y, want_final = ssd.ssd_chunked_ref(*args)
+    # twice tests/test_torch_ssd_scan.py's float32 limit (gamma_n of max|want|)
+    n = 2 * N + L + 8 + -(-max(lengths) // L) * (L + 4)
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    errs = {name: (got - want).abs().max().item()
+            for name, got, want in (("y", y, want_y), ("final", final, want_final))}
+    limits = {"y": 2 * gamma * want_y.abs().max().item(),
+              "final": 2 * gamma * want_final.abs().max().item()}
+    bitwise = torch.equal(y, y2) and torch.equal(final, final2)
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(final).all())
+    del y2, final2, want_y, want_final
+
+    def kernel():
+        return ssd.ssd_chunked(*args)
+
+    def plain():
+        return ssd.ssd_chunked_ref(*args)
+
+    bound, bound_by = k8_bound_ms(lengths)
+    dev_ms, kernels = device_profile(kernel)
+    row = dict(shape="lm_prefill_layer", dtype="bfloat16 x, B, C; float32 scan", tokens=T,
+               prompts=len(lengths), chunks=sum(-(-n_ // L) for n_ in lengths),
+               max_abs_err=errs, limit=limits, run_to_run_bitwise=bitwise,
+               launches_per_call=launches / 2, ms=time_ms(kernel), device_ms=dev_ms,
+               bound_ms=bound, bound_by=bound_by, bound_share=bound / dev_ms,
+               plain_ms=time_ms(plain), launches_per_prefill=K8_MAMBA_LAYERS * launches // 2,
+               kernels={k.replace("(anonymous namespace)::", "").split("(")[0]: v
+                        for k, v in kernels.items()})
+    log("kernel check (chunked SSD scan K8):", json.dumps(row))
+    if not (finite and bitwise and launches == 2 and all(errs[k] <= limits[k] for k in errs)
+            and all("ssd_scan" in k for k in kernels)):
+        raise SystemExit(f"ssd_scan disagrees with its plain version: {row}")
+    del x, B, C, xbc, dt, y, final, args
+    torch.cuda.empty_cache()
+    return row
+
+
 def lm_prompts(tok_words, n_chunks, seed=20):
     """n_chunks chunks of LM_PROMPTS prompts of random words, each of a
     length drawn from LM_PROMPT_TOKENS (its <s> included)."""
@@ -4572,13 +4663,15 @@ def lm_prompts(tok_words, n_chunks, seed=20):
 
 
 def run_lm_engine(k7, device):
-    """Phase 20 (b): K7's launches a chunk from the LM stage's own run
-    (eager, capture, replays), and one replayed chunk under torch.profiler."""
+    """Phase 20 (b): K7's and K8's launches a chunk from the LM stage's own
+    run (eager, capture, replays), and one replayed chunk under
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from vidil_tpu_torch.config import NemotronHConfig
     from vidil_tpu_torch.models import nemotron_h
+    from vidil_tpu_torch.ops import ssd
     from vidil_tpu_torch.pipeline.lm_answer import SPECIALS, LMAnswerEngine, WordTokenizer
 
     cfg = NemotronHConfig()
@@ -4597,14 +4690,16 @@ def run_lm_engine(k7, device):
     chunks = lm_prompts(words, 5)
     steps = LM_NEW_TOKENS - 1
     want = [K7_PER_PASS * (1 + steps), K7_PER_PASS * (1 + 2 * steps), K7_PER_PASS, K7_PER_PASS]
-    per_chunk, chunk_ms, answers = [], [], []
+    per_chunk, k8_per_chunk, chunk_ms, answers = [], [], [], []
     with torch.no_grad():
         for chunk in chunks[:4]:
             k7.launch_counts["grouped_expert_gemm"] = 0
+            k8_before = ssd.launch_counts["ssd_scan"]
             t0 = time.perf_counter()
             answers = engine.complete_chunk(engine.dispatch_chunk(chunk))
             chunk_ms.append((time.perf_counter() - t0) * 1e3)
             per_chunk.append(k7.launch_counts["grouped_expert_gemm"])
+            k8_per_chunk.append(ssd.launch_counts["ssd_scan"] - k8_before)
         k7.launch_counts["grouped_expert_gemm"] = 0
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4613,6 +4708,7 @@ def run_lm_engine(k7, device):
     profiled = sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and "grouped_gemm_bf16" in e.key)
     out = {"init_s": init_s, "launches_by_chunk": per_chunk, "want": want,
+           "k8_launches_by_chunk": k8_per_chunk,
            "chunk_ms": chunk_ms, "replayed_chunk_wrapper_launches":
            k7.launch_counts["grouped_expert_gemm"], "replayed_chunk_profiled_kernels": profiled,
            "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
@@ -4626,15 +4722,19 @@ def run_phase20(device, card):
     """Phase 20: K7 alone at the LM cell's shapes, then its launches in the
     LM stage's own run (see the module's docstring)."""
     from vidil_tpu_torch.ops import grouped_expert_gemm as k7
-    from vidil_tpu_torch.ops import moe
+    from vidil_tpu_torch.ops import moe, ssd
 
     t_phase = time.time()
-    out = {"kernel": check_grouped_expert_gemm(k7, moe, device)}
+    out = {"kernel": check_grouped_expert_gemm(k7, moe, device),
+           "k8": check_ssd_scan(ssd, device)}
     out["engine"] = e = run_lm_engine(k7, device)
     log("phase 20 (b) LMAnswerEngine:", json.dumps(e))
     full = K7_PER_PASS * LM_NEW_TOKENS
     if e["launches_by_chunk"] != e["want"]:
         raise SystemExit(f"K7 launches by chunk {e['launches_by_chunk']}, want {e['want']}")
+    if e["k8_launches_by_chunk"] != [K8_MAMBA_LAYERS] * len(e["k8_launches_by_chunk"]):
+        raise SystemExit(f"K8 launches by chunk {e['k8_launches_by_chunk']}, want "
+                         f"{K8_MAMBA_LAYERS} each")
     if not (e["replayed_chunk_wrapper_launches"] == K7_PER_PASS
             and (1 - PROFILE_LOSS) * full <= e["replayed_chunk_profiled_kernels"] <= full):
         raise SystemExit(f"K7 in a replayed chunk: {e}, want {full} kernels")
@@ -4646,7 +4746,7 @@ def run_phase20(device, card):
 
 
 def main_phase20():
-    """`--phase20`: build K7 and run phase 20 alone."""
+    """`--phase20`: build K7 and K8 and run phase 20 alone."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4655,7 +4755,7 @@ def main_phase20():
     card = card_line()
     log("card:", card)
     t0 = time.time()
-    _build.build_all(["grouped_expert_gemm"])
+    _build.build_all(["grouped_expert_gemm", "ssd_chunk_scan"])
     log(f"build: {time.time() - t0:.1f} s")
     out = run_phase20(torch.device("cuda"), card)
     print(json.dumps({"phase20": out}), flush=True)
@@ -5027,6 +5127,16 @@ def main():
         profiled_kernels_replayed_chunk=p20["engine"]["replayed_chunk_profiled_kernels"],
         others={f"{r['shape']}_{r['projection']}": {k: r[k] for k in (
             "ms", "device_ms", "bound_ms", "bound_by", "library_ms")} for r in p20["kernel"]}))
+    k8 = p20["k8"]
+    record["kernels"].append(dict(
+        name="ssd_chunk_scan", route="cuda", source="vidil_tpu_torch/csrc/ssd_chunk_scan.cu",
+        replaces="none: the JAX package has no state-space layer",
+        launches=p20["engine"]["k8_launches_by_chunk"][0], max_abs_err=k8["max_abs_err"],
+        shape=f"x (T, 64, 64), B and C (T, 8, 128) bf16 views, T {k8['tokens']} over "
+              f"{k8['prompts']} prompts: one Mamba layer of the LM cell's prefill; launches: "
+              "the LM stage's eager first chunk",
+        **{k: k8[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms")},
+        launches_lm_by_chunk=p20["engine"]["k8_launches_by_chunk"]))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ SOURCES = {
     "fused_vit_block_bwd": "fused_vit_block_bwd.cu",
     "decode_cross_attention": "decode_cross_attention.cu",
     "grouped_expert_gemm": "grouped_expert_gemm.cu",
+    "ssd_chunk_scan": "ssd_chunk_scan.cu",
 }
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

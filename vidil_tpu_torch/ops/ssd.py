@@ -3,7 +3,12 @@ the causal depthwise convolution, the state-space dual (SSD) scan in
 chunks, the one-token state update and the gated RMSNorm.
 
 The JAX package has no state-space layer, so nothing here replaces a TPU
-kernel; everything is plain PyTorch (`models/nemotron_h.py` calls it).
+kernel (`models/nemotron_h.py` calls it). On the card the chunked scan runs
+on kernel K8 (``csrc/ssd_chunk_scan.cu``, `ssd_chunked`), which reads x, B,
+C and dt in place from the packed rows and keeps its intermediates and each
+prompt's state on chip; `ssd_chunked_ref` is its plain version, which the
+CPU runs and the tests hold K8 to. The convolution, the one-token update and
+the gated norm are plain PyTorch.
 
 Packing. A prefill holds several prompts back to back in one (T, ...)
 sequence; `Packing` keeps their lengths on the host. Every prompt starts
@@ -32,6 +37,7 @@ scan's y stays float32 until the gated norm, which rounds once.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -92,13 +98,16 @@ class ChunkLayout:
     chunk) holds a token index or T (the zero row appended for padding);
     ``token_slot`` (T,) the flat slot of each token; the c-th step of the
     pass across chunks covers chunks ``offsets[c]:offsets[c + 1]``, whose
-    prompts are ``order[:n]`` (sorted longest first)."""
+    prompts are ``order[:n]`` (sorted longest first). ``prompts`` (n, 3)
+    int32 holds each prompt's index, start and length in that order (K8
+    reads its rows in place by them)."""
 
     slot: torch.Tensor
     token_slot: torch.Tensor
     offsets: list
     order: torch.Tensor
     max_chunks: int
+    prompts: torch.Tensor
 
 
 def chunk_layout(packing: Packing, chunk: int, upload) -> ChunkLayout:
@@ -119,7 +128,9 @@ def chunk_layout(packing: Packing, chunk: int, upload) -> ChunkLayout:
             token_slot[idx[valid]] = len(rows) * chunk + np.nonzero(valid)[0]
             rows.append(np.where(valid, idx, T))
         offsets.append(len(rows))
-    return ChunkLayout(upload(np.stack(rows)), upload(token_slot), offsets, upload(order), max_c)
+    prompts = np.stack([order, starts[order], lengths[order]], axis=1).astype(np.int32)
+    return ChunkLayout(upload(np.stack(rows)), upload(token_slot), offsets, upload(order), max_c,
+                       upload(prompts))
 
 
 def causal_conv_packed(xbc, weight, bias, packed: Packed):
@@ -174,12 +185,9 @@ def _head_major(t):
     return torch.empty(t.shape, dtype=torch.float32, device=t.device).copy_(t)
 
 
-def ssd_chunked(x, dt, A, B, C, D, layout: ChunkLayout, n_prompts: int, chunk: int):
-    """The scan over packed prompts. x (T, H, P), B and C (T, G, N) in the
-    compute dtype; dt (T, H) float32 (after softplus); A and D (H,)
-    float32. Returns y (T, H, P) float32, D's skip included, and each
-    prompt's final state (n_prompts, H, P, N) float32. The chunks are laid
-    out head-major, (nC, H, L, ...), so that every group of heads is one
+def ssd_chunked_ref(x, dt, A, B, C, D, layout: ChunkLayout, n_prompts: int, chunk: int):
+    """The plain version of `ssd_chunked`. The chunks are laid out
+    head-major, (nC, H, L, ...), so that every group of heads is one
     contiguous block and no elementwise pass runs over a strided view."""
     T, H, Pd = x.shape
     G, N = B.shape[1], B.shape[2]
@@ -234,6 +242,97 @@ def ssd_chunked(x, dt, A, B, C, D, layout: ChunkLayout, n_prompts: int, chunk: i
     final = torch.empty_like(run)
     final[layout.order] = run
     return y_tok, final
+
+
+# K8's widths: head dim, state size, chunk
+KERNEL_P, KERNEL_N, KERNEL_CHUNK = 64, 128, 128
+# launches of K8 by this process (one per call), for showing that a run
+# went through it
+launch_counts = {"ssd_scan": 0}
+
+
+def check_kernel_operands(x, dt, A, B, C, D, layout: ChunkLayout, n_prompts: int, chunk: int):
+    """What K8 takes, raised otherwise: x (T, H, 64), B and C (T, G, 128)
+    in bf16 with unit stride inside a row and 16-byte-aligned rows (views
+    of the convolution's output will do), G dividing H; dt (T, H), A and D
+    (H,) contiguous float32; chunks of 128; the layout's (n_prompts, 3)
+    int32 prompt table; everything on one card. Returns (T, H, G)."""
+    if x.dtype != torch.bfloat16 or B.dtype != torch.bfloat16 or C.dtype != torch.bfloat16:
+        raise TypeError(f"ssd_scan kernel takes bf16 x, B, C, got {x.dtype}, {B.dtype}, "
+                        f"{C.dtype}")
+    for name, t in (("dt", dt), ("A", A), ("D", D)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan kernel takes float32 {name}, got {t.dtype}")
+    if x.dim() != 3 or B.dim() != 3 or C.shape != B.shape:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
+    T, H, P = x.shape
+    G, N = B.shape[1], B.shape[2]
+    if (P, N, chunk) != (KERNEL_P, KERNEL_N, KERNEL_CHUNK) or B.shape[0] != T or H % G:
+        raise ValueError(f"ssd_scan kernel takes P {KERNEL_P}, N {KERNEL_N}, chunk "
+                         f"{KERNEL_CHUNK} and G dividing H, got x {tuple(x.shape)}, B "
+                         f"{tuple(B.shape)}, chunk {chunk}")
+    if dt.shape != (T, H) or A.shape != (H,) or D.shape != (H,):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, A {tuple(A.shape)}, D "
+                         f"{tuple(D.shape)} for x {tuple(x.shape)}")
+    prompts = layout.prompts
+    if prompts.dtype != torch.int32 or prompts.shape != (n_prompts, 3) or n_prompts < 1:
+        raise ValueError(f"ssd_scan: the layout's prompt table must be int32 ({n_prompts}, 3)")
+    for t in (dt, A, D, B, C, prompts):
+        if t.device != x.device:
+            raise ValueError("ssd_scan: every operand must be on x's device")
+    if not (dt.is_contiguous() and A.is_contiguous() and D.is_contiguous()
+            and prompts.is_contiguous()):
+        raise ValueError("ssd_scan: dt, A, D and the prompt table must be contiguous")
+    for name, t, inner in (("x", x, (P, 1)), ("B", B, (N, 1)), ("C", C, (N, 1))):
+        if tuple(t.stride()[1:]) != inner or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} needs unit stride inside a row and "
+                             f"16-byte-aligned rows, got strides {t.stride()}")
+    if T >= 2**31:
+        raise ValueError(f"ssd_scan: {T} tokens exceed int32 indexing")
+    return T, H, G
+
+
+def _launch(x, dt, A, B, C, D, layout: ChunkLayout, n_prompts: int, chunk: int):
+    T, H, G = check_kernel_operands(x, dt, A, B, C, D, layout, n_prompts, chunk)
+    y = torch.empty((T, H, KERNEL_P), dtype=torch.float32, device=x.device)
+    final = torch.empty((n_prompts, H, KERNEL_P, KERNEL_N), dtype=torch.float32,
+                        device=x.device)
+    err = _kernel_fn()(x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                       D.data_ptr(), layout.prompts.data_ptr(), y.data_ptr(), final.data_ptr(),
+                       x.stride(0), B.stride(0), C.stride(0), H, G, n_prompts, x.device.index,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
+    launch_counts["ssd_scan"] += 1
+    return y, final
+
+
+_fns: dict = {}
+
+
+def _kernel_fn():
+    if not _fns:
+        from vidil_tpu_torch.ops import _build
+
+        fn = _build.load("ssd_chunk_scan").vidil_ssd_chunk_scan
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        _fns["fwd"] = fn
+    return _fns["fwd"]
+
+
+def ssd_chunked(x, dt, A, B, C, D, layout: ChunkLayout, n_prompts: int, chunk: int):
+    """The scan over packed prompts. x (T, H, P), B and C (T, G, N) in the
+    compute dtype; dt (T, H) float32 (after softplus); A and D (H,)
+    float32. Returns y (T, H, P) float32, D's skip included, and each
+    prompt's final state (n_prompts, H, P, N) float32. CUDA tensors run
+    K8, CPU tensors the plain version `ssd_chunked_ref`."""
+    if x.is_cuda:
+        return _launch(x, dt, A, B, C, D, layout, n_prompts, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, A, B, C, D, layout, n_prompts, chunk)
+    raise RuntimeError(f"ssd_chunked: no kernel for device {x.device}")
 
 
 def ssd_step(state, x, dt, A, B, C, D):
