@@ -16,7 +16,7 @@ package's distributions, and pretraining and captioning from it.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase17-world 4   # phase 17 (b) over 4 NCCL ranks, 4 cards
     python3 chip_smoke.py --phase18-world 4   # phase 18 (a) over a 2 x 2 grid, 4 cards
-    python3 chip_smoke.py --phase20           # phase 20 alone (the LM stage, 63 GB)
+    python3 chip_smoke.py --phase20           # phase 20 alone (the LM stage, its two models)
 
 Needs a CUDA card and nvcc (CUDA_HOME or /usr/local/cuda); imports only
 vidil_tpu_torch (no JAX). Phases, each of which fails the run:
@@ -238,23 +238,32 @@ vidil_tpu_torch (no JAX). Phases, each of which fails the run:
      at 384 px through the init captioner: 32 strings, 12 K1 launches,
      the same run to run, sample mode fixed by its seed and changed by
      another;
- 20. the LM stage (NVIDIA-Nemotron-3-Nano-30B-A3B, `pipeline/lm_answer.py`):
-     (a) K7 (`grouped_expert_gemm`) against grouped_expert_gemm_ref at the
-     prefill shape (36,000 tokens top 6 of 128 experts: 216,000 routed rows,
-     ~1.7k an expert) and the decode shape (16 tokens: 96 rows over ~69
-     experts), up (2688 -> 1856, relu^2) and down (1856 -> 2688, plain),
-     within 2 bf16 ulps of max|want|, bitwise run to run, with its time,
-     device time, bound (operations at the bf16 peak or bytes at HBM's,
-     from the rows and the experts hit) and a per-expert F.linear loop's
-     time (library_ms); (b) LMAnswerEngine over four chunks of 16 synthetic
+ 20. the LM stage (`pipeline/lm_answer.py`) on its two models,
+     NVIDIA-Nemotron-3-Nano-30B-A3B and Kimi-Linear-48B-A3B-Instruct (one
+     card's share of a two-card expert-parallel deployment: 128 held of
+     the router's 256 experts): (a) K7 (`grouped_expert_gemm`) against
+     grouped_expert_gemm_ref at each model's prefill and decode shapes:
+     Nemotron's 36,000 tokens top 6 of 128 experts (216,000 routed rows,
+     ~1.7k an expert) and 16 tokens (96 rows over ~69 experts), up (2688
+     -> 1856, relu^2) and down (1856 -> 2688, stored); Kimi's 36,400
+     tokens top 8 of 256 (291,200 routed rows, about half of them in the
+     bucket past offsets[128], which no launch reads or writes) and 16
+     tokens (128 rows), up (2304 -> 2 x 1024 interleaved, SwiGLU into
+     1024) and down (1024 -> 2304, stored); on the held rows within 2 bf16
+     ulps of max|want|, bitwise run to run, with its time, device time,
+     bound (operations at the bf16 peak or bytes at HBM's, from the held
+     rows, the output's columns and the experts hit) and a per-expert
+     F.linear loop's time (library_ms); (b) LMAnswerEngine, for each
+     model in turn (peaks of 60-70 GB), over four chunks of 16 synthetic
      prompts of 1500-3000 tokens at full size, seeded weights: K7's
-     launches a chunk, reset to zero first, must be 2 x 23 a pass (a
-     prefill or an eager decode step): 32 passes in the eager first chunk,
-     the prefill and twice the 31 steps in the capture, the prefill alone
-     in each replay; one more replayed chunk under torch.profiler must show
-     the 2 x 23 x 32 grouped_gemm_bf16 kernels (less the records the
-     profiler loses in a replay); K8's launches a chunk must be 23 (one a
-     Mamba layer of the prefill, in every chunk); (c) K8 (`ssd.ssd_chunked`
+     launches a chunk, reset to zero first, must be 2 x 23 (Nemotron) or
+     2 x 26 (Kimi) a pass (a prefill or an eager decode step): 32 passes
+     in the eager first chunk, the prefill and twice the 31 steps in the
+     capture, the prefill alone in each replay; one more replayed chunk
+     under torch.profiler must show the 32 passes' grouped_gemm_bf16
+     kernels (less the records the profiler loses in a replay); K8's
+     launches a chunk must be 23 in Nemotron's (one a Mamba layer of the
+     prefill, in every chunk) and none in Kimi's; (c) K8 (`ssd.ssd_chunked`
      on the card) against `ssd_chunked_ref` at one Mamba layer of a
      benchmark chunk's packing (16 prompts of 1500-3000 tokens, H 64, P 64,
      G 8, N 128), within twice the float32 limit of
@@ -4486,6 +4495,20 @@ K7_EXPERTS, K7_TOPK, K7_HIDDEN, K7_INTER, K7_MOE_LAYERS = 128, 6, 2688, 1856, 23
 K7_TOKENS = {"prefill": 36000, "decode": 16}
 K7_PER_PASS = 2 * K7_MOE_LAYERS
 LM_PROMPTS, LM_NEW_TOKENS, LM_PROMPT_TOKENS = 16, 32, (1500, 3000)
+# Kimi-Linear-48B-A3B-Instruct's on one card of a two-card expert-parallel
+# deployment: 128 held of the router's 256, top 8, SwiGLU 2304 -> 2 x 1024
+# (gate and up rows interleaved) and 1024 -> 2304, in 26 MoE layers; its
+# cell's chunk has 36,400 tokens at the traffic's mean, about half of whose
+# routed pairs go to the experts the other card holds
+KIMI_HELD, KIMI_ROUTER, KIMI_TOPK, KIMI_HIDDEN, KIMI_INTER, KIMI_MOE_LAYERS = (
+    128, 256, 8, 2304, 1024, 26)
+KIMI_TOKENS = {"prefill": 36400, "decode": 16}
+# (model, held experts, router experts, top k, hidden, expert width, up
+# epilogue, tokens by shape, generator seed)
+K7_MODELS = (("nemotron_h", K7_EXPERTS, K7_EXPERTS, K7_TOPK, K7_HIDDEN, K7_INTER, "relu2",
+              K7_TOKENS, 20),
+             ("kimi_linear", KIMI_HELD, KIMI_ROUTER, KIMI_TOPK, KIMI_HIDDEN, KIMI_INTER, "swiglu",
+              KIMI_TOKENS, 21))
 
 
 def k7_limit(want):
@@ -4496,74 +4519,93 @@ def k7_limit(want):
     return 2 * 2.0 ** (math.floor(math.log2(m)) - 7)
 
 
-def k7_bound_ms(rows, experts_hit, N, K):
+def k7_bound_ms(rows, experts_hit, N, K, n_out=None):
     """Least time of one K7 call: its 2 R N K operations at the bf16 peak,
-    or its bytes at HBM's (rows in and out, each expert's weight hit once)."""
+    or its bytes at HBM's (rows in and `n_out` (N) columns out, each expert's
+    weight hit once)."""
+    n_out = N if n_out is None else n_out
     t_ops = 2.0 * rows * N * K / PEAK_FLOPS[torch.bfloat16] * 1e3
-    t_bytes = (2.0 * rows * (N + K) + 2.0 * experts_hit * N * K) / PEAK_BYTES * 1e3
+    t_bytes = (2.0 * rows * (n_out + K) + 2.0 * experts_hit * N * K) / PEAK_BYTES * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_grouped_expert_gemm(k7, moe, device):
-    """Phase 20 (a): K7 against its plain version at the prefill and decode
-    shapes, up and down (see the module's docstring)."""
-    gen = torch.Generator(device=device).manual_seed(20)
-    E, D, I = K7_EXPERTS, K7_HIDDEN, K7_INTER
-    weights = {"up": torch.empty(E, I, D, device=device).normal_(0.0, 0.02, generator=gen)
-               .to(torch.bfloat16),
-               "down": torch.empty(E, D, I, device=device).normal_(0.0, 0.02, generator=gen)
-               .to(torch.bfloat16)}
+    """Phase 20 (a): K7 against its plain version at each LM's prefill and
+    decode shapes, up and down (see the module's docstring)."""
     rows_out = []
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's float32 sums
     try:
-        for label, T in K7_TOKENS.items():
-            idx = torch.rand(T, E, generator=gen, device=device).topk(K7_TOPK, dim=-1).indices
-            _, offsets = moe.expert_offsets(idx, E)
-            bounds = offsets.tolist()
-            R = T * K7_TOPK
-            hit = sum(hi > lo for lo, hi in zip(bounds, bounds[1:]))
-            for name, relu2 in (("up", True), ("down", False)):
-                w = weights[name]
-                N, K = w.shape[1], w.shape[2]
-                x = torch.randn(R, K, generator=gen, device=device).to(torch.bfloat16)
-                got = k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
-                again = k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
-                torch.cuda.synchronize()
-                want = k7.grouped_expert_gemm_ref(x, w, offsets, relu2=relu2)
-                err = (got.float() - want.float()).abs().max().item()
-                limit = k7_limit(want)
-                bitwise = torch.equal(got, again)
-                del want, again
-
-                def kernel():
-                    return k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
-
-                def library():
-                    out = torch.empty(R, N, dtype=x.dtype, device=device)
-                    for e in range(E):
-                        lo, hi = bounds[e], bounds[e + 1]
-                        if hi > lo:
-                            h = F.linear(x[lo:hi], w[e])
-                            out[lo:hi] = torch.relu(h).square() if relu2 else h
-                    return out
-
-                bound, bound_by = k7_bound_ms(R, hit, N, K)
-                dev_ms, kernels = device_profile(kernel)
-                row = dict(shape=label, projection=name, dtype="bfloat16", rows=R,
-                           experts_hit=hit, n=N, k=K, max_abs_err=err, limit=limit,
-                           run_to_run_bitwise=bitwise, ms=time_ms(kernel), device_ms=dev_ms,
-                           bound_ms=bound, bound_by=bound_by, bound_share=bound / dev_ms,
-                           tflops=2.0 * R * N * K / dev_ms / 1e9, library_ms=time_ms(library),
-                           kernels={k.split("(")[0]: v for k, v in kernels.items()})
-                log("kernel check (grouped expert GEMM K7):", json.dumps(row))
-                rows_out.append(row)
-                if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit):
-                    raise SystemExit(f"grouped_expert_gemm disagrees with its plain version: "
-                                     f"{row}")
-                del x, got
+        for case in K7_MODELS:
+            rows_out += k7_model_rows(k7, moe, device, *case)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows_out
+
+
+def k7_model_rows(k7, moe, device, model, E, router, topk, D, I, act, tokens, seed):
+    """One model's K7 rows: top `topk` of `router` random scores a token,
+    the pairs of the E experts held sorted first (`moe.held_offsets`), the
+    rest past offsets[E], which no launch reads or writes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_up = 2 * I if act == "swiglu" else I
+    weights = {"up": torch.empty(E, n_up, D, device=device).normal_(0.0, 0.02, generator=gen)
+               .to(torch.bfloat16),
+               "down": torch.empty(E, D, I, device=device).normal_(0.0, 0.02, generator=gen)
+               .to(torch.bfloat16)}
+    rows_out = []
+    for label, T in tokens.items():
+        idx = torch.rand(T, router, generator=gen, device=device).topk(topk, dim=-1).indices
+        _, offsets = moe.held_offsets(idx, 0, E)
+        bounds = offsets.tolist()
+        R, held = T * topk, bounds[E]
+        hit = sum(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+        for name, epilogue in (("up", act), ("down", "store")):
+            w = weights[name]
+            N, K = w.shape[1], w.shape[2]
+            n_out = N // 2 if epilogue == "swiglu" else N
+            x = torch.randn(R, K, generator=gen, device=device).to(torch.bfloat16)
+            got = k7.grouped_expert_gemm(x, w, offsets, epilogue)[:held]
+            again = k7.grouped_expert_gemm(x, w, offsets, epilogue)[:held]
+            torch.cuda.synchronize()
+            want = k7.grouped_expert_gemm_ref(x, w, offsets, epilogue)[:held]
+            err = (got.float() - want.float()).abs().max().item()
+            limit = k7_limit(want)
+            bitwise = torch.equal(got, again)
+            del want, again
+
+            def kernel():
+                return k7.grouped_expert_gemm(x, w, offsets, epilogue)
+
+            def library():
+                out = torch.empty(R, n_out, dtype=x.dtype, device=device)
+                for e in range(E):
+                    lo, hi = bounds[e], bounds[e + 1]
+                    if hi > lo:
+                        h = F.linear(x[lo:hi], w[e])
+                        if epilogue == "relu2":
+                            h = torch.relu(h).square()
+                        elif epilogue == "swiglu":
+                            h = k7.silu_gate(h)
+                        out[lo:hi] = h
+                return out
+
+            bound, bound_by = k7_bound_ms(held, hit, N, K, n_out)
+            dev_ms, kernels = device_profile(kernel)
+            row = dict(model=model, shape=label, projection=name, epilogue=epilogue,
+                       dtype="bfloat16", rows=R, held_rows=held, experts_hit=hit, n=N, k=K,
+                       n_out=n_out, max_abs_err=err, limit=limit, run_to_run_bitwise=bitwise,
+                       ms=time_ms(kernel), device_ms=dev_ms, bound_ms=bound, bound_by=bound_by,
+                       bound_share=bound / dev_ms, tflops=2.0 * held * N * K / dev_ms / 1e9,
+                       library_ms=time_ms(library),
+                       kernels={k.split("(")[0]: v for k, v in kernels.items()})
+            log("kernel check (grouped expert GEMM K7):", json.dumps(row))
+            rows_out.append(row)
+            if not (bool(torch.isfinite(got).all()) and bitwise and err <= limit
+                    and got.shape == (held, n_out)):
+                raise SystemExit(f"grouped_expert_gemm disagrees with its plain version: "
+                                 f"{row}")
+            del x, got
     del weights
     torch.cuda.empty_cache()
     return rows_out
@@ -4662,25 +4704,31 @@ def lm_prompts(tok_words, n_chunks, seed=20):
              for _ in range(LM_PROMPTS)] for _ in range(n_chunks)]
 
 
-def run_lm_engine(k7, device):
+def run_lm_engine(k7, device, model):
     """Phase 20 (b): K7's and K8's launches a chunk from the LM stage's own
-    run (eager, capture, replays), and one replayed chunk under
+    run of `model` (eager, capture, replays), and one replayed chunk under
     torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from vidil_tpu_torch.config import NemotronHConfig
-    from vidil_tpu_torch.models import nemotron_h
+    from vidil_tpu_torch.config import KimiLinearConfig, NemotronHConfig
     from vidil_tpu_torch.ops import ssd
-    from vidil_tpu_torch.pipeline.lm_answer import SPECIALS, LMAnswerEngine, WordTokenizer
+    from vidil_tpu_torch.pipeline.lm_answer import (MODELS, SPECIALS, LMAnswerEngine,
+                                                    WordTokenizer)
 
-    cfg = NemotronHConfig()
-    if cfg.hybrid_override_pattern.count("E") != K7_MOE_LAYERS:
-        raise SystemExit(f"NemotronHConfig: {cfg.hybrid_override_pattern.count('E')} MoE "
-                         f"layers, want {K7_MOE_LAYERS}")
+    if model == "nemotron_h":
+        cfg, moe_layers = NemotronHConfig(), K7_MOE_LAYERS
+        found = cfg.hybrid_override_pattern.count("E")
+    else:  # the card's share of the two-card deployment
+        cfg = KimiLinearConfig(num_experts=KIMI_HELD, num_experts_published=KIMI_ROUTER)
+        moe_layers = KIMI_MOE_LAYERS
+        found = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    if found != moe_layers:
+        raise SystemExit(f"{model}: {found} MoE layers, want {moe_layers}")
+    per_pass = 2 * moe_layers
     t0 = time.time()
-    params = nemotron_h.init_nemotron_h(cfg, torch.Generator(device=device).manual_seed(20),
-                                        device)
+    params = MODELS[cfg.model_type][1](cfg, torch.Generator(device=device).manual_seed(20),
+                                       device)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     words = [f"w{i}" for i in range(20000)]
@@ -4689,8 +4737,9 @@ def run_lm_engine(k7, device):
                             max_new_tokens=LM_NEW_TOKENS, device=device)
     chunks = lm_prompts(words, 5)
     steps = LM_NEW_TOKENS - 1
-    want = [K7_PER_PASS * (1 + steps), K7_PER_PASS * (1 + 2 * steps), K7_PER_PASS, K7_PER_PASS]
+    want = [per_pass * (1 + steps), per_pass * (1 + 2 * steps), per_pass, per_pass]
     per_chunk, k8_per_chunk, chunk_ms, answers = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(device)
     with torch.no_grad():
         for chunk in chunks[:4]:
             k7.launch_counts["grouped_expert_gemm"] = 0
@@ -4707,8 +4756,8 @@ def run_lm_engine(k7, device):
             torch.cuda.synchronize()
     profiled = sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and "grouped_gemm_bf16" in e.key)
-    out = {"init_s": init_s, "launches_by_chunk": per_chunk, "want": want,
-           "k8_launches_by_chunk": k8_per_chunk,
+    out = {"model": model, "moe_layers": moe_layers, "init_s": init_s,
+           "launches_by_chunk": per_chunk, "want": want, "k8_launches_by_chunk": k8_per_chunk,
            "chunk_ms": chunk_ms, "replayed_chunk_wrapper_launches":
            k7.launch_counts["grouped_expert_gemm"], "replayed_chunk_profiled_kernels": profiled,
            "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
@@ -4727,19 +4776,23 @@ def run_phase20(device, card):
     t_phase = time.time()
     out = {"kernel": check_grouped_expert_gemm(k7, moe, device),
            "k8": check_ssd_scan(ssd, device)}
-    out["engine"] = e = run_lm_engine(k7, device)
-    log("phase 20 (b) LMAnswerEngine:", json.dumps(e))
-    full = K7_PER_PASS * LM_NEW_TOKENS
-    if e["launches_by_chunk"] != e["want"]:
-        raise SystemExit(f"K7 launches by chunk {e['launches_by_chunk']}, want {e['want']}")
-    if e["k8_launches_by_chunk"] != [K8_MAMBA_LAYERS] * len(e["k8_launches_by_chunk"]):
-        raise SystemExit(f"K8 launches by chunk {e['k8_launches_by_chunk']}, want "
-                         f"{K8_MAMBA_LAYERS} each")
-    if not (e["replayed_chunk_wrapper_launches"] == K7_PER_PASS
-            and (1 - PROFILE_LOSS) * full <= e["replayed_chunk_profiled_kernels"] <= full):
-        raise SystemExit(f"K7 in a replayed chunk: {e}, want {full} kernels")
-    if e["answers"] != LM_PROMPTS:
-        raise SystemExit(f"{e['answers']} answers for {LM_PROMPTS} prompts")
+    # K8 runs in Nemotron-H's Mamba layers only, one launch each a prefill
+    for model, k8_launches in (("nemotron_h", K8_MAMBA_LAYERS), ("kimi_linear", 0)):
+        out[f"engine_{model}"] = e = run_lm_engine(k7, device, model)
+        log(f"phase 20 (b) LMAnswerEngine {model}:", json.dumps(e))
+        per_pass = 2 * e["moe_layers"]
+        full = per_pass * LM_NEW_TOKENS
+        if e["launches_by_chunk"] != e["want"]:
+            raise SystemExit(f"{model}: K7 launches by chunk {e['launches_by_chunk']}, want "
+                             f"{e['want']}")
+        if e["k8_launches_by_chunk"] != [k8_launches] * len(e["k8_launches_by_chunk"]):
+            raise SystemExit(f"{model}: K8 launches by chunk {e['k8_launches_by_chunk']}, want "
+                             f"{k8_launches} each")
+        if not (e["replayed_chunk_wrapper_launches"] == per_pass
+                and (1 - PROFILE_LOSS) * full <= e["replayed_chunk_profiled_kernels"] <= full):
+            raise SystemExit(f"{model}: K7 in a replayed chunk: {e}, want {full} kernels")
+        if e["answers"] != LM_PROMPTS:
+            raise SystemExit(f"{model}: {e['answers']} answers for {LM_PROMPTS} prompts")
     out["phase_s"] = time.time() - t_phase
     log(f"phase 20: {out['phase_s']:.1f} s; card {card}")
     return out
@@ -5111,32 +5164,35 @@ def main():
                                and r["shape"] == "beam_prefill")[k]
                        for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}),
     ]}
-    k7_prefill = next(r for r in p20["kernel"]
-                      if r["shape"] == "prefill" and r["projection"] == "up")
+    k7_prefill = next(r for r in p20["kernel"] if r["model"] == "nemotron_h"
+                      and r["shape"] == "prefill" and r["projection"] == "up")
+    nem, kimi = p20["engine_nemotron_h"], p20["engine_kimi_linear"]
     record["kernels"].append(dict(
         name="grouped_expert_gemm", route="cuda",
         source="vidil_tpu_torch/csrc/grouped_expert_gemm.cu",
         replaces="none: the JAX package runs no mixture of experts",
-        launches=p20["engine"]["launches_by_chunk"][0],
+        launches=nem["launches_by_chunk"][0],
         max_abs_err=max(r["max_abs_err"] for r in p20["kernel"]),
         shape="x (216000, 2688) over w (128, 1856, 2688) bf16, relu^2: the up projection of "
               "the LM cell's prefill (16 prompts, top 6 of 128); launches: the LM stage's eager "
               "first chunk",
         **{k: k7_prefill[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "library_ms")},
-        launches_lm_by_chunk=p20["engine"]["launches_by_chunk"],
-        profiled_kernels_replayed_chunk=p20["engine"]["replayed_chunk_profiled_kernels"],
-        others={f"{r['shape']}_{r['projection']}": {k: r[k] for k in (
+        launches_lm_by_chunk=nem["launches_by_chunk"],
+        profiled_kernels_replayed_chunk=nem["replayed_chunk_profiled_kernels"],
+        launches_kimi_by_chunk=kimi["launches_by_chunk"],
+        profiled_kernels_replayed_kimi_chunk=kimi["replayed_chunk_profiled_kernels"],
+        others={f"{r['model']}_{r['shape']}_{r['projection']}": {k: r[k] for k in (
             "ms", "device_ms", "bound_ms", "bound_by", "library_ms")} for r in p20["kernel"]}))
     k8 = p20["k8"]
     record["kernels"].append(dict(
         name="ssd_chunk_scan", route="cuda", source="vidil_tpu_torch/csrc/ssd_chunk_scan.cu",
         replaces="none: the JAX package has no state-space layer",
-        launches=p20["engine"]["k8_launches_by_chunk"][0], max_abs_err=k8["max_abs_err"],
+        launches=nem["k8_launches_by_chunk"][0], max_abs_err=k8["max_abs_err"],
         shape=f"x (T, 64, 64), B and C (T, 8, 128) bf16 views, T {k8['tokens']} over "
               f"{k8['prompts']} prompts: one Mamba layer of the LM cell's prefill; launches: "
               "the LM stage's eager first chunk",
         **{k: k8[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms")},
-        launches_lm_by_chunk=p20["engine"]["k8_launches_by_chunk"]))
+        launches_lm_by_chunk=nem["k8_launches_by_chunk"]))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -167,7 +167,7 @@ def test_grouped_gemm_twin_matches_a_per_expert_loop(relu2):
     """K7's plain version against a row-by-row loop, experts without rows
     included, at both epilogues."""
     x, w, offsets = _grouped_case(6, 24, 64, [5, 0, 9, 1, 0, 3], 7)
-    got = k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
+    got = k7.grouped_expert_gemm(x, w, offsets, "relu2" if relu2 else "store")
     want = _per_expert_loop(x, w, offsets, relu2)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
 
@@ -251,11 +251,34 @@ def _counts(E, kind, rng):
 def test_k7_matches_its_twin(cuda_device, E, N, K, kind, relu2):
     counts = _counts(E, kind, np.random.default_rng(E + N + K))
     x, w, offsets = _grouped_case(E, N, K, counts, 9, cuda_device)
-    got = k7.grouped_expert_gemm(x, w, offsets, relu2=relu2)
+    got = k7.grouped_expert_gemm(x, w, offsets, "relu2" if relu2 else "store")
     torch.cuda.synchronize()
-    want = k7.grouped_expert_gemm_ref(x, w, offsets, relu2=relu2)
+    want = k7.grouped_expert_gemm_ref(x, w, offsets, "relu2" if relu2 else "store")
     # bf16 outputs: one rounding apart at most (the sums' order differs)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=8e-3)
+
+
+# Kimi Linear's up projection: 128 held experts, 2 x 1024 interleaved gate
+# and up rows over hidden 2304 (N = 2048 ends in a partial column tile)
+K7_SWIGLU_CASES = [(128, 2048, 2304, "prefill"), (128, 2048, 2304, "decode"),
+                   (8, 64, 128, "one")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,N,K,kind", K7_SWIGLU_CASES)
+def test_k7_swiglu_matches_its_twin(cuda_device, E, N, K, kind):
+    """K7's SwiGLU epilogue against its plain version, with the last
+    expert's offset short of the rows (pairs routed to experts held
+    elsewhere): those rows are left as they were."""
+    counts = _counts(E, kind, np.random.default_rng(E + N + K))
+    x, w, offsets = _grouped_case(E + 1, N, K, list(counts) + [0], 12, cuda_device)
+    x = torch.cat([x, torch.randn(7, K, device=cuda_device).to(x.dtype)])
+    got = k7.grouped_expert_gemm(x, w[:E], offsets[:E + 1], "swiglu")
+    torch.cuda.synchronize()
+    want = k7.grouped_expert_gemm_ref(x, w[:E], offsets[:E + 1], "swiglu")
+    end = int(offsets[E])
+    assert got.shape == (x.shape[0], N // 2)
+    torch.testing.assert_close(got[:end].float(), want[:end].float(), atol=1e-2, rtol=8e-3)
 
 
 @pytest.mark.cuda
@@ -264,7 +287,7 @@ def test_k7_counts_launches_and_experts_read(cuda_device):
     x, w, offsets = _grouped_case(8, 64, 128, counts, 10, cuda_device)
     before = k7.launch_counts["grouped_expert_gemm"]
     read = k7.experts_read(cuda_device).clone()
-    k7.grouped_expert_gemm(x, w, offsets, relu2=True)
+    k7.grouped_expert_gemm(x, w, offsets, "relu2")
     k7.grouped_expert_gemm(x, w, offsets)
     torch.cuda.synchronize()
     assert k7.launch_counts["grouped_expert_gemm"] == before + 2
@@ -276,6 +299,6 @@ def test_k7_is_deterministic(cuda_device):
     x, w, offsets = _grouped_case(128, 1856, 2688, _counts(128, "prefill",
                                                            np.random.default_rng(1)), 11,
                                   cuda_device)
-    a = k7.grouped_expert_gemm(x, w, offsets, relu2=True)
-    b = k7.grouped_expert_gemm(x, w, offsets, relu2=True)
+    a = k7.grouped_expert_gemm(x, w, offsets, "relu2")
+    b = k7.grouped_expert_gemm(x, w, offsets, "relu2")
     assert torch.equal(a, b)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import ClassVar
 
 import torch
 
@@ -212,6 +213,8 @@ class NemotronHConfig:
     ``hybrid_override_pattern`` is one layer: ``M`` a Mamba-2 mixer, ``E``
     a mixture of experts, ``*`` attention."""
 
+    model_type: ClassVar[str] = "nemotron_h"
+
     vocab_size: int = 131072
     hidden_size: int = 2688
     hybrid_override_pattern: str = "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME"
@@ -265,3 +268,124 @@ class NemotronHConfig:
     def in_proj_size(self) -> int:
         """in_proj's outputs: the gate z, the convolved xBC, dt."""
         return self.mamba_inner + self.conv_dim + self.mamba_num_heads
+
+
+def _kimi_linear_attn():
+    return {"full_attn_layers": [4, 8, 12, 16, 20, 24, 27],
+            "kda_layers": [1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15, 17, 18, 19, 21, 22, 23, 25,
+                           26],
+            "head_dim": 128, "num_heads": 32, "short_conv_kernel_size": 4}
+
+
+@dataclass(frozen=True)
+class KimiLinearConfig:
+    """A Kimi Linear hybrid decoder (`models/kimi_linear.py`), under the keys
+    of its Hugging Face ``config.json`` (``model_type`` ``kimi_linear``);
+    the defaults are Kimi-Linear-48B-A3B-Instruct's. Every layer has a
+    mixer, KDA (gated delta rule) at ``linear_attn_config["kda_layers"]``
+    and multi-head latent attention at its ``full_attn_layers`` (both
+    1-based), then an MLP: dense SwiGLU in the first
+    ``first_k_dense_replace`` layers, a mixture of experts after.
+
+    ``num_experts`` counts the experts held here, ``expert_offset`` the
+    first of them, and ``num_experts_published`` the router's outputs (all
+    of them, None: as many as are held): the card's share of an
+    expert-parallel deployment routes over every expert and computes its
+    own. ``chunk_size`` is the chunk of the KDA prefill (`ops/kda.py`), a
+    setting of the program, not of the model."""
+
+    model_type: ClassVar[str] = "kimi_linear"
+
+    vocab_size: int = 163840
+    hidden_size: int = 2304
+    num_hidden_layers: int = 27
+    rms_norm_eps: float = 1e-5
+    linear_attn_config: dict = field(default_factory=_kimi_linear_attn)
+    # multi-head latent attention (no positional rotation: mla_use_nope)
+    num_attention_heads: int = 32
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    # MLPs
+    intermediate_size: int = 9216
+    first_k_dense_replace: int = 1
+    moe_intermediate_size: int = 1024
+    num_experts: int = 256
+    num_experts_per_token: int = 8
+    num_shared_experts: int = 1
+    routed_scaling_factor: float = 2.446
+    moe_renormalize: bool = True
+    num_experts_published: int | None = None
+    expert_offset: int = 0
+    chunk_size: int = 64
+
+    def __post_init__(self):
+        la = self.linear_attn_config
+        layers = sorted(la["kda_layers"] + la["full_attn_layers"])
+        if layers != list(range(1, self.num_hidden_layers + 1)):
+            raise ValueError("kda_layers and full_attn_layers must share out layers 1.."
+                             f"{self.num_hidden_layers}")
+        lo, hi = self.expert_range
+        if not 0 <= lo < hi <= self.router_experts:
+            raise ValueError(f"experts {lo}..{hi - 1} are not among the router's "
+                             f"{self.router_experts}")
+        if self.num_experts_per_token > self.router_experts or self.num_shared_experts != 1:
+            raise ValueError("top-k within the router's experts and one shared expert")
+        if self.moe_intermediate_size % 8 or self.intermediate_size % 8:
+            raise ValueError("SwiGLU widths must be multiples of 8 (gate/up blocks of 8 rows)")
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "KimiLinearConfig":
+        """The fields of a ``config.json``-shaped dict; other keys are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @property
+    def layer_kinds(self) -> tuple:
+        """``"kda"`` or ``"mla"`` for each layer, 0-based."""
+        mla = set(self.linear_attn_config["full_attn_layers"])
+        return tuple("mla" if i + 1 in mla else "kda" for i in range(self.num_hidden_layers))
+
+    @property
+    def kda_heads(self) -> int:
+        return self.linear_attn_config["num_heads"]
+
+    @property
+    def kda_head_dim(self) -> int:
+        return self.linear_attn_config["head_dim"]
+
+    @property
+    def conv_kernel(self) -> int:
+        return self.linear_attn_config["short_conv_kernel_size"]
+
+    @property
+    def router_experts(self) -> int:
+        return self.num_experts_published or self.num_experts
+
+    @property
+    def expert_range(self) -> tuple:
+        """[lo, hi) of the experts held here, in the router's numbering."""
+        return self.expert_offset, self.expert_offset + self.num_experts
+
+    # the names `ops/moe.py:moe_layer` reads
+    @property
+    def num_experts_per_tok(self) -> int:
+        return self.num_experts_per_token
+
+    @property
+    def norm_topk_prob(self) -> bool:
+        return self.moe_renormalize
+
+
+LM_CONFIGS = {c.model_type: c for c in (NemotronHConfig, KimiLinearConfig)}
+
+
+def lm_config_from_dict(d: dict):
+    """The language model's config of a ``config.json``-shaped dict, by its
+    ``model_type`` (``nemotron_h`` where the dict names none)."""
+    kind = d.get("model_type", "nemotron_h")
+    if kind not in LM_CONFIGS:
+        raise ValueError(f"no language model of model_type {kind!r}; the port runs "
+                         f"{sorted(LM_CONFIGS)}")
+    return LM_CONFIGS[kind].from_dict(d)

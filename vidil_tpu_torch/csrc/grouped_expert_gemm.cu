@@ -2,10 +2,14 @@
 //   out[o_e : o_{e+1}] = epi(x[o_e : o_{e+1}] . w[e]^T)   for every expert e,
 // x (R, K) bf16, the routed rows sorted by expert; w (E, N, K) bf16, every
 // expert's weight; offsets (E + 1,) int32 on the device, o_E = R; out (R, N)
-// bf16; epi relu(.)^2 (the up projection, `relu2`) or the identity (the
-// down projection). fp32 accumulation; the activation on the fp32 sum; one
-// rounding to bf16 (the rounding points of the plain version,
-// ops/grouped_expert_gemm.py:grouped_expert_gemm_ref).
+// bf16; epi relu(.)^2 (Nemotron-H's up projection), SwiGLU (Kimi Linear's
+// up projection: w's rows hold the gate's and the up's interleaved in
+// blocks of 8, rows 16m..16m+7 the gate's 8m..8m+7 and rows 16m+8..16m+15
+// the up's, and out (R, N / 2) gets SiLU(gate) * up of each column) or the
+// identity (the down projection). fp32 accumulation; the activation on the
+// fp32 sums; one rounding to bf16 (the rounding points of the plain
+// version, ops/grouped_expert_gemm.py:grouped_expert_gemm_ref). Rows past
+// o_E (pairs routed to experts another card holds) are left alone.
 //
 // Replaces no TPU kernel: the JAX package runs no mixture of experts. It is
 // the port's first GEMM whose weight matrix changes with the row and whose
@@ -42,7 +46,11 @@
 //     columns read 78;
 //   * the expert weights a launch reads: the block that starts an expert's
 //     first tile adds one to a device counter (the roofline's bytes).
-// K must be a multiple of 64, N of 8; E at most 256.
+//   * SwiGLU: a tile's 192 columns are 12 whole blocks of 16 (its n0 a
+//     multiple of 16), so a thread's n-tiles 2i and 2i+1 hold the gate's and
+//     the up's values of the same two output columns: the epilogue takes
+//     SiLU(g) * u on the fp32 accumulators and stores 96 columns.
+// K must be a multiple of 64, N of 8 (SwiGLU: of 16); E at most 256.
 
 #include "gemm_sm90.cuh"
 
@@ -64,8 +72,10 @@ struct Args {
   const int* offsets;
   __nv_bfloat16* out;
   unsigned long long* experts_read;
-  int R, N, K, E, relu2;
+  int R, N, K, E, epi;
 };
+
+enum Epilogue { kEpiStore = 0, kEpiRelu2 = 1, kEpiSwiglu = 2 };
 
 struct TileK7 {
   int e, m0, m_end, n0, first;  // first: the expert's first tile
@@ -186,13 +196,27 @@ __global__ void __launch_bounds__(kThreadsK7, 1)
     for (int r = 0; r < 2; ++r) {
       const int m = tl.m0 + cw * 64 + warp * 16 + g + 8 * r;
       if (m >= tl.m_end) continue;
+      if (a.epi == kEpiSwiglu) {
+        __nv_bfloat16* half = a.out + static_cast<long long>(m) * (a.N / 2);
+#pragma unroll
+        for (int j = 0; j < kTileN / 8; j += 2) {
+          const int n = tl.n0 + 8 * j;  // the gate's block; the up's is the next 8 columns
+          if (n >= a.N) continue;
+          const float g0 = acc[4 * j + 2 * r], g1 = acc[4 * j + 2 * r + 1];
+          const float u0 = acc[4 * (j + 1) + 2 * r], u1 = acc[4 * (j + 1) + 2 * r + 1];
+          const float v0 = g0 / (1.f + __expf(-g0)) * u0;
+          const float v1 = g1 / (1.f + __expf(-g1)) * u1;
+          *reinterpret_cast<uint32_t*>(half + n / 2 + 2 * t4) = pack_bf16x2(v0, v1);
+        }
+        continue;
+      }
       __nv_bfloat16* row = a.out + static_cast<long long>(m) * a.N;
 #pragma unroll
       for (int j = 0; j < kTileN / 8; ++j) {
         const int n = tl.n0 + 8 * j + 2 * t4;
         if (n >= a.N) continue;
         float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
-        if (a.relu2) {
+        if (a.epi == kEpiRelu2) {
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
           v0 *= v0;
@@ -206,14 +230,16 @@ __global__ void __launch_bounds__(kThreadsK7, 1)
 
 }  // namespace
 
-// x (R, K), w (E, N, K), out (R, N): bf16, contiguous, 16-byte aligned;
-// offsets (E + 1,) int32 on the same device; experts_read a device counter
-// (unsigned 64-bit) or null. Returns cudaGetLastError() after the launch
-// (0 on success).
+// x (R, K), w (E, N, K), out (R, N) ((R, N / 2) for SwiGLU): bf16,
+// contiguous, 16-byte aligned; offsets (E + 1,) int32 on the same device;
+// experts_read a device counter (unsigned 64-bit) or null; epi 0 store, 1
+// relu^2, 2 SwiGLU. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int vidil_grouped_expert_gemm(const void* x, const void* w, const void* offsets,
                                          void* out, void* experts_read, int device, int R, int N,
-                                         int K, int E, int relu2, void* stream) {
-  if (R <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || E < 1 || E > kMaxExperts)
+                                         int K, int E, int epi, void* stream) {
+  if (R <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || E < 1 || E > kMaxExperts ||
+      epi < kEpiStore || epi > kEpiSwiglu || (epi == kEpiSwiglu && N % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -232,7 +258,7 @@ extern "C" int vidil_grouped_expert_gemm(const void* x, const void* w, const voi
       (static_cast<long long>(R + kTileM - 1) / kTileM + E) * ((N + kTileN - 1) / kTileN);
   const int blocks = static_cast<int>(std::min<long long>(bound, sms));
   const Args args{static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(out),
-                  static_cast<unsigned long long*>(experts_read), R, N, K, E, relu2};
+                  static_cast<unsigned long long*>(experts_read), R, N, K, E, epi};
   grouped_gemm_bf16<<<blocks, kThreadsK7, kSmemK7, static_cast<cudaStream_t>(stream)>>>(tx, tw,
                                                                                          args);
   return static_cast<int>(cudaGetLastError());

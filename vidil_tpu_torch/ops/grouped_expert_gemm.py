@@ -1,21 +1,26 @@
 """The experts' grouped GEMM (kernel K7): the hand-written Hopper kernel,
 its plain version, and its launch count.
 
-`grouped_expert_gemm(x, w, offsets, relu2)` computes, for every expert e,
+`grouped_expert_gemm(x, w, offsets, epilogue)` computes, for every expert e,
 ``out[o_e:o_{e+1}] = x[o_e:o_{e+1}] . w[e]^T`` where x (R, K) holds the
 routed rows sorted by expert, w (E, N, K) every expert's weight and
 offsets (E + 1,) int32 the row where each expert's rows start, on the
 device: no host ever reads how many rows an expert has, so the call
-enqueues without a sync and a CUDA graph can capture it. With ``relu2``
-the epilogue applies the experts' activation, relu(.)^2 (the up
-projection); without, it stores the sum (the down projection). On CUDA
+enqueues without a sync and a CUDA graph can capture it. The epilogue
+(`EPILOGUES`): ``"relu2"`` applies Nemotron-H's experts' activation,
+relu(.)^2 (the up projection); ``"swiglu"`` Kimi Linear's, SiLU(gate) *
+up, on a weight whose N rows hold the gate's and the up's interleaved in
+blocks of 8 (`ops/moe.py`), into N / 2 columns; ``"store"`` stores the sum
+(the down projection). An expert's offsets may end before R: rows past
+offsets[E] are neither read nor written. On CUDA
 tensors it launches ``csrc/grouped_expert_gemm.cu``, which replaces no TPU
 kernel (the JAX package runs no mixture of experts); on CPU tensors the
 plain version `grouped_expert_gemm_ref`. Nothing falls back: a CUDA launch
 that cannot run raises.
 
 Rounding points (the plain version's): bf16 operands, float32 sums, the
-activation on the float32 sum, one rounding to bf16.
+activation on the float32 sums (SwiGLU's on the gate's and the up's of a
+column), one rounding to bf16.
 
 `experts_read(device)`: a device counter that a launch of fewer than
 `SMALL_ROWS` rows adds to, once for each expert with rows: the expert
@@ -29,6 +34,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 # launches of the CUDA kernel by this process (one per call; a replayed CUDA
 # graph adds none), for showing that a run went through it
@@ -51,31 +57,56 @@ def experts_read(device) -> torch.Tensor:
     return _counters[device]
 
 
-def grouped_expert_gemm_ref(x, w, offsets, relu2: bool = False):
+SWIGLU_BLOCK = 8  # rows of a block of the gate's or the up's in a SwiGLU weight
+
+
+def silu_gate(h):
+    """SiLU(gate) * up of h (..., N) whose columns hold the gate's and the
+    up's in alternating blocks of `SWIGLU_BLOCK`, in float32: (..., N / 2)."""
+    blocks = h.float().unflatten(-1, (-1, 2, SWIGLU_BLOCK))
+    return (F.silu(blocks[..., 0, :]) * blocks[..., 1, :]).flatten(-2)
+
+
+# the kernel's epilogues, by the number it takes (its enum Epilogue)
+EPILOGUES = {"store": 0, "relu2": 1, "swiglu": 2}
+
+
+def _epilogue_id(epilogue: str) -> int:
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"grouped_expert_gemm: epilogue {epilogue!r}, not one of "
+                         f"{sorted(EPILOGUES)}")
+    return EPILOGUES[epilogue]
+
+
+def grouped_expert_gemm_ref(x, w, offsets, epilogue: str = "store"):
     """Plain PyTorch version: a loop over the experts."""
-    out = torch.zeros((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device)
+    _epilogue_id(epilogue)
+    n_out = w.shape[1] // 2 if epilogue == "swiglu" else w.shape[1]
+    out = torch.zeros((x.shape[0], n_out), dtype=x.dtype, device=x.device)
     bounds = offsets.tolist()
     for e in range(w.shape[0]):
         lo, hi = bounds[e], bounds[e + 1]
         if hi > lo:
             acc = x[lo:hi].float() @ w[e].float().t()
-            if relu2:
+            if epilogue == "relu2":
                 acc = torch.relu(acc).square()
+            elif epilogue == "swiglu":
+                acc = silu_gate(acc)
             out[lo:hi] = acc.to(x.dtype)
     return out
 
 
-def check_kernel_operands(x, w, offsets):
+def check_kernel_operands(x, w, offsets, swiglu: bool = False):
     """What the kernel takes, raised otherwise: bf16 x (R, K) and w (E, N,
-    K), contiguous, on one card; K a multiple of 64 and N of 8; int32
-    offsets (E + 1,) on the same card."""
+    K), contiguous, on one card; K a multiple of 64 and N of 8 (SwiGLU: of
+    16); int32 offsets (E + 1,) on the same card."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"grouped_expert_gemm kernel takes bf16, got {x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 3 or w.shape[2] != x.shape[1]:
         raise ValueError(f"grouped_expert_gemm: x {tuple(x.shape)}, w {tuple(w.shape)}")
     R, K = x.shape
     E, N = w.shape[0], w.shape[1]
-    if K % 64 or N % 8 or R < 1:
+    if K % 64 or N % (16 if swiglu else 8) or R < 1:
         raise ValueError(f"grouped_expert_gemm kernel takes K % 64 == 0, N % 8 == 0, got "
                          f"R {R}, N {N}, K {K}")
     if offsets.dtype != torch.int32 or offsets.shape != (E + 1,):
@@ -90,12 +121,14 @@ def check_kernel_operands(x, w, offsets):
     return R, N, K, E
 
 
-def _launch(x, w, offsets, relu2: bool):
-    R, N, K, E = check_kernel_operands(x, w, offsets)
-    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+def _launch(x, w, offsets, epilogue: str):
+    epi = _epilogue_id(epilogue)
+    swiglu = epilogue == "swiglu"
+    R, N, K, E = check_kernel_operands(x, w, offsets, swiglu)
+    out = torch.empty((R, N // 2 if swiglu else N), dtype=x.dtype, device=x.device)
     counter = experts_read(x.device).data_ptr() if R < SMALL_ROWS else None
     err = _kernel_fn()(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                       counter, x.device.index, R, N, K, E, int(relu2),
+                       counter, x.device.index, R, N, K, E, epi,
                        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped_expert_gemm launch failed: cudaError {err}")
@@ -117,12 +150,13 @@ def _kernel_fn():
     return _fns["fwd"]
 
 
-def grouped_expert_gemm(x, w, offsets, relu2: bool = False):
+def grouped_expert_gemm(x, w, offsets, epilogue: str = "store"):
     """x (R, K) rows sorted by expert, w (E, N, K), offsets (E + 1,) int32
-    -> (R, N) in x's dtype (see the module's docstring). CUDA tensors run
-    the kernel, CPU tensors its plain version."""
+    -> (R, N) in x's dtype ((R, N / 2) with ``"swiglu"``; see the module's
+    docstring). CUDA tensors run the kernel, CPU tensors its plain
+    version."""
     if x.is_cuda:
-        return _launch(x, w, offsets, relu2)
+        return _launch(x, w, offsets, epilogue)
     if x.device.type == "cpu":
-        return grouped_expert_gemm_ref(x, w, offsets, relu2)
+        return grouped_expert_gemm_ref(x, w, offsets, epilogue)
     raise RuntimeError(f"grouped_expert_gemm: no kernel for device {x.device}")

@@ -135,7 +135,7 @@ def chunk_layout(packing: Packing, chunk: int, upload) -> ChunkLayout:
 
 def causal_conv_packed(xbc, weight, bias, packed: Packed):
     """SiLU of the causal depthwise convolution of each prompt: xbc (T, C)
-    packed, weight (C, W), bias (C,). Every tap is added over the whole
+    packed, weight (C, W), bias (C,) or None. Every tap is added over the whole
     sequence at once (shifted views, no copies); the first W - 1 tokens of
     each prompt, whose taps reached into the prompt before, are then summed
     again from their own prompt's tokens alone. Sums in float32, rounded
@@ -143,14 +143,15 @@ def causal_conv_packed(xbc, weight, bias, packed: Packed):
     T, W = xbc.shape[0], weight.shape[1]
     x = xbc.float()
     w = weight.float()
+    bias = _bias(bias, x)
     out = torch.empty((T + 1, x.shape[1]), dtype=torch.float32, device=x.device)  # + scratch row
-    torch.addcmul(bias.float(), x, w[:, W - 1], out=out[:T])
+    torch.addcmul(bias, x, w[:, W - 1], out=out[:T])
     for s in range(1, min(W, T)):
         out[s:T].addcmul_(x[:-s], w[:, W - 1 - s])
     k = torch.arange(W - 1, device=x.device)
     rows = packed.starts[:, None] + k                         # (P, W-1)
     valid = k[None] < packed.lengths[:, None]
-    fix = torch.addcmul(bias.float(), x[rows.clamp(max=T - 1)], w[:, W - 1])
+    fix = torch.addcmul(bias, x[rows.clamp(max=T - 1)], w[:, W - 1])
     for s in range(1, W):
         tap = ((k[None] >= s) & valid).unsqueeze(-1)
         fix.addcmul_(x[(rows - s).clamp(0, T - 1)] * tap, w[:, W - 1 - s])
@@ -169,12 +170,17 @@ def conv_state_packed(xbc, packed: Packed, width: int):
     return rows.transpose(1, 2).contiguous()
 
 
+def _bias(bias, x):
+    """A convolution's bias in float32; none is zero."""
+    return bias.float() if bias is not None else x.new_zeros((), dtype=torch.float32)
+
+
 def conv_step(state, x, weight, bias):
     """One token through the convolution: state (B, C, W-1) is updated in
     place (shifted by one, x appended); returns SiLU of the sum in x's
-    dtype, summed in float32."""
+    dtype, summed in float32. `bias` (C,) or None."""
     window = torch.cat([state, x.unsqueeze(-1)], dim=-1)       # (B, C, W)
-    out = (window.float() * weight.float()).sum(-1) + bias.float()
+    out = (window.float() * weight.float()).sum(-1) + _bias(bias, x)
     state.copy_(window[..., 1:])
     return F.silu(out).to(x.dtype)
 

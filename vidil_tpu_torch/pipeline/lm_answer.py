@@ -1,7 +1,13 @@
 """VidIL's language-model stage on the card: the few-shot prompts that
-`pipeline/generate_prompts.py` writes, answered by a Nemotron-H model
-(`models/nemotron_h.py`) in the GPT-3 response shape that
-`pipeline/gpt3.py:process_gpt3_response` reads.
+`pipeline/generate_prompts.py` writes, answered by a hybrid language model
+in the GPT-3 response shape that `pipeline/gpt3.py:process_gpt3_response`
+reads. Two models run on it, picked by their config's ``model_type``
+(`MODELS`): Nemotron-H (`models/nemotron_h.py`: Mamba-2, GQA attention and
+relu^2 experts) and Kimi Linear (`models/kimi_linear.py`: KDA, latent
+attention and SwiGLU experts, of which a config may hold a range, the
+card's share of an expert-parallel deployment). Both keep the same cache
+contract (`init_cache`, a packed `prefill` that fills row b with prompt b,
+a one-token `step`).
 
 `LMAnswerEngine` serves chunks of prompts as `pipeline/capfilt.py`'s
 engine serves chunks of videos: `dispatch_chunk` tokenizes on the host,
@@ -20,8 +26,10 @@ prompt starts with ``<s>``; an answer ends at ``</s>``.
 Spans (`utils/profiling.py:annotate`): ``lm.dispatch`` (the whole
 dispatch) holding ``lm.prefill`` and each decode step's ``lm.decode``
 (inside one ``lm.graph`` when the decode is replayed from its graphs);
-``lm.mamba``, ``lm.attention``, ``lm.route`` and ``lm.experts`` inside
-eager layers; ``lm.complete``.
+inside eager layers the model's mixers' spans (Nemotron-H: ``lm.mamba``,
+``lm.attention``; Kimi Linear: ``lm.kda`` holding ``lm.kda_scan``,
+``lm.mla``, ``lm.dense``) and ``lm.route`` and ``lm.experts``;
+``lm.complete``.
 """
 
 from __future__ import annotations
@@ -33,12 +41,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vidil_tpu_torch.models import nemotron_h
+from vidil_tpu_torch.models import kimi_linear, nemotron_h
 from vidil_tpu_torch.ops import ssd
 from vidil_tpu_torch.ops.decode_graph import DecodeGraphs, eager_piece, storage_key
 from vidil_tpu_torch.ops.generation import greedy_search
 from vidil_tpu_torch.utils.pinned import PinnedArena
 from vidil_tpu_torch.utils.profiling import annotate
+
+# each language model by its config's model_type: its module (init_cache,
+# prefill, step) and its seeded initialisation
+MODELS = {"nemotron_h": (nemotron_h, nemotron_h.init_nemotron_h),
+          "kimi_linear": (kimi_linear, kimi_linear.init_kimi_linear)}
 
 SPECIALS = ["<pad>", "<unk>", "<s>", "</s>", "<nl>"]
 PAD, UNK, BOS, EOS, NL = range(5)
@@ -97,15 +110,16 @@ class LMChunk:
 
 
 class LMAnswerEngine:
-    """Answers chunks of prompts (see the module's docstring): `params`
-    from `models/nemotron_h.py:init_nemotron_h` (or a checkpoint in its
-    layout), prompts of at most `max_prompt_tokens` ids, `max_new_tokens`
-    greedy tokens each."""
+    """Answers chunks of prompts (see the module's docstring): `cfg` a
+    config of `MODELS`, `params` from its model's initialisation (or a
+    checkpoint in its layout), prompts of at most `max_prompt_tokens` ids,
+    `max_new_tokens` greedy tokens each."""
 
     def __init__(self, params, cfg, tokenizer: WordTokenizer, *, max_prompt_tokens: int,
                  max_new_tokens: int = 32, device=None):
         self.params = params
         self.cfg = cfg
+        self.model = MODELS[cfg.model_type][0]
         self.tokenizer = tokenizer
         self.max_prompt_tokens = max_prompt_tokens
         self.max_new_tokens = max_new_tokens
@@ -120,7 +134,7 @@ class LMAnswerEngine:
     def cache(self, batch: int) -> dict:
         """The engine's hybrid cache for `batch` rows (made once)."""
         if batch not in self._caches:
-            self._caches[batch] = nemotron_h.init_cache(self.cfg, batch, self.capacity,
+            self._caches[batch] = self.model.init_cache(self.cfg, batch, self.capacity,
                                                         self.device,
                                                         self.params["embed"].dtype)
         return self._caches[batch]
@@ -138,10 +152,10 @@ class LMAnswerEngine:
         return np.concatenate(rows).astype(np.int64), ssd.Packing(tuple(len(r) for r in rows))
 
     def _prefill(self, ids, packed, cache):
-        return nemotron_h.prefill(self.params, self.cfg, ids, packed, cache, self.probe)
+        return self.model.prefill(self.params, self.cfg, ids, packed, cache, self.probe)
 
     def _step(self, tokens, cache):
-        logits = nemotron_h.step(self.params, self.cfg, tokens, cache, self.probe)
+        logits = self.model.step(self.params, self.cfg, tokens, cache, self.probe)
         if self.probe is not None:
             self.probe.setdefault("logits", []).append(logits)
         return logits, cache
